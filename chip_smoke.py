@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Drive pyprob_tpu_torch's guided importance-sampling path on one NVIDIA GPU.
+
+Run from the repository root on a machine with one CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device: the card's name (exits non-zero without a card);
+2. build: nvcc builds the hand-written kernels for sm_90a from the sources
+   in this checkout;
+3. kernels: each kernel against its plain PyTorch version at the serving
+   path's shapes, with its time (CUDA events, device time of back-to-back
+   launches), the plain version's time and its bound on this card;
+4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
+   posterior N(7.25, sqrt(1/1.2));
+5. guided IS: 1,000,000 traces proposed by an LSTM inference network at
+   full width (lstm_dim 512, 10 mixture components, 16-d observe
+   embeddings), with both kernels' launch counts on that run;
+6. card vs CPU: one guided step at N = 4,096 on both devices.
+
+Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits non-zero without that line.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+OBSERVE = {"obs0": 8.0, "obs1": 9.0}
+POSTERIOR_MEAN, POSTERIOR_STDDEV = 7.25, math.sqrt(1.0 / 1.2)
+NUM_TRACES = 1_000_000
+MIXTURE_ROWS, MIXTURE_COMPONENTS = 1 << 18, 10  # one chunk of the path
+STATS_N = 1_000_000
+
+# Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
+# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
+MEMORY_RATE, F32_RATE = 3.35e12, 67e12
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def time_ms(fn, iters=100, warmup=10):
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls, enqueued behind a sleep kernel so host overhead between
+    launches does not reach the device timeline."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than enqueueing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        sys.exit(1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({
+        "phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+        "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+    })
+    return kind, smi
+
+
+def phase_build():
+    from pyprob_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    build.library()
+    ptxas = [line.strip() for line in build.build_log.splitlines() if "ptxas" in line]
+    for line in ptxas:
+        print(line, flush=True)
+    emit({
+        "phase": "build", "seconds": time.perf_counter() - t0,
+        "nvcc_seconds": build.build_seconds, "flags": " ".join(build.NVCC_FLAGS),
+        "sources": list(build.SOURCES),
+    })
+
+
+def mixture_inputs(rows, components, device, seed=0):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(size=(rows, components))
+    arrays = (
+        rng.normal(7.0, 3.0, rows),
+        rng.normal(7.0, 2.0, (rows, components)),
+        rng.uniform(0.3, 3.0, (rows, components)),
+        raw - np.log(np.exp(raw).sum(1, keepdims=True)),
+    )
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
+
+
+def stats_inputs(n, device, seed=1):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lw = rng.normal(-20.0, 6.0, n).astype(np.float32)
+    lw[rng.random(n) < 0.01] = -np.inf
+    return lw, torch.tensor(lw, device=device)
+
+
+def phase_kernels():
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    rate, flops = MEMORY_RATE, F32_RATE
+    rows = []
+
+    B, Kc = MIXTURE_ROWS, MIXTURE_COMPONENTS
+    inputs = mixture_inputs(B, Kc, "cuda")
+    out = K.mixture_normal_log_prob(*inputs)
+    ref = K.mixture_normal_log_prob_plain(*inputs)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()), "mixture kernel: non-finite output")
+    check(err <= 1e-5, f"mixture kernel vs plain: max abs err {err} > 1e-5")
+    bytes_moved = 4 * B + 3 * 4 * B * Kc + 4 * B
+    ops = 15 * B * Kc + 3 * B  # ~15 per component (2 transcendental), 3 per row
+    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    rows.append({
+        "name": "mixture_normal_log_prob", "route": "cuda",
+        "source": "pyprob_tpu_torch/ops/csrc/mixture_normal.cu",
+        "replaces": "pyprob_tpu/ops/kernels.py:72",
+        "max_abs_err": err, "tolerance": "atol 1e-5 vs plain",
+        "ms": time_ms(lambda: K.mixture_normal_log_prob(*inputs)),
+        "plain_ms": time_ms(lambda: K.mixture_normal_log_prob_plain(*inputs)),
+        "bound_ms": bound,
+        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "library_ms": None, "shape": [B, Kc],
+    })
+
+    lw_np, lw = stats_inputs(STATS_N, "cuda")
+    m, s1, s2 = (float(v) for v in K.log_weight_stats(lw))
+    pm, ps1, ps2 = (float(v) for v in K.log_weight_stats_plain(lw))
+    w = lw_np.astype(np.float64)
+    rm = w.max()
+    e = np.exp(w - rm)
+    rs1, rs2 = e.sum(), (e * e).sum()
+    check(m == rm and m == pm, f"log_weight_stats: max {m} != {rm}")
+    for got, want, what in ((s1, rs1, "s1"), (s2, rs2, "s2"), (s1, ps1, "s1 plain"), (s2, ps2, "s2 plain")):
+        check(abs(got - want) <= 1e-5 * abs(want), f"log_weight_stats {what}: {got} vs {want}")
+    bytes_moved = 4 * STATS_N + 12
+    ops = 6 * STATS_N
+    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    rows.append({
+        "name": "log_weight_stats", "route": "cuda",
+        "source": "pyprob_tpu_torch/ops/csrc/log_weight_stats.cu",
+        "replaces": "pyprob_tpu/ops/kernels.py:309",
+        "max_abs_err": max(abs(m - pm), abs(s1 - ps1), abs(s2 - ps2)),
+        "max_rel_err_vs_float64": max(abs(s1 - rs1) / rs1, abs(s2 - rs2) / rs2),
+        "tolerance": "m exact, s1 and s2 rtol 1e-5 vs float64 and plain",
+        "ms": time_ms(lambda: K.log_weight_stats(lw)),
+        "plain_ms": time_ms(lambda: K.log_weight_stats_plain(lw)),
+        "bound_ms": bound,
+        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "library_ms": None, "shape": [STATS_N],
+    })
+    counts = {
+        "mixture_normal_log_prob": K.mixture_normal_log_prob.launches,
+        "log_weight_stats": K.log_weight_stats.launches,
+    }
+    for row in rows:
+        emit({
+            "phase": "kernel", **row, "bound_us": row["bound_ms"] * 1e3,
+            "launches_in_phase": counts[row["name"]],
+        })
+    return rows
+
+
+def check_posterior(post, label):
+    mean, std = float(post.mean), float(post.stddev)
+    check(abs(mean - POSTERIOR_MEAN) <= 0.5, f"{label}: mean {mean}")
+    check(abs(std - POSTERIOR_STDDEV) <= 0.5, f"{label}: stddev {std}")
+    return mean, std
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_prior_is(device, num_traces):
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+    from pyprob_tpu_torch.ops import kernels as K
+
+    model = GaussianUnknownMean()
+    model.posterior_results(num_traces, observe=OBSERVE, vectorized=True)  # warm-up
+    K.reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    post = model.posterior_results(num_traces, observe=OBSERVE, vectorized=True)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = K.log_weight_stats.launches
+    mean, std = check_posterior(post, "prior IS")
+    if device == "cuda":
+        check(launches >= 1, "prior IS did not launch log_weight_stats")
+    emit({
+        "phase": "prior_is", "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "ess": post.effective_sample_size,
+        "ess_fraction": post.effective_sample_size / num_traces,
+        "log_weight_stats_launches": launches,
+    })
+
+
+def guided_model(lstm_dim):
+    """GaussianUnknownMean with a freshly built LSTM inference network:
+    layers grown from prior traces of the port's batched prior, weights from
+    the port's generator (no training)."""
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+    from pyprob_tpu_torch.nn import InferenceNetworkLSTM
+
+    model = GaussianUnknownMean()
+    net = InferenceNetworkLSTM(
+        model=model,
+        observe_embeddings={"obs0": {"dim": 16}, "obs1": {"dim": 16}},
+        lstm_dim=lstm_dim,
+        proposal_mixture_components=10,
+    )
+    net._pre_generate_layers(model.prior(num_traces=8))
+    model._inference_network = net
+    return model
+
+
+def phase_guided_is(device, num_traces, lstm_dim):
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.ops import kernels as K
+
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    model = guided_model(lstm_dim)
+    run = lambda: model.posterior_results(  # noqa: E731
+        num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
+    )
+    run()  # warm-up
+    K.reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    post = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = {
+        "mixture_normal_log_prob": K.mixture_normal_log_prob.launches,
+        "log_weight_stats": K.log_weight_stats.launches,
+    }
+    mean, std = check_posterior(post, "guided IS")
+    ess = post.effective_sample_size
+    ess64 = pp.util.effective_sample_size(post.log_weights)
+    check(abs(ess - ess64) <= 1e-4 * ess64, f"guided IS: kernel ESS {ess} vs float64 {ess64}")
+    if device == "cuda":
+        check(ess >= 1000, f"guided IS: ESS {ess} < 1000")
+        for name, n in launches.items():
+            check(n >= 1, f"guided IS did not launch {name}")
+    emit({
+        "phase": "guided_is", "traces": num_traces, "lstm_dim": lstm_dim,
+        "mixture_components": 10, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "ess": ess, "ess_float64": ess64, "ess_fraction": ess / num_traces,
+        "launches": launches,
+    })
+    return model, launches
+
+
+def forced_step_log_q(model, mus, device):
+    """log q of one guided step at forced values ``mus`` on ``device``."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch import vectorized
+
+    pp.set_device(device)
+    net = model._inference_network.to(device)
+    step = net.make_vectorized_proposal_step(OBSERVE)
+    captured = {}
+    forced = torch.tensor(mus, device=device)
+
+    def forced_step(site, distribution, generator, observed, **kwargs):
+        value, log_q = step(site, distribution, generator, observed, forced_value=forced)
+        captured["log_q"] = log_q
+        return value, log_q
+
+    forced_step.reset = step.reset
+    vectorized.run_traced(
+        model, len(mus), OBSERVE, pp.TraceMode.POSTERIOR,
+        pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
+        proposal_step=forced_step,
+    )
+    return captured["log_q"].cpu().numpy()
+
+
+def phase_card_vs_cpu(model, n, devices=("cuda", "cpu")):
+    import pyprob_tpu_torch as pp
+
+    mus = np.random.default_rng(2).normal(7.0, 3.0, n).astype(np.float32)
+    a, b = (forced_step_log_q(model, mus, d) for d in devices)
+    pp.set_device(devices[0])
+    model._inference_network.to(devices[0])
+    err = float(np.abs(a - b).max())
+    check(np.isfinite(a).all() and err <= 1e-4, f"card vs CPU log q: max abs err {err}")
+    emit({"phase": "card_vs_cpu", "n": n, "max_abs_err": err, "tolerance": "atol 1e-4"})
+
+
+def main():
+    kind, smi = phase_device()
+    import torch
+    import pyprob_tpu_torch as pp
+
+    pp.set_device("cuda")
+    pp.seed(0)
+    phase_build()
+    rows = phase_kernels()
+    phase_prior_is("cuda", NUM_TRACES)
+    model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
+    phase_card_vs_cpu(model, 4096)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }})
+
+
+if __name__ == "__main__":
+    main()

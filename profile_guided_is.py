@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where the time of one guided importance-sampling run goes on the card.
+
+Runs pyprob_tpu_torch's guided IS for GaussianUnknownMean (a freshly built
+LSTM network, lstm_dim 512, 10 mixture components, 16-d observe
+embeddings) over 1,000,000 traces once to warm up, then once under
+``torch.profiler``, and prints one JSON line: wall time, device time summed
+by kernel (top entries and groups), the device's idle share of the wall
+time, and the peak device memory.  Needs one CUDA card; run from the
+repository root:
+
+    python3 profile_guided_is.py
+"""
+
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import pyprob_tpu_torch as pp
+from chip_smoke import NUM_TRACES, OBSERVE, guided_model
+
+LSTM_DIM = 512
+
+
+def device_us(event):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return getattr(event, attr)
+    return 0.0
+
+
+def group(name):
+    n = name.lower()
+    if "mixture_normal_log_prob_kernel" in n:
+        return "mixture_normal_log_prob (CUDA kernel)"
+    if "lw_stats" in n:
+        return "log_weight_stats (CUDA kernel)"
+    if "gemm" in n or "cutlass" in n or "cublas" in n:
+        return "matmul (cuBLAS)"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if "elementwise" in n or "vectorized" in n or "reduce" in n:
+        return "elementwise and reductions (PyTorch)"
+    return "other"
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_guided_is: no CUDA device is available")
+    pp.set_device("cuda")
+    pp.seed(0)
+    pp.set_verbosity(0)
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    model = guided_model(LSTM_DIM)
+
+    def run():
+        return model.posterior_results(
+            NUM_TRACES, observe=OBSERVE, vectorized=True, inference_engine=engine
+        )
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        post = run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0 and e.device_type.name == "CUDA"]
+    busy_us = sum(device_us(e) for e in kernels)
+    groups = {}
+    for e in kernels:
+        g = group(e.key)
+        groups[g] = groups.get(g, 0.0) + device_us(e)
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "traces": NUM_TRACES, "lstm_dim": LSTM_DIM,
+        "wall_ms": wall_us / 1e3, "traces_per_s": NUM_TRACES / (wall_us / 1e6),
+        "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / wall_us,
+        "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [
+            {"name": e.key[:100], "ms": device_us(e) / 1e3, "calls": e.count} for e in top
+        ],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "ess_fraction": post.effective_sample_size / NUM_TRACES,
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,43 @@
+"""pyprob_tpu_torch: the PyTorch and CUDA port of pyprob_tpu, a trace-based
+universal probabilistic programming framework.
+
+Models are ordinary Python programs calling ``sample`` / ``observe``.  This
+port runs on an NVIDIA GPU (``cuda``) unless ``set_device('cpu')`` asks for
+the CPU.  So far it serves importance sampling, from the prior and guided
+by an LSTM inference network, on its batched tier, with the mixture
+log-density and the log-weight statistics in hand-written CUDA kernels
+(``pyprob_tpu_torch.ops``).
+"""
+
+from .util import (
+    __version__,
+    TraceMode,
+    PriorInflation,
+    InferenceEngine,
+    InferenceNetwork,
+    ObserveEmbedding,
+    seed,
+    set_verbosity,
+    set_device,
+)
+from .state import sample, observe
+from .model import Model
+from . import distributions
+from . import util
+
+__all__ = [
+    "__version__",
+    "TraceMode",
+    "PriorInflation",
+    "InferenceEngine",
+    "InferenceNetwork",
+    "ObserveEmbedding",
+    "seed",
+    "set_verbosity",
+    "set_device",
+    "sample",
+    "observe",
+    "Model",
+    "distributions",
+    "util",
+]

@@ -1,0 +1,135 @@
+"""Hand-written CUDA kernels for the hot distribution math, with their plain
+PyTorch versions.
+
+Counterparts of the Pallas kernels in ``pyprob_tpu/ops/kernels.py``:
+
+* ``mixture_normal_log_prob``: the mixture-of-Normals log-density that
+  scores the proposal of every particle (``csrc/mixture_normal.cu``);
+* ``log_weight_stats``: (max, Σe^(w−max), Σe^2(w−max)) over the run's
+  ``[N]`` log-weights, which give the ESS and log Z of a result
+  (``csrc/log_weight_stats.cu``).
+
+Each wrapper takes the plain version for a tensor on the CPU, and for a
+CUDA tensor launches its kernel or raises: there is no fallback.  It
+checks device, dtype, shape and contiguity, allocates its outputs with
+``torch.empty``, launches on the current stream without synchronising,
+and counts its launches in a plain integer attribute (``.launches``).
+The kernels are built at first launch (``ops.build``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _check(name, tensors, shapes):
+    device = tensors[0].device
+    for t, shape in zip(tensors, shapes):
+        if t.device != device:
+            raise ValueError(f"{name}: all inputs must be on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32 inputs, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return device
+
+
+def _raise_on_error(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# mixture-of-Normals log-density: x [B], means/stddevs/logits [B, K] -> [B]
+# ---------------------------------------------------------------------------
+
+
+def mixture_normal_log_prob_plain(x, means, stddevs, logits):
+    """Plain PyTorch version (``pyprob_tpu`` ``_mixture_normal_ref``)."""
+    z = (x[:, None] - means) / stddevs
+    comp = -0.5 * z * z - torch.log(stddevs) - _LOG_SQRT_2PI
+    return torch.logsumexp(comp + logits, dim=-1)
+
+
+def mixture_normal_log_prob(x, means, stddevs, logits):
+    """Mixture-of-Normals log-density per row.  x: [B]; params: [B, K]."""
+    if means.dim() != 2 or means.shape[1] < 1:
+        raise ValueError("mixture_normal_log_prob: means must be [B, K] with K >= 1")
+    B, K = means.shape
+    device = _check(
+        "mixture_normal_log_prob",
+        (x, means, stddevs, logits),
+        ((B,), (B, K), (B, K), (B, K)),
+    )
+    if device.type == "cpu":
+        return mixture_normal_log_prob_plain(x, means, stddevs, logits)
+    out = torch.empty((B,), dtype=torch.float32, device=device)
+    if B == 0:
+        return out
+    err = build.library().pyprob_mixture_normal_log_prob_f32(
+        x.data_ptr(), means.data_ptr(), stddevs.data_ptr(), logits.data_ptr(),
+        out.data_ptr(), B, K, device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on_error("mixture_normal_log_prob", err)
+    mixture_normal_log_prob.launches += 1
+    return out
+
+
+mixture_normal_log_prob.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# log-weight statistics: [N] -> (max, Σ e^(w−max), Σ e^2(w−max))
+# ---------------------------------------------------------------------------
+
+
+def log_weight_stats_plain(log_weights):
+    """Plain PyTorch version (``pyprob_tpu`` ``_log_weight_stats_ref``),
+    giving (−inf, 0, 0) when every weight is −inf."""
+    lw = log_weights.reshape(-1)
+    m = lw.max()
+    e = torch.exp(lw - torch.where(torch.isneginf(m), torch.zeros_like(m), m))
+    return m, e.sum(), (e * e).sum()
+
+
+def log_weight_stats(log_weights):
+    """(max, Σ e^(w−max), Σ e^2(w−max)) of [N] float32 log-weights, as
+    three 0-d tensors on their device.  ESS = s1²/s2; log Z = max + log s1."""
+    if log_weights.dim() != 1:
+        raise ValueError("log_weight_stats: expected a 1-D tensor of log-weights")
+    n = log_weights.shape[0]
+    device = _check("log_weight_stats", (log_weights,), ((n,),))
+    if n == 0:
+        raise ValueError("log_weight_stats: no log-weights")
+    if device.type == "cpu":
+        return log_weight_stats_plain(log_weights)
+    lib = build.library()
+    blocks = lib.pyprob_log_weight_stats_blocks(n)
+    partial = torch.empty((blocks, 3), dtype=torch.float32, device=device)
+    out = torch.empty((3,), dtype=torch.float32, device=device)
+    err = lib.pyprob_log_weight_stats_f32(
+        log_weights.data_ptr(), partial.data_ptr(), out.data_ptr(), n, blocks,
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on_error("log_weight_stats", err)
+    log_weight_stats.launches += 1
+    return out[0], out[1], out[2]
+
+
+log_weight_stats.launches = 0
+
+
+def reset_launch_counts():
+    mixture_normal_log_prob.launches = 0
+    log_weight_stats.launches = 0

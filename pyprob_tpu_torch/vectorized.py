@@ -1,0 +1,577 @@
+"""Batched execution tier: N particles per ``forward`` call.
+
+Counterpart of ``pyprob_tpu/vectorized.py``.  The JAX package traces
+``forward`` once under ``jax.vmap``; here ``forward`` runs once per chunk
+of particles with a handler installed in ``state`` that draws an explicit
+``[N]`` tensor at every ``sample`` site and accumulates ``[N]`` log-weights
+on the device.  Data-dependent Python control flow on those tensors fails
+as it fails under ``vmap``, and such models raise (the interpreter tier
+that would run them is not ported yet).  Results stay on the device until
+the end of a run; the ESS and log Z of a result come from the
+``log_weight_stats`` kernel over the run's ``[N]`` log-weights.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from . import state, util
+from .address import extract_address
+from .distributions import Categorical, Empirical, Normal
+from .ops import kernels
+from .trace import Trace, Variable
+from .util import InferenceEngine, PriorInflation, TraceMode
+
+_INTERPRETER_LATER = (
+    "the interpreter tier (one trace at a time on the host) is not ported "
+    "yet; it comes with the engines slice"
+)
+
+# Particles per forward call.  Bounds device memory: at lstm_dim 512 the
+# LSTM gates of one chunk are [2^18, 2048] float32, 2 GiB.
+_BATCH_LIMIT = 1 << 18
+
+
+def _draw(distribution, n, generator):
+    """One draw per particle: [n] values from a scalar or [n]-batched
+    distribution."""
+    shape = (n,) if distribution.batch_shape == () else ()
+    return distribution._sample(generator, shape)
+
+
+class SiteRecord:
+    """Host-side record of one sample/observe site met while running
+    ``forward``."""
+
+    __slots__ = (
+        "address_base",
+        "address",
+        "instance",
+        "name",
+        "control",
+        "observed",
+        "distribution",
+    )
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+class VectorizedHandler:
+    """Effect handler active while ``forward`` runs over a particle batch."""
+
+    def __init__(
+        self,
+        num_particles,
+        generator,
+        trace_mode,
+        inference_engine,
+        observed,
+        root_function_name,
+        prior_inflation=PriorInflation.DISABLED,
+        likelihood_importance=1.0,
+        proposal_step=None,
+    ):
+        self.n = num_particles
+        self.generator = generator
+        self.device = generator.device
+        self.trace_mode = trace_mode
+        self.inference_engine = inference_engine
+        self.observed = observed or {}
+        self.root_function_name = root_function_name
+        self.prior_inflation = prior_inflation
+        self.likelihood_importance = likelihood_importance
+        self.proposal_step = proposal_step
+        if proposal_step is not None:
+            proposal_step.reset(num_particles)
+        self.sites = []
+        self.values = []
+        self.log_probs = []
+        self.instance_counts = {}
+        zeros = lambda: torch.zeros(  # noqa: E731
+            (num_particles,), dtype=util.dtype(), device=self.device
+        )
+        self.log_importance_weight = zeros()
+        self.log_prob_observed = zeros()
+        self.log_prob_total = zeros()
+
+    def _make_address(self, address, suffix):
+        if address is None:
+            base = extract_address(self.root_function_name) + "__" + suffix
+        else:
+            base = address + "__" + suffix
+        instance = self.instance_counts.get(base, 0) + 1
+        self.instance_counts[base] = instance
+        return base, base + "__" + str(instance), instance
+
+    def _per_particle(self, log_prob):
+        """A site's log-density as one [n] value per particle."""
+        if log_prob.dim() > 1:
+            log_prob = log_prob.reshape(self.n, -1).sum(dim=1)
+        return log_prob.expand(self.n)
+
+    def _inflate(self, distribution):
+        if self.prior_inflation == PriorInflation.ENABLED:
+            if isinstance(distribution, Categorical):
+                n = distribution.num_categories
+                return Categorical(
+                    probs=torch.full((n,), 1.0 / n, dtype=util.dtype(), device=self.device)
+                )
+            if isinstance(distribution, Normal):
+                return Normal(distribution.mean, distribution.stddev * 3)
+        return None
+
+    def _is_weighted(self):
+        return self.inference_engine in (
+            InferenceEngine.IMPORTANCE_SAMPLING,
+            InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
+        )
+
+    def _record(self, site, value, log_prob):
+        self.sites.append(site)
+        self.values.append(value)
+        self.log_probs.append(log_prob)
+
+    def sample(self, distribution, name=None, address=None, control=True):
+        base, full, instance = self._make_address(address, distribution.address_suffix)
+        site = SiteRecord(
+            address_base=base,
+            address=full,
+            instance=instance,
+            name=name,
+            control=control,
+            observed=False,
+            distribution=distribution,
+        )
+        if name is not None and name in self.observed:
+            value = util.to_tensor(self.observed[name], self.device)
+            log_prob = self.likelihood_importance * self._per_particle(
+                distribution.log_prob(value)
+            )
+            if self._is_weighted():
+                self.log_importance_weight = self.log_importance_weight + log_prob
+            self.log_prob_observed = self.log_prob_observed + log_prob
+            self.log_prob_total = self.log_prob_total + log_prob
+            site.control, site.observed = False, True
+            self._record(site, value, log_prob)
+            return value
+
+        if (
+            self.trace_mode == TraceMode.POSTERIOR
+            and self.inference_engine
+            == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+            and control
+            and self.proposal_step is not None
+        ):
+            value, proposal_log_prob = self.proposal_step(
+                site, distribution, self.generator, self.observed
+            )
+            log_prob = self._per_particle(distribution.log_prob(value))
+            self.log_importance_weight = (
+                self.log_importance_weight + log_prob - proposal_log_prob
+            )
+            self.log_prob_total = self.log_prob_total + log_prob
+            self._record(site, value, log_prob)
+            return value
+
+        inflated = self._inflate(distribution) if control else None
+        proposal = inflated if inflated is not None else distribution
+        value = _draw(proposal, self.n, self.generator)
+        log_prob = self._per_particle(distribution.log_prob(value))
+        if inflated is not None:
+            self.log_importance_weight = (
+                self.log_importance_weight
+                + log_prob
+                - self._per_particle(inflated.log_prob(value))
+            )
+        if control:
+            self.log_prob_total = self.log_prob_total + log_prob
+        self._record(site, value, log_prob)
+        return value
+
+    def observe(self, distribution, value=None, name=None, address=None):
+        base, full, instance = self._make_address(address, distribution.address_suffix)
+        site = SiteRecord(
+            address_base=base,
+            address=full,
+            instance=instance,
+            name=name,
+            control=False,
+            observed=True,
+            distribution=distribution,
+        )
+        if name is not None and name in self.observed:
+            value = util.to_tensor(self.observed[name], self.device)
+        elif value is not None:
+            value = util.to_tensor(value, self.device)
+        elif self.trace_mode == TraceMode.PRIOR_FOR_INFERENCE_NETWORK:
+            value = _draw(distribution, self.n, self.generator)
+        if value is None:
+            site.observed = False
+            self._record(site, None, None)
+            return None
+        log_prob = self.likelihood_importance * self._per_particle(
+            distribution.log_prob(value)
+        )
+        if self._is_weighted():
+            self.log_importance_weight = self.log_importance_weight + log_prob
+        self.log_prob_observed = self.log_prob_observed + log_prob
+        self.log_prob_total = self.log_prob_total + log_prob
+        self._record(site, value, log_prob)
+        return value
+
+
+def run_traced(
+    model,
+    num_particles,
+    observed,
+    trace_mode,
+    inference_engine,
+    prior_inflation=PriorInflation.DISABLED,
+    likelihood_importance=1.0,
+    proposal_step=None,
+    generator=None,
+    args=(),
+    kwargs=None,
+):
+    """Run ``forward`` once over ``num_particles`` particles under the
+    batched handler; returns (outputs, handler).  Outputs hold [n] device
+    tensors keyed as the JAX package's."""
+    handler = VectorizedHandler(
+        num_particles=num_particles,
+        generator=generator if generator is not None else util.generator(),
+        trace_mode=trace_mode,
+        inference_engine=inference_engine,
+        observed=observed,
+        root_function_name=model.forward.__code__.co_name,
+        prior_inflation=prior_inflation,
+        likelihood_importance=likelihood_importance,
+        proposal_step=proposal_step,
+    )
+    prev = state._set_handler(handler)
+    try:
+        result = model.forward(*args, **(kwargs or {}))
+    except RuntimeError as e:
+        msg = str(e)
+        if "ambiguous" in msg or "cannot be converted to Scalar" in msg:
+            raise NotImplementedError(
+                f"model {model.name!r} branches on sampled values, so it does "
+                f"not run on the batched tier, and {_INTERPRETER_LATER}"
+            ) from e
+        raise
+    finally:
+        state._set_handler(prev)
+    if isinstance(result, torch.Tensor):
+        result = result.expand(num_particles) if result.dim() == 0 else result
+    outputs = {
+        "result": result,
+        "log_importance_weight": handler.log_importance_weight,
+        "log_prob_observed": handler.log_prob_observed,
+        "log_prob_total": handler.log_prob_total,
+        "values": {
+            s.address: v.expand(num_particles) if v.dim() == 0 else v
+            for s, v in zip(handler.sites, handler.values)
+            if v is not None
+        },
+        "log_probs": {
+            s.address: lp
+            for s, lp in zip(handler.sites, handler.log_probs)
+            if lp is not None
+        },
+    }
+    return outputs, handler
+
+
+def _run_batched(
+    model,
+    num_traces,
+    observed,
+    trace_mode,
+    inference_engine,
+    prior_inflation,
+    likelihood_importance,
+    proposal_step=None,
+    args=(),
+    kwargs=None,
+    fetch=None,
+):
+    """Run ``forward`` over chunks of at most ``_BATCH_LIMIT`` particles;
+    returns the outputs concatenated to ``num_traces`` on the device
+    (only the ``fetch`` keys, when given), the per-chunk distributions of
+    each site, and the site list."""
+    device = util.device()
+    observed = {
+        k: util.to_tensor(v, device) for k, v in (observed or {}).items()
+    }
+    generator = util.generator(device)
+    chunks, dists, sites = [], [], None
+    remaining = num_traces
+    while remaining > 0:
+        n = min(remaining, _BATCH_LIMIT)
+        out, handler = run_traced(
+            model, n, observed, trace_mode, inference_engine, prior_inflation,
+            likelihood_importance, proposal_step=proposal_step,
+            generator=generator, args=args, kwargs=kwargs,
+        )
+        if fetch is not None:
+            out = {k: out[k] for k in fetch}
+        else:
+            dists.append([s.distribution for s in handler.sites])
+        chunks.append(out)
+        if sites is None:
+            sites = handler.sites
+        remaining -= n
+    if len(chunks) == 1:
+        return chunks[0], dists, sites
+    return _concat(chunks), dists, sites
+
+
+def _concat(chunks):
+    first = chunks[0]
+    if isinstance(first, dict):
+        return {k: _concat([c[k] for c in chunks]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.cat(chunks, dim=0)
+    raise TypeError(
+        f"forward() returned {type(first).__name__}; the batched tier "
+        "concatenates tensors and dicts of tensors"
+    )
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def _site_leaves(per_chunk, sizes):
+    """A site's distribution parameters on the host, one row per trace:
+    batched leaves are concatenated over chunks, shared ones repeated."""
+    leaves = []
+    for ls in zip(*[d._leaves() for d in per_chunk]):
+        rows = []
+        for d, leaf, c in zip(per_chunk, ls, sizes):
+            leaf = leaf.detach().cpu()
+            batched = d.batch_shape != () and leaf.dim() >= 1 and leaf.shape[0] == c
+            rows.append(leaf if batched else leaf.expand((c,) + tuple(leaf.shape)))
+        leaves.append(torch.cat(rows))
+    return leaves
+
+
+def _materialize_traces(sites, outputs, dists, num):
+    """Per-trace ``Trace`` objects from the batched outputs (only when the
+    caller asks for traces, not results)."""
+    sizes = [_BATCH_LIMIT] * (num // _BATCH_LIMIT) + (
+        [num % _BATCH_LIMIT] if num % _BATCH_LIMIT else []
+    )
+    values = {a: _host(v) for a, v in outputs["values"].items()}
+    log_probs = {a: _host(v) for a, v in outputs["log_probs"].items()}
+    results = _host(outputs["result"])
+    lw = _host(outputs["log_importance_weight"]).astype(np.float64)
+    lp_obs = _host(outputs["log_prob_observed"])
+    lp_total = _host(outputs["log_prob_total"])
+    leaves = [
+        _site_leaves([chunk[j] for chunk in dists], sizes)
+        if s.distribution._param_names
+        else None
+        for j, s in enumerate(sites)
+    ]
+    traces = []
+    for i in range(num):
+        tr = Trace()
+        for j, s in enumerate(sites):
+            v = values.get(s.address)
+            lp = log_probs.get(s.address)
+            dist = (
+                None
+                if leaves[j] is None
+                else type(s.distribution)._rebuild([leaf[i] for leaf in leaves[j]])
+            )
+            tr.add(
+                Variable(
+                    distribution=dist,
+                    value=None if v is None else v[i],
+                    address_base=s.address_base,
+                    address=s.address,
+                    instance=s.instance,
+                    log_prob=None if lp is None else lp[i],
+                    control=s.control,
+                    name=s.name,
+                    observed=s.observed,
+                )
+            )
+        tr.end(results[i], None)
+        tr.log_importance_weight = float(lw[i])
+        tr.log_prob_observed = lp_obs[i]
+        tr.log_prob = lp_total[i]
+        traces.append(tr)
+    return traces
+
+
+def vectorized_traces(
+    model,
+    num_traces,
+    trace_mode,
+    inference_engine=InferenceEngine.IMPORTANCE_SAMPLING,
+    prior_inflation=PriorInflation.DISABLED,
+    map_func=None,
+    observe=None,
+    file_name=None,
+    likelihood_importance=1.0,
+    proposal_step=None,
+    args=(),
+    kwargs=None,
+):
+    """Batched counterpart of ``Model._traces``; returns an Empirical."""
+    if file_name is not None:
+        raise NotImplementedError(
+            "file-backed Empirical results come with the storage slice"
+        )
+    if observe is not None and any(v is None for v in observe.values()):
+        raise RuntimeError(f"Observe has missing value(s): {observe}")
+    t0 = time.time()
+    results_only = getattr(map_func, "__name__", "") == "trace_result"
+    outputs, dists, sites = _run_batched(
+        model,
+        num_traces,
+        observe,
+        trace_mode,
+        inference_engine,
+        prior_inflation,
+        likelihood_importance,
+        proposal_step=proposal_step,
+        args=args,
+        kwargs=kwargs,
+        fetch=["result", "log_importance_weight"] if results_only else None,
+    )
+    lw = outputs["log_importance_weight"]
+    finite = torch.isfinite(lw)
+    neg_inf = torch.full_like(lw, -math.inf)
+    if trace_mode == TraceMode.PRIOR:
+        lw = torch.where(finite, torch.ones_like(lw), neg_inf)
+    else:
+        lw = torch.where(finite, lw, neg_inf)
+    # ESS and log Z from the device-resident weights, one host fetch
+    m, s1, s2 = (float(v) for v in torch.stack(kernels.log_weight_stats(lw)).cpu())
+    if m == -math.inf:
+        ess, log_evidence = 0.0, -math.inf
+    else:
+        ess, log_evidence = s1 * s1 / s2, m + math.log(s1)
+    log_weights = _host(lw).astype(np.float64)
+    keep = np.isfinite(log_weights)
+    if not keep.all():
+        warnings.warn(f"Discarding {(~keep).sum()} traces with nan/inf log_weight.")
+
+    if results_only and isinstance(outputs["result"], torch.Tensor):
+        values = _host(outputs["result"])[keep]
+        emp = Empirical.from_arrays(values, log_weights[keep], effective_sample_size=ess)
+    else:
+        traces = _materialize_traces(sites, outputs, dists, num_traces)
+        if map_func is not None:
+            traces = [map_func(t) for t in traces]
+        emp = Empirical(
+            values=[v for v, k in zip(traces, keep) if k],
+            log_weights=log_weights[keep],
+            effective_sample_size=ess,
+        )
+    emp.add_metadata(log_evidence=log_evidence)
+    duration = time.time() - t0
+    if util.verbosity() > 1:
+        util.log_print(
+            f"[batched tier] {num_traces:,} traces in {duration:.3f}s "
+            f"({num_traces / max(duration, 1e-9):,.0f} traces/s), "
+            f"ESS {emp.effective_sample_size:,.1f}"
+        )
+    return emp
+
+
+def vectorized_prior(
+    model,
+    num_traces,
+    prior_inflation=PriorInflation.DISABLED,
+    map_func=None,
+    file_name=None,
+    *args,
+    **kwargs,
+):
+    emp = vectorized_traces(
+        model,
+        num_traces,
+        TraceMode.PRIOR,
+        prior_inflation=prior_inflation,
+        map_func=map_func,
+        file_name=file_name,
+        args=args,
+        kwargs=kwargs,
+    )
+    emp.rename(f"Prior, traces: {emp.length:,}")
+    emp.add_metadata(
+        op="prior",
+        num_traces=num_traces,
+        prior_inflation=str(prior_inflation),
+        vectorized=True,
+    )
+    return emp
+
+
+def vectorized_posterior(
+    model,
+    num_traces,
+    inference_engine=InferenceEngine.IMPORTANCE_SAMPLING,
+    map_func=None,
+    observe=None,
+    file_name=None,
+    likelihood_importance=1.0,
+    *args,
+    **kwargs,
+):
+    """Batched posterior by importance sampling, from the prior (IS) or
+    from the model's inference network (IC)."""
+    if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
+        proposal_step, label = None, "IS"
+    elif inference_engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK:
+        network = model._inference_network
+        if network is None:
+            raise RuntimeError(
+                "No inference network available. Use learn_inference_network "
+                "or load_inference_network first."
+            )
+        proposal_step, label = network.cached_vectorized_proposal_step(observe), "IC"
+        if proposal_step is None:
+            raise NotImplementedError(
+                f"{type(network).__name__} has no batched proposal step"
+            )
+    else:
+        raise NotImplementedError(
+            f"{inference_engine.name} is not ported yet; it comes with the "
+            "engines slice"
+        )
+    emp = vectorized_traces(
+        model,
+        num_traces,
+        TraceMode.POSTERIOR,
+        inference_engine=inference_engine,
+        map_func=map_func,
+        observe=observe,
+        file_name=file_name,
+        likelihood_importance=likelihood_importance,
+        proposal_step=proposal_step,
+        args=args,
+        kwargs=kwargs,
+    )
+    emp.rename(
+        f"Posterior, {label} (batched), traces: {emp.length:,}, "
+        f"ESS: {emp.effective_sample_size:,.2f}"
+    )
+    emp.add_metadata(
+        op="posterior",
+        num_traces=num_traces,
+        inference_engine=str(inference_engine),
+        effective_sample_size=emp.effective_sample_size,
+        vectorized=True,
+    )
+    return emp

@@ -15,8 +15,10 @@ setup(
     ),
     long_description=long_description,
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["pyprob_tpu", "pyprob_tpu.*"]),
-    package_data={"pyprob_tpu.ppx": ["ppx.fbs"]},
+    packages=find_packages(
+        include=["pyprob_tpu", "pyprob_tpu.*", "pyprob_tpu_torch", "pyprob_tpu_torch.*"]
+    ),
+    package_data={"pyprob_tpu.ppx": ["ppx.fbs"], "pyprob_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

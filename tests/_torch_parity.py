@@ -1,0 +1,83 @@
+"""Shared set-up of the parity tests between pyprob_tpu and pyprob_tpu_torch.
+
+The Gaussian-unknown-mean body is defined once here and both packages'
+models call it: an address embeds the source line of its ``sample`` call
+and the function-name chain, so the two packages' sites get equal
+addresses and carried proposal heads land on the right address.
+"""
+
+import math
+
+import numpy as np
+
+import pyprob_tpu
+import pyprob_tpu_torch
+from pyprob_tpu.nn import InferenceNetworkLSTM as JaxLSTM
+from pyprob_tpu.nn.layers import Static
+from pyprob_tpu_torch.nn import InferenceNetworkLSTM as TorchLSTM
+
+OBSERVE = {"obs0": 8.0, "obs1": 9.0}
+POSTERIOR_MEAN, POSTERIOR_STDDEV = 7.25, math.sqrt(1.0 / 1.2)
+
+
+def gum_body(pp):
+    mu = pp.sample(pp.distributions.Normal(1.0, math.sqrt(5.0)))
+    likelihood = pp.distributions.Normal(mu, math.sqrt(2.0))
+    pp.observe(likelihood, name="obs0")
+    pp.observe(likelihood, name="obs1")
+    return mu
+
+
+class JaxGUM(pyprob_tpu.Model):
+    def forward(self):
+        return gum_body(pyprob_tpu)
+
+
+class TorchGUM(pyprob_tpu_torch.Model):
+    def forward(self):
+        return gum_body(pyprob_tpu_torch)
+
+
+def unwrap_static(tree):
+    if isinstance(tree, Static):
+        return tree.value
+    if isinstance(tree, dict):
+        return {k: unwrap_static(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [unwrap_static(v) for v in tree]
+    return np.asarray(tree) if hasattr(tree, "shape") else tree
+
+
+def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7):
+    """An untrained pyprob_tpu LSTM network for ``model``: constructor plus
+    layer pre-generation on two interpreter-tier prior traces."""
+    pyprob_tpu.seed(seed)
+    net = JaxLSTM(
+        model=model,
+        observe_embeddings={"obs0": {"dim": observe_dim}, "obs1": {"dim": observe_dim}},
+        lstm_dim=lstm_dim,
+        proposal_mixture_components=mixture_components,
+    )
+    net._pre_generate_layers(model.prior(num_traces=2).get_values())
+    return net
+
+
+def carry(jnet, model):
+    """The port's network with ``jnet``'s weights."""
+    params = unwrap_static(jnet.snapshot_params()["params"])
+    meta = {
+        "head_meta": jnet._head_meta,
+        "observe_meta": jnet._observe_meta,
+        "observe_embedding_dim": jnet._observe_embedding_dim,
+        "lstm_input_dim": jnet._lstm_input_dim,
+        "local_observe_dim": jnet._local_observe_dim,
+        "lstm_dim": jnet._lstm_dim,
+        "lstm_depth": jnet._lstm_depth,
+        "sample_embedding_dim": jnet._sample_embedding_dim,
+        "address_embedding_dim": jnet._address_embedding_dim,
+        "distribution_type_embedding_dim": jnet._distribution_type_embedding_dim,
+        "proposal_mixture_components": jnet._proposal_mixture_components,
+    }
+    net = TorchLSTM.from_numpy(model, params, meta, device="cpu")
+    model._inference_network = net
+    return net

@@ -36,3 +36,10 @@ def _mmap_guard():
     # library guards its own jit-cache misses at 45000).
     yield
     pyprob_tpu.util.relieve_compile_pressure(threshold=25000)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; the test skips itself without a card",
+    )

@@ -1,0 +1,145 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers take their plain PyTorch versions; they are
+held against the Pallas kernels run in interpret mode (as
+tests/test_ops.py runs them) and against the JAX references.  The
+``cuda``-marked tests hold each CUDA kernel against its plain version on
+the card and skip without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import pyprob_tpu  # noqa: F401
+import pyprob_tpu_torch
+from pyprob_tpu.ops import kernels as JK
+from pyprob_tpu_torch.ops import kernels as TK
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    pyprob_tpu_torch.set_device("cpu")
+    pyprob_tpu_torch.seed(0)
+    yield
+
+
+@pytest.fixture
+def pallas_interpret():
+    from jax.experimental.pallas import tpu as pltpu
+
+    JK.set_use_pallas(True)
+    with pltpu.force_tpu_interpret_mode():
+        yield
+    JK.set_use_pallas(None)
+
+
+def _mixture_inputs(B, K, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3, 3, (B,)).astype(np.float32)
+    means = rng.uniform(-2, 2, (B, K)).astype(np.float32)
+    stddevs = rng.uniform(0.5, 2, (B, K)).astype(np.float32)
+    raw = rng.uniform(-1, 1, (B, K))
+    logits = (raw - np.log(np.exp(raw).sum(1, keepdims=True))).astype(np.float32)
+    return x, means, stddevs, logits
+
+
+@pytest.mark.parametrize("B,K", [(200, 10), (37, 10), (64, 1)])
+def test_mixture_plain_matches_pallas_kernel(pallas_interpret, B, K):
+    inputs = _mixture_inputs(B, K, seed=B + K)
+    jax_in = [jnp.asarray(a) for a in inputs]
+    # jit: one compile per shape is cheaper than op-by-op interpretation
+    jax_out = np.asarray(jax.jit(JK.mixture_normal_log_prob)(*jax_in))
+    jax_ref = np.asarray(jax.jit(JK._mixture_normal_ref)(*jax_in))
+    out = TK.mixture_normal_log_prob(*[torch.from_numpy(a) for a in inputs])
+    assert out.shape == (B,)
+    np.testing.assert_allclose(out.numpy(), jax_out, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), jax_ref, atol=1e-5, rtol=0)
+
+
+def test_mixture_wrapper_rejects_bad_inputs():
+    x, means, stddevs, logits = [torch.from_numpy(a) for a in _mixture_inputs(8, 3)]
+    with pytest.raises(TypeError):
+        TK.mixture_normal_log_prob(x.double(), means, stddevs, logits)
+    with pytest.raises(ValueError):
+        TK.mixture_normal_log_prob(x[:7], means, stddevs, logits)
+    with pytest.raises(ValueError):
+        TK.mixture_normal_log_prob(x, means.t().contiguous().t(), stddevs, logits)
+
+
+def _log_weights(n, seed, frac_neg_inf):
+    rng = np.random.default_rng(seed)
+    lw = rng.uniform(-10, 2, (n,)).astype(np.float32)
+    lw[rng.random(n) < frac_neg_inf] = -np.inf
+    return lw
+
+
+@pytest.mark.parametrize("n,frac", [(5000, 0.1), (1, 0.0), (3000, 1.0)])
+def test_log_weight_stats_plain_matches_pallas_kernel(pallas_interpret, n, frac):
+    lw = _log_weights(n, seed=n, frac_neg_inf=frac)
+    jm, js1, js2 = (float(v) for v in jax.jit(JK.log_weight_stats)(jnp.asarray(lw)))
+    m, s1, s2 = (float(v) for v in TK.log_weight_stats(torch.from_numpy(lw)))
+    assert m == jm
+    if frac == 1.0:
+        # every weight -inf: the port gives (-inf, 0, 0) and ESS 0 where the
+        # Pallas kernel's exp(-inf - -inf) is NaN
+        assert m == -np.inf and s1 == 0.0 and s2 == 0.0
+        assert pyprob_tpu_torch.util.effective_sample_size(lw) == 0.0
+        assert pyprob_tpu.util.effective_sample_size(lw) == 0.0
+    else:
+        np.testing.assert_allclose(s1, js1, rtol=1e-5)
+        np.testing.assert_allclose(s2, js2, rtol=1e-5)
+        np.testing.assert_allclose(
+            s1 * s1 / s2, pyprob_tpu.util.effective_sample_size(lw), rtol=1e-5
+        )
+
+
+def test_log_weight_stats_rejects_bad_inputs():
+    with pytest.raises(TypeError):
+        TK.log_weight_stats(torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        TK.log_weight_stats(torch.zeros(2, 2))
+    with pytest.raises(ValueError):
+        TK.log_weight_stats(torch.zeros(0))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no interpret mode)")
+
+
+@pytest.mark.cuda
+def test_mixture_kernel_matches_plain_on_card():
+    _need_card()
+    inputs = [torch.from_numpy(a).cuda() for a in _mixture_inputs(262_144 + 37, 10)]
+    before = TK.mixture_normal_log_prob.launches
+    out = TK.mixture_normal_log_prob(*inputs)
+    torch.cuda.synchronize()
+    assert TK.mixture_normal_log_prob.launches == before + 1
+    ref = TK.mixture_normal_log_prob_plain(*inputs)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_log_weight_stats_kernel_matches_plain_on_card():
+    _need_card()
+    for n, frac in ((1_000_003, 0.01), (1, 0.0), (4096, 1.0)):
+        lw = _log_weights(n, seed=n, frac_neg_inf=frac)
+        lw_card = torch.from_numpy(lw).cuda()
+        m, s1, s2 = (float(v) for v in TK.log_weight_stats(lw_card))
+        pm, ps1, ps2 = (float(v) for v in TK.log_weight_stats_plain(lw_card))
+        assert m == pm
+        np.testing.assert_allclose([s1, s2], [ps1, ps2], rtol=1e-5)
+        w = lw.astype(np.float64)
+        rm = w.max()
+        assert m == rm
+        if rm == -np.inf:
+            assert (s1, s2) == (0.0, 0.0)
+            continue
+        e = np.exp(w - rm)
+        np.testing.assert_allclose(s1, e.sum(), rtol=1e-5)
+        np.testing.assert_allclose(s2, (e * e).sum(), rtol=1e-5)
