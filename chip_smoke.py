@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive pyprob_tpu_torch's guided importance-sampling path on one NVIDIA GPU.
+"""Drive pyprob_tpu_torch's training and guided importance-sampling paths on
+one NVIDIA GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -10,15 +11,25 @@ Phases, each printing one JSON line:
 1. device: the card's name (exits non-zero without a card);
 2. build: nvcc builds the hand-written kernels for sm_90a from the sources
    in this checkout;
-3. kernels: each kernel against its plain PyTorch version at the serving
+3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with its time (CUDA events, device time of back-to-back
-   launches), the plain version's time and its bound on this card;
+   launches), the plain version's time and its bound on this card; the
+   mixture backward also against autograd of the plain forward;
 4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
    posterior N(7.25, sqrt(1/1.2));
-5. guided IS: 1,000,000 traces proposed by an LSTM inference network at
-   full width (lstm_dim 512, 10 mixture components, 16-d observe
-   embeddings), with both kernels' launch counts on that run;
-6. card vs CPU: one guided step at N = 4,096 on both devices.
+5. guided IS: 1,000,000 traces proposed by an untrained LSTM inference
+   network at full width (lstm_dim 512, 10 mixture components, 16-d
+   observe embeddings), with the kernels' launch counts on that run;
+6. card vs CPU: one guided step at N = 4,096 on both devices;
+7. grad card vs CPU: the loss and every parameter gradient of one training
+   step (lstm_dim 512, a packed batch of 512) on both devices;
+8. train, per arm of bench.py (lstm128/batch256/lr 0.01 and
+   lstm512/batch512/lr 0.005, POLY1 to 64,000 traces, EMA 0.9): a cold
+   call of 12,800 traces, then 4 timed segments of 12,800, with the
+   mixture kernels' launches against the optimizer steps;
+9. guided IS trained, per arm: 1,000,000 traces with the trained network
+   against the analytic posterior, ESS fraction >= 0.5, printed beside
+   the bench's guard.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -38,6 +49,15 @@ POSTERIOR_MEAN, POSTERIOR_STDDEV = 7.25, math.sqrt(1.0 / 1.2)
 NUM_TRACES = 1_000_000
 MIXTURE_ROWS, MIXTURE_COMPONENTS = 1 << 18, 10  # one chunk of the path
 STATS_N = 1_000_000
+TRAIN_ROWS = 512  # the lstm512 arm's batch, where the backward is checked too
+
+# bench.py's two arms and its training recipe (bench.py:46-48, 64-134)
+ARMS = (
+    {"lstm_dim": 128, "batch_size": 256, "learning_rate": 0.01, "guard": 0.804},
+    {"lstm_dim": 512, "batch_size": 512, "learning_rate": 0.005, "guard": 0.851},
+)
+TRAIN_TRACES, TRAIN_SEGMENTS, EMA_DECAY = 12_800, 4, 0.9
+KERNEL_NAMES = ("mixture_normal_log_prob", "mixture_normal_log_prob_backward", "log_weight_stats")
 
 # Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -129,6 +149,55 @@ def stats_inputs(n, device, seed=1):
     return lw, torch.tensor(lw, device=device)
 
 
+def launch_counts():
+    from pyprob_tpu_torch.ops import kernels as K
+
+    return {name: getattr(K, name).launches for name in KERNEL_NAMES}
+
+
+def check_mixture_backward(rows, device, degenerate=False):
+    """The mixture backward, by its wrapper and through the autograd
+    Function, against the plain closed form and against autograd of the
+    plain forward, each gradient within 1e-5 + 1e-4 |ref| and NaN where
+    the reference is NaN.  ``degenerate``: a -inf logit in rows 1-3 and
+    every logit -inf in row 5.  Returns the inputs, the forward's output,
+    the cotangent and the wrapper's max abs error against the plain
+    version."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    inputs = mixture_inputs(rows, MIXTURE_COMPONENTS, device, seed=rows)
+    if degenerate:
+        inputs[3][1:4, 0] = -math.inf
+        inputs[3][5, :] = -math.inf
+    g = torch.tensor(
+        np.random.default_rng(rows + 1).normal(size=rows), dtype=torch.float32, device=device
+    )
+    out = K.mixture_normal_log_prob(*inputs)
+    wrapper = K.mixture_normal_log_prob_backward(*inputs, out, g)
+    plain = K.mixture_normal_log_prob_backward_plain(*inputs, out, g)
+    grads = {}
+    for name, fn in (("function", K.mixture_normal_log_prob), ("autograd", K.mixture_normal_log_prob_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        fn(*leaves).backward(g)
+        grads[name] = [t.grad for t in leaves]
+    err = 0.0
+    for i, what in enumerate(("x", "means", "stddevs", "logits")):
+        for ref_name, ref in (("plain", plain[i]), ("autograd", grads["autograd"][i])):
+            for mine_name, mine in (("wrapper", wrapper[i]), ("function", grads["function"][i])):
+                nan = torch.isnan(ref)
+                excess = float(((mine - ref).abs() - (1e-5 + 1e-4 * ref.abs()))[~nan].max())
+                check(
+                    bool((torch.isnan(mine) == nan).all() and torch.isfinite(mine[~nan]).all())
+                    and excess <= 0,
+                    f"mixture backward d{what} at B={rows}: {mine_name} vs {ref_name} "
+                    f"exceeds 1e-5 + 1e-4|ref| by {excess}",
+                )
+        finite = ~torch.isnan(plain[i])
+        err = max(err, float((wrapper[i] - plain[i]).abs()[finite].max()))
+    return inputs, out, g, err
+
+
 def phase_kernels():
     import torch
     from pyprob_tpu_torch.ops import kernels as K
@@ -154,6 +223,25 @@ def phase_kernels():
         "max_abs_err": err, "tolerance": "atol 1e-5 vs plain",
         "ms": time_ms(lambda: K.mixture_normal_log_prob(*inputs)),
         "plain_ms": time_ms(lambda: K.mixture_normal_log_prob_plain(*inputs)),
+        "bound_ms": bound,
+        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "library_ms": None, "shape": [B, Kc],
+    })
+
+    check_mixture_backward(1000, "cuda", degenerate=True)  # ragged last block
+    for n in (TRAIN_ROWS, B):
+        inputs, out, g, err = check_mixture_backward(n, "cuda")
+    bytes_moved = 12 * B + 12 * B * Kc + 4 * B + 12 * B * Kc
+    ops = 25 * B * Kc + 2 * B  # ~25 per component (2 transcendental), 2 per row
+    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    rows.append({
+        "name": "mixture_normal_log_prob_backward", "route": "cuda",
+        "source": "pyprob_tpu_torch/ops/csrc/mixture_normal_backward.cu",
+        "replaces": "pyprob_tpu/ops/kernels.py:255",
+        "max_abs_err": err,
+        "tolerance": "1e-5 + 1e-4 |ref| per gradient vs plain and vs autograd of the plain forward",
+        "ms": time_ms(lambda: K.mixture_normal_log_prob_backward(*inputs, out, g)),
+        "plain_ms": time_ms(lambda: K.mixture_normal_log_prob_backward_plain(*inputs, out, g)),
         "bound_ms": bound,
         "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
         "library_ms": None, "shape": [B, Kc],
@@ -185,10 +273,7 @@ def phase_kernels():
         "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
         "library_ms": None, "shape": [STATS_N],
     })
-    counts = {
-        "mixture_normal_log_prob": K.mixture_normal_log_prob.launches,
-        "log_weight_stats": K.log_weight_stats.launches,
-    }
+    counts = launch_counts()
     for row in rows:
         emit({
             "phase": "kernel", **row, "bound_us": row["bound_ms"] * 1e3,
@@ -256,6 +341,7 @@ def guided_model(lstm_dim):
 
 
 def phase_guided_is(device, num_traces, lstm_dim):
+    import torch
     import pyprob_tpu_torch as pp
     from pyprob_tpu_torch.ops import kernels as K
 
@@ -267,28 +353,28 @@ def phase_guided_is(device, num_traces, lstm_dim):
     run()  # warm-up
     K.reset_launch_counts()
     sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     post = run()
     sync(device)
     seconds = time.perf_counter() - t0
-    launches = {
-        "mixture_normal_log_prob": K.mixture_normal_log_prob.launches,
-        "log_weight_stats": K.log_weight_stats.launches,
-    }
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
     mean, std = check_posterior(post, "guided IS")
     ess = post.effective_sample_size
     ess64 = pp.util.effective_sample_size(post.log_weights)
     check(abs(ess - ess64) <= 1e-4 * ess64, f"guided IS: kernel ESS {ess} vs float64 {ess64}")
     if device == "cuda":
         check(ess >= 1000, f"guided IS: ESS {ess} < 1000")
-        for name, n in launches.items():
-            check(n >= 1, f"guided IS did not launch {name}")
+        for name in ("mixture_normal_log_prob", "log_weight_stats"):
+            check(launches[name] >= 1, f"guided IS did not launch {name}")
     emit({
         "phase": "guided_is", "traces": num_traces, "lstm_dim": lstm_dim,
         "mixture_components": 10, "seconds": seconds,
         "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
         "ess": ess, "ess_float64": ess64, "ess_fraction": ess / num_traces,
-        "launches": launches,
+        "peak_memory_gib": peak_gib, "launches": launches,
     })
     return model, launches
 
@@ -331,20 +417,172 @@ def phase_card_vs_cpu(model, n, devices=("cuda", "cpu")):
     emit({"phase": "card_vs_cpu", "n": n, "max_abs_err": err, "tolerance": "atol 1e-4"})
 
 
+def phase_grad_card_vs_cpu(lstm_dim, rows, devices=("cuda", "cpu")):
+    """The loss and every parameter gradient of one training step, from the
+    same weights and the same packed batch, on the card and on the CPU."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch import vectorized
+    from pyprob_tpu_torch.nn import PackedBatch
+    from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
+    from pyprob_tpu_torch.ops import kernels as K
+
+    model = guided_model(lstm_dim)
+    net = model._inference_network
+    for p in tensor_leaves(net._params):
+        p.requires_grad_(True)
+    outputs, sites = vectorized.run_training_batch(model, rows)
+    batch = net._packed_batch_from_outputs(outputs, sites, rows)
+    results = []
+    for device in devices:
+        pp.set_device(device)
+        net.to(device)
+        packed = map_tensors(batch.packed, lambda t: t.to(device))
+        K.reset_launch_counts()
+        loss = float(net._loss_and_grad(
+            PackedBatch(packed, rows, batch.addrs, batch.dist_names)
+        ))
+        launches = launch_counts()
+        results.append((loss, [p.grad.cpu().numpy() for p in tensor_leaves(net._params)]))
+        if device == "cuda":
+            for name in ("mixture_normal_log_prob", "mixture_normal_log_prob_backward"):
+                check(launches[name] >= 1, f"training step on the card did not launch {name}")
+    pp.set_device(devices[0])
+    (loss_a, grads_a), (loss_b, grads_b) = results
+    check(all(np.isfinite(g).all() for g in grads_a + grads_b), "grad card vs CPU: non-finite gradient")
+    err, worst = 0.0, 0.0
+    for a, b in zip(grads_a, grads_b):
+        err = max(err, float(np.abs(a - b).max()))
+        worst = max(worst, float((np.abs(a - b) - (1e-4 + 1e-3 * np.abs(b))).max()))
+    check(np.isfinite(loss_a) and abs(loss_a - loss_b) <= 1e-4 + 1e-3 * abs(loss_b),
+          f"grad card vs CPU: loss {loss_a} vs {loss_b}")
+    check(worst <= 0, f"grad card vs CPU: a gradient exceeds 1e-4 + 1e-3|cpu| by {worst}")
+    emit({
+        "phase": "grad_card_vs_cpu", "lstm_dim": lstm_dim, "rows": rows,
+        "loss": [loss_a, loss_b], "leaves": len(grads_a), "max_abs_err": err,
+        "tolerance": "atol 1e-4 + rtol 1e-3 per gradient",
+    })
+
+
+def train_kwargs(arm, segments):
+    import pyprob_tpu_torch as pp
+
+    return dict(
+        observe_embeddings={"obs0": {"dim": 16}, "obs1": {"dim": 16}},
+        inference_network=pp.InferenceNetwork.LSTM,
+        batch_size=arm["batch_size"],
+        learning_rate_init=arm["learning_rate"],
+        lstm_dim=arm["lstm_dim"],
+        proposal_mixture_components=MIXTURE_COMPONENTS,
+        learning_rate_scheduler_type=pp.LearningRateScheduler.POLY1,
+        num_traces_end=TRAIN_TRACES * (1 + segments),
+        ema_decay=EMA_DECAY,
+    )
+
+
+def phase_train(device, arm, train_traces=TRAIN_TRACES, segments=TRAIN_SEGMENTS):
+    """bench.py's training recipe for one arm: a cold call, then timed
+    segments continuing the same network and schedule."""
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+    from pyprob_tpu_torch.ops import kernels as K
+
+    model = GaussianUnknownMean()
+    kw = train_kwargs(arm, segments)
+    K.reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    model.learn_inference_network(num_traces=train_traces, **kw)
+    sync(device)
+    cold = time.perf_counter() - t0
+    seg_tps = []
+    for _ in range(segments):
+        t0 = time.perf_counter()
+        model.learn_inference_network(num_traces=train_traces, **kw)
+        sync(device)
+        seg_tps.append(train_traces / (time.perf_counter() - t0))
+    launches = launch_counts()
+    net = model._inference_network
+    steps = net._total_train_iterations
+    loss = net._history_train_loss[-1]
+    check(math.isfinite(loss), f"train lstm{arm['lstm_dim']}: final loss {loss}")
+    if device == "cuda":
+        for name in ("mixture_normal_log_prob", "mixture_normal_log_prob_backward"):
+            check(launches[name] >= steps,
+                  f"train lstm{arm['lstm_dim']}: {name} launched {launches[name]} < {steps} steps")
+    emit({
+        "phase": "train", "lstm_dim": arm["lstm_dim"], "batch_size": arm["batch_size"],
+        "learning_rate": arm["learning_rate"], "traces": net._total_train_traces,
+        "optimizer_steps": steps, "cold_seconds": cold,
+        "traces_per_s": max(seg_tps), "traces_per_s_band": [min(seg_tps), max(seg_tps)],
+        "segments_traces_per_s": seg_tps, "final_loss": loss, "launches": launches,
+    })
+    return model, launches
+
+
+def phase_guided_is_trained(device, model, arm, num_traces):
+    """Guided IS with the trained network, judged as bench.py judges it."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.nn.layers import tensor_leaves
+    from pyprob_tpu_torch.ops import kernels as K
+
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    run = lambda: model.posterior_results(  # noqa: E731
+        num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
+    )
+    run()  # warm-up
+    K.reset_launch_counts()
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    post = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    mean, std = check_posterior(post, f"guided IS trained lstm{arm['lstm_dim']}")
+    ess_fraction = post.effective_sample_size / num_traces
+    check(ess_fraction >= 0.5, f"guided IS trained lstm{arm['lstm_dim']}: ESS fraction {ess_fraction}")
+    served = tensor_leaves(model._inference_network._serving_params())
+    check(not any(t.requires_grad for t in served), "serving parameters require grad")
+    peak_gib = None
+    if device == "cuda":
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # a recorded autograd graph over the 2^18-row chunks would hold
+        # several GiB more than the untrained run's 7.23 GiB
+        check(peak_gib < 10.0, f"guided IS trained: peak memory {peak_gib} GiB")
+        for name in ("mixture_normal_log_prob", "log_weight_stats"):
+            check(launches[name] >= 1, f"guided IS trained did not launch {name}")
+    emit({
+        "phase": "guided_is_trained", "lstm_dim": arm["lstm_dim"], "traces": num_traces,
+        "seconds": seconds, "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "ess_fraction": ess_fraction, "bench_guard": arm["guard"],
+        "bench_guard_met": ess_fraction >= arm["guard"], "peak_memory_gib": peak_gib,
+        "launches": launches,
+    })
+    return launches
+
+
 def main():
     kind, smi = phase_device()
     import torch
     import pyprob_tpu_torch as pp
 
     pp.set_device("cuda")
+    pp.set_verbosity(1)
     pp.seed(0)
     phase_build()
     rows = phase_kernels()
     phase_prior_is("cuda", NUM_TRACES)
     model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
     phase_card_vs_cpu(model, 4096)
+    phase_grad_card_vs_cpu(512, TRAIN_ROWS)
+    path_launches = [launches]
+    for arm in ARMS:
+        trained, train_launches = phase_train("cuda", arm)
+        path_launches += [train_launches, phase_guided_is_trained("cuda", trained, arm, NUM_TRACES)]
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = sum(counts[row["name"]] for counts in path_launches)
+        check(row["launches"] >= 1, f"the main path never launched {row['name']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

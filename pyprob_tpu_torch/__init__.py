@@ -3,10 +3,11 @@ universal probabilistic programming framework.
 
 Models are ordinary Python programs calling ``sample`` / ``observe``.  This
 port runs on an NVIDIA GPU (``cuda``) unless ``set_device('cpu')`` asks for
-the CPU.  So far it serves importance sampling, from the prior and guided
-by an LSTM inference network, on its batched tier, with the mixture
-log-density and the log-weight statistics in hand-written CUDA kernels
-(``pyprob_tpu_torch.ops``).
+the CPU.  So far it trains an LSTM inference network online
+(``Model.learn_inference_network``) and serves importance sampling, from
+the prior and guided by that network, on its batched tier, with the
+mixture log-density (forward and backward) and the log-weight statistics
+in hand-written CUDA kernels (``pyprob_tpu_torch.ops``).
 """
 
 from .util import (
@@ -16,6 +17,8 @@ from .util import (
     InferenceEngine,
     InferenceNetwork,
     ObserveEmbedding,
+    Optimizer,
+    LearningRateScheduler,
     seed,
     set_verbosity,
     set_device,
@@ -32,6 +35,8 @@ __all__ = [
     "InferenceEngine",
     "InferenceNetwork",
     "ObserveEmbedding",
+    "Optimizer",
+    "LearningRateScheduler",
     "seed",
     "set_verbosity",
     "set_device",

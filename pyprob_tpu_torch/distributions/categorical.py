@@ -3,7 +3,10 @@
 
 Logits built from ``probs`` are ``log(clip(probs / Σprobs, 1e-38))``, not a
 ``log_softmax``, as in the JAX package: the mixture heads' scores depend on
-that order of operations.  The address suffix carries the category count.
+that order of operations.  XLA flushes float32 subnormals to zero, so
+there a probability below ``finfo(float32).tiny`` (and the clip bound
+1e-38 itself) gives logit −inf; the port does the same.  The address
+suffix carries the category count.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ class Categorical(Distribution):
         if probs is not None:
             probs = util.to_tensor(probs, _common_device(probs))
             probs = probs / probs.sum(dim=-1, keepdim=True)
-            self._logits = torch.log(torch.clamp(probs, min=1e-38))
+            flushed = probs < torch.finfo(probs.dtype).tiny
+            self._logits = torch.log(torch.where(flushed, torch.zeros_like(probs), probs))
         else:
             logits = util.to_tensor(logits, _common_device(logits))
             self._logits = torch.log_softmax(logits, dim=-1)

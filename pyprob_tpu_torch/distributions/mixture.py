@@ -4,7 +4,10 @@
 ``log_prob`` is the logsumexp over component log-densities plus mixing
 logits.  All-Normal mixtures with a 1-D batch go through the hand-written
 kernel behind ``ops.kernels.mixture_normal_log_prob`` (``_fused_log_prob``),
-where the JAX package calls its Pallas kernel.  Sampling draws the
+where the JAX package calls its Pallas kernel; it is differentiable, its
+gradient a kernel too on CUDA, and reaches the means, the stddevs and the
+mixing logits through the ``.contiguous()`` and ``.expand()`` views that
+feed it (the training loss).  Sampling draws the
 component index and gathers one Normal per row; the JAX package draws
 every component and selects one with a one-hot contraction, so the two
 agree in distribution, not draw for draw.

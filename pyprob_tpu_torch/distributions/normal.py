@@ -61,3 +61,7 @@ class Normal(Distribution):
     @property
     def stddev(self):
         return self._scale
+
+    @property
+    def stddev(self):
+        return self._scale

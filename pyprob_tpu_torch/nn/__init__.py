@@ -6,6 +6,7 @@ from .layers import (
     mlp_init,
 )
 from .proposals import head_apply, head_init, head_kind_for, prior_param_arrays
+from .dataset import Batch, OnlineDataset, PackedBatch, prune_trace
 from .inference_network import InferenceNetwork
 from .inference_network_lstm import InferenceNetworkLSTM
 
@@ -19,6 +20,10 @@ __all__ = [
     "head_init",
     "head_apply",
     "prior_param_arrays",
+    "Batch",
+    "OnlineDataset",
+    "PackedBatch",
+    "prune_trace",
     "InferenceNetwork",
     "InferenceNetworkLSTM",
 ]

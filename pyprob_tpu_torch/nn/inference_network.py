@@ -1,31 +1,40 @@
 """Inference network base: observe embeddings, serving parameters, layer
-pre-generation (counterpart of ``pyprob_tpu/nn/inference_network.py``).
+pre-generation and the online training loop (counterpart of
+``pyprob_tpu/nn/inference_network.py``).
 
 Parameters are a nested dict of tensors on the network's device, laid out
-as the JAX package's parameter pytree.  Training (``optimize``, the
-optimizer, checkpoints) comes with the training slice; this slice serves a
-network that was built here or carried over from the JAX package.
+as the JAX package's parameter pytree.  Training makes them leaf tensors
+with ``requires_grad`` and steps them with ``torch.optim`` (Adam with L2
+weight decay, or SGD with Nesterov momentum: the arithmetic of the JAX
+package's optax chains) at a learning rate computed on the host each step
+(POLY1/POLY2 decay by trained traces).  A Polyak/EMA average is kept
+beside them when asked, and serving reads the debiased average, detached:
+serving never records an autograd graph.
+
+``optimize`` ports the online, single-process path without validation.
+The loop is the JAX package's fused online loop at one step per
+dispatch: each step draws a device batch, packs it, takes loss/B and
+grads/B, updates and folds the EMA, with no ``lax.scan``.  Offline
+datasets, validation and keep-best selection, checkpoints, LARC and
+distributed training raise ``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
+
+import math
+import time
 
 import numpy as np
 import torch
 
 from .. import util
-from ..util import ObserveEmbedding
-from .layers import map_tensors, mlp_apply, mlp_from_numpy, mlp_init
+from ..util import LearningRateScheduler, ObserveEmbedding, Optimizer
+from .dataset import Batch, OnlineDataset, PackedBatch
+from .layers import map_tensors, mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy, tensor_leaves
 
 
-def _sub_batches(traces):
-    """Group traces by their controlled-address sequence (the JAX
-    package's ``nn.dataset.Batch.sub_batches``)."""
-    groups = {}
-    for trace in traces:
-        if trace.length == 0:
-            raise ValueError("Trace of length zero.")
-        groups.setdefault(trace.trace_hash(), []).append(trace)
-    return list(groups.values())
+def _not_ported(what, slice_name):
+    return NotImplementedError(f"{what} is not ported yet; it comes with the {slice_name}")
 
 
 class InferenceNetwork:
@@ -45,22 +54,44 @@ class InferenceNetwork:
         self._ema_params = None
         self._ema_decay = None
         self._ema_steps = 0
-        self._total_train_traces = 0
-        self._total_train_iterations = 0
         self._vps_cache = None
+        # optimizer and schedule, latched by the first optimize() call
+        self._optimizer = None  # a torch.optim optimizer over tensor_leaves(_params)
+        self._optimizer_type = None
+        self._momentum = None
+        self._weight_decay = None
+        self._learning_rate_scheduler_type = None
+        self._learning_rate_init = None
+        self._learning_rate_end = None
+        self._total_train_seconds = 0.0
+        self._total_train_traces = 0
+        self._total_train_traces_end = None
+        self._total_train_iterations = 0
+        self._loss_init = None
+        self._loss_min = float("inf")
+        self._loss_max = None
+        self._loss_previous = float("inf")
+        self._history_train_loss = []
+        self._history_train_loss_trace = []
 
     @property
     def device(self):
         return self._device
 
     def to(self, device):
-        """Move every parameter to ``device``; returns ``self``."""
+        """Move every parameter, the EMA average and the optimizer state to
+        ``device``; returns ``self``.  Trained parameters stay leaves."""
         device = torch.device(device)
-        move = lambda t: t.to(device)  # noqa: E731
+
+        def move(t):
+            return t.detach().to(device).requires_grad_(t.requires_grad)
+
         self._params = map_tensors(self._params, move)
         self._ema_params = map_tensors(self._ema_params, move)
         self._device = device
         self._vps_cache = None
+        if self._optimizer is not None:
+            self._create_optimizer(self._optimizer.state_dict())
         return self
 
     def _generator(self):
@@ -140,19 +171,45 @@ class InferenceNetwork:
         return mlp_apply(params["observe_final"], torch.cat(pieces, dim=1))
 
     def _observe_params_from_numpy(self, params):
+        """``observe`` and ``observe_final`` of the port's tree from the JAX
+        package's parameters."""
         device = self._device
-        self._params["observe"] = {}
+        observe = {}
         for name, layer in params["observe"].items():
             if layer["kind"] != "feedforward":
                 raise NotImplementedError(
                     f"{layer['kind']} observe embeddings come with the CNN slice"
                 )
-            self._params["observe"][name] = {
+            observe[name] = {
                 "kind": "feedforward",
                 "p": mlp_from_numpy(layer["p"], device),
                 "tf": layer.get("tf", "none"),
             }
-        self._params["observe_final"] = mlp_from_numpy(params["observe_final"], device)
+        return {
+            "observe": observe,
+            "observe_final": mlp_from_numpy(params["observe_final"], device),
+        }
+
+    @staticmethod
+    def _observe_params_to_numpy(params):
+        return {
+            "observe": {
+                name: {"kind": layer["kind"], "p": mlp_to_numpy(layer["p"]), "tf": layer["tf"]}
+                for name, layer in params["observe"].items()
+            },
+            "observe_final": mlp_to_numpy(params["observe_final"]),
+        }
+
+    def _pack_observes(self, traces):
+        """{name: [B, D]} observed values of materialized traces, on the
+        network's device (a repeated name gives its stacked sequence)."""
+        return {
+            name: torch.tensor(
+                np.stack([np.asarray(t.named_value(name), np.float32).reshape(-1) for t in traces]),
+                dtype=util.dtype(), device=self._device,
+            )
+            for name in self._params["observe"].keys()
+        }
 
     # ------------------------------------------------------------------
     # serving
@@ -161,9 +218,10 @@ class InferenceNetwork:
         """The parameters serving reads: the debiased Polyak/EMA average
         ``ema/(1-d^t)`` when training kept one, else the raw parameters."""
         if self._ema_params is None or self._ema_steps == 0:
-            return self._params
+            return map_tensors(self._params, torch.Tensor.detach)
         scale = 1.0 / (1.0 - float(self._ema_decay) ** self._ema_steps)
-        return map_tensors(self._ema_params, lambda t: t * scale)
+        with torch.no_grad():
+            return map_tensors(self._ema_params, lambda t: t * scale)
 
     def make_vectorized_proposal_step(self, observe):
         """A proposal step for the batched tier, or None if unsupported."""
@@ -185,8 +243,19 @@ class InferenceNetwork:
     def _init_layers(self):
         raise NotImplementedError()
 
-    def _polymorph(self, sub_batches):
+    def _polymorph(self, batch):
         raise NotImplementedError()
+
+    def _pack_sub_batch(self, sub_batch):
+        raise NotImplementedError()
+
+    def _make_loss_for(self, addrs, dist_names):
+        """Return (static_key, loss_fn(params, packed) -> summed loss)."""
+        raise NotImplementedError()
+
+    def _loss_params_subset(self, addrs, dist_names):
+        """The sub-tree of ``self._params`` a trace type's loss reads."""
+        return self._params
 
     def _pre_generate_layers(self, dataset, batch_size=64):
         """Grow the layers from example traces (a list of traces, or an
@@ -200,6 +269,406 @@ class InferenceNetwork:
             self._layers_initialized = True
         self._layers_pre_generated = True
         for begin in range(0, len(traces), batch_size):
-            self._polymorph(_sub_batches(traces[begin : begin + batch_size]))
+            self._polymorph(Batch(traces[begin : begin + batch_size]))
         self._vps_cache = None
         util.log_print("Layer pre-generation complete")
+
+    # ------------------------------------------------------------------
+    # parameter snapshots
+    # ------------------------------------------------------------------
+    def snapshot_params(self):
+        """Snapshot of the parameters (and the EMA average, when kept) as
+        host numpy copies; pair with ``restore_params``."""
+
+        def to_np(tree):
+            return map_tensors(tree, lambda t: t.detach().to("cpu", copy=True).numpy())
+
+        return {
+            "params": to_np(self._params),
+            "ema_params": to_np(self._ema_params),
+            "ema_steps": self._ema_steps,
+        }
+
+    def restore_params(self, snapshot):
+        """Restore a ``snapshot_params`` snapshot.  The optimizer keeps its
+        state; the memoized serving step is dropped."""
+        training = self._optimizer is not None
+
+        def to_dev(tree, trainable):
+            return _map_arrays(
+                tree,
+                lambda a: torch.tensor(a, dtype=util.dtype(), device=self._device).requires_grad_(trainable),
+            )
+
+        self._params = to_dev(snapshot["params"], training)
+        self._ema_params = to_dev(snapshot["ema_params"], False)
+        self._ema_steps = snapshot.get("ema_steps", 0)
+        if training:
+            self._create_optimizer(self._optimizer.state_dict())
+        self._vps_cache = None
+
+    # ------------------------------------------------------------------
+    # Polyak/EMA parameter averaging
+    # ------------------------------------------------------------------
+    def _ema_sync_structure(self):
+        """Initialize the EMA tree, or graft newly polymorphed leaves into
+        it.  ``_ema_params`` is the raw (biased) accumulator
+        e_t = d·e + (1−d)·p from e_0 = 0, served as e/(1−d^t); a leaf
+        grafted at step t adopts p·(1−d^t), so its debiased value starts
+        at p."""
+        if self._ema_decay is None:
+            return
+        bias = 1.0 - float(self._ema_decay) ** max(self._ema_steps, 0)
+
+        def adopt(tree):
+            return map_tensors(tree, lambda t: t.detach() * bias)
+
+        if self._ema_params is None:
+            self._ema_params = map_tensors(self._params, lambda t: torch.zeros_like(t.detach()))
+            return
+
+        def merge(e, p):
+            if isinstance(p, dict):
+                if not isinstance(e, dict):
+                    return adopt(p)
+                return {k: merge(e[k], v) if k in e else adopt(v) for k, v in p.items()}
+            if isinstance(p, list):
+                if not isinstance(e, list) or len(e) != len(p):
+                    return adopt(p)
+                return [merge(a, b) for a, b in zip(e, p)]
+            if not isinstance(p, torch.Tensor):
+                return p
+            if not isinstance(e, torch.Tensor) or e.shape != p.shape:
+                return adopt(p)
+            return e
+
+        self._ema_params = merge(self._ema_params, self._params)
+
+    def _ema_update_host(self):
+        """One EMA step, e = d·e + (1−d)·p, in place over every leaf."""
+        if self._ema_decay is None:
+            return
+        ema = tensor_leaves(self._ema_params) if self._ema_params is not None else []
+        params = tensor_leaves(self._params)
+        if len(ema) != len(params) or any(e.shape != p.shape for e, p in zip(ema, params)):
+            self._ema_sync_structure()
+            ema = tensor_leaves(self._ema_params)
+        d = float(self._ema_decay)
+        with torch.no_grad():
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, params, alpha=1.0 - d)
+        self._ema_steps += 1
+
+    # ------------------------------------------------------------------
+    # packing device batches
+    # ------------------------------------------------------------------
+    def _pack_arrays_from_outputs(self, outputs, sites, batch_size):
+        """Batched-tier outputs -> the loss's packed dict:
+        ``{"obs": {name: [B, D]}, "steps": [{"values": [B],
+        "prior": {param: [B, P]}}]}``, every tensor left on its device."""
+        from .proposals import prior_param_arrays
+
+        if getattr(self, "_local_observe_dim", 0):
+            raise _not_ported(
+                "the per-step local observation slot (tied-instance Markov networks)",
+                "Markov/SMC slice",
+            )
+        if outputs.get("masks"):
+            raise _not_ported("training on sample(mask=) sites", "masks slice")
+        controlled = [s for s in sites if s.control]
+        name_addresses = {}
+        for s in sites:
+            if s.name is not None:
+                name_addresses.setdefault(s.name, []).append(s.address)
+        obs = {}
+        for name in self._params["observe"].keys():
+            addrs_n = name_addresses[name]
+            if len(addrs_n) == 1:
+                arr = outputs["values"][addrs_n[0]]
+            else:
+                # a repeated name gives its sequence, as Trace.named_value
+                arr = torch.stack([outputs["values"][a] for a in addrs_n], dim=1)
+            obs[name] = arr.reshape(batch_size, -1)
+
+        def pack_prior(v):
+            # per-row parameters keep their rows, flattened to [B, P];
+            # shared ones broadcast
+            arr = util.to_tensor(v)
+            if arr.dim() > 0 and arr.shape[0] == batch_size:
+                return arr.reshape(batch_size, -1)
+            return arr.reshape(1, -1).expand(batch_size, max(arr.numel(), 1))
+
+        steps = [
+            {
+                "values": outputs["values"][s.address],
+                "prior": {k: pack_prior(v) for k, v in prior_param_arrays(s.distribution).items()},
+            }
+            for s in controlled
+        ]
+        addrs = tuple(s.address for s in controlled)
+        dist_names = tuple(s.distribution.name for s in controlled)
+        return {"obs": obs, "steps": steps}, addrs, dist_names
+
+    def _packed_batch_from_outputs(self, outputs, sites, batch_size):
+        packed, addrs, dist_names = self._pack_arrays_from_outputs(outputs, sites, batch_size)
+        return PackedBatch(packed, batch_size, addrs, dist_names)
+
+    # ------------------------------------------------------------------
+    # loss, gradients and the optimizer
+    # ------------------------------------------------------------------
+    def _bump_head_iterations(self, addrs):
+        """Per-address counters of the optimizer steps that trained them."""
+        for addr in addrs:
+            self._head_train_iterations[addr] = self._head_train_iterations.get(addr, 0) + 1
+
+    @staticmethod
+    def _trace_types(batch):
+        """(addrs, dist_names, sub-batch or None) per trace type of a batch."""
+        if isinstance(batch, PackedBatch):
+            return [(batch.addrs, batch.dist_names, None)]
+        return [
+            (
+                tuple(v.address for v in sb[0].variables_controlled),
+                tuple(v.distribution.name for v in sb[0].variables_controlled),
+                sb,
+            )
+            for sb in batch.sub_batches
+        ]
+
+    def _loss_and_grad(self, batch):
+        """Loss/B of a batch, with grads/B left in the leaves' ``.grad``
+        (zeros for leaves no trace type reads, as the JAX package pads
+        them).  Returns the loss as a 0-d device tensor."""
+        leaves = tensor_leaves(self._params)
+        for p in leaves:
+            p.grad = None
+        total = None
+        for addrs, dist_names, sub_batch in self._trace_types(batch):
+            packed = batch.packed if sub_batch is None else self._pack_sub_batch(sub_batch)
+            _, loss_fn = self._make_loss_for(addrs, dist_names)
+            loss = loss_fn(self._loss_params_subset(addrs, dist_names), packed)
+            total = loss if total is None else total + loss
+        loss = total / batch.size
+        loss.backward()
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return loss.detach()
+
+    def _create_optimizer(self, state_dict=None):
+        """A fresh optimizer over the parameter leaves (made trainable
+        here), optionally carrying ``state_dict`` of an earlier one."""
+        if self._optimizer_type is None:
+            return
+        if self._optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC):
+            raise _not_ported(f"{self._optimizer_type.name} (optimizer_larc.py)", "LARC slice")
+        leaves = [p.requires_grad_(True) for p in tensor_leaves(self._params)]
+        wd = self._weight_decay or 0.0
+        lr = self._current_learning_rate()
+        if self._optimizer_type == Optimizer.ADAM:
+            # optax add_decayed_weights + scale_by_adam, then -lr
+            self._optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+        else:
+            # optax add_decayed_weights + trace(nesterov=True), then -lr
+            self._optimizer = torch.optim.SGD(
+                leaves, lr=lr, momentum=self._momentum or 0.9, nesterov=True, weight_decay=wd,
+            )
+        if state_dict is not None:
+            self._optimizer.load_state_dict(state_dict)
+
+    def _optimizer_step(self, lr):
+        """One update of every leaf from its ``.grad`` at learning rate lr."""
+        for group in self._optimizer.param_groups:
+            group["lr"] = lr
+        self._optimizer.step()
+
+    def _current_learning_rate(self):
+        """Poly learning-rate decay by total trained traces."""
+        lr_init = self._learning_rate_init
+        lr_end = self._learning_rate_end
+        t = self._learning_rate_scheduler_type
+        if t in (None, LearningRateScheduler.NONE):
+            return lr_init
+        iter_end = self._total_train_traces_end or 1e9
+        frac = min(self._total_train_traces / iter_end, 1.0)
+        power = 1.0 if t == LearningRateScheduler.POLY1 else 2.0
+        return (lr_init - lr_end) * ((1 - frac) ** power) + lr_end
+
+    @property
+    def learning_rate(self):
+        return self._current_learning_rate()
+
+    # ------------------------------------------------------------------
+    # the training loop
+    # ------------------------------------------------------------------
+    def _record_loss(self, loss, lr, step_traces, time_start, prev_total_train_seconds,
+                     state, log_file):
+        """Counters, loss history, progress line and log row of one step;
+        returns False on a bad loss."""
+        now = time.time()
+        self._total_train_seconds = prev_total_train_seconds + (now - time_start)
+        bad = math.isnan(loss) or math.isinf(loss)
+        if bad:
+            util.log_print(
+                f"Bad loss in training step: {loss} (if the model's observations "
+                "are heavy-tailed, consider observe_embeddings={'name': "
+                "{'input_transform': 'arcsinh'}})"
+            )
+        if self._loss_init is None:
+            self._loss_init = loss
+            self._loss_max = loss
+        self._loss_min = min(self._loss_min, loss)
+        self._loss_max = max(self._loss_max, loss)
+        self._loss_previous = loss
+        self._history_train_loss.append(loss)
+        self._history_train_loss_trace.append(self._total_train_traces)
+        tps = step_traces / max(now - state["time_last_batch"], 1e-9)
+        state["time_last_batch"] = now
+        if now - state["last_print"] > util._print_refresh_rate:
+            state["last_print"] = now
+            util.log_print(
+                f"{self._total_train_seconds:9.2f}s | {self._total_train_traces:9,} | "
+                f"loss {loss:+.3e} | min {self._loss_min:+.3e} | lr {lr:+.2e} | "
+                f"{tps:,.1f} traces/s"
+            )
+        if log_file is not None:
+            log_file.write(
+                f"{self._total_train_seconds}, {self._total_train_iterations}, "
+                f"{self._total_train_traces}, {loss}, , {lr}, , 1, , {tps}\n"
+            )
+        return not bad
+
+    def _online_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss,
+                         log_file, time_start, prev_total_train_seconds):
+        """The online loop, one optimizer step per device batch."""
+        state = {"time_last_batch": time_start, "last_print": time_start - util._print_refresh_rate}
+        # first batch: materialized, for polymorph and one step; a loaded
+        # optimizer state survives unless the parameter structure changed
+        first = Batch(dataset.next_batch(batch_size))
+        layers_changed = self._polymorph(first)
+        if self._optimizer is None or layers_changed:
+            self._create_optimizer()
+        loss = float(self._loss_and_grad(first))
+        lr = self._current_learning_rate()
+        if not (math.isnan(loss) or math.isinf(loss)):
+            self._optimizer_step(lr)
+            for addrs, _, _ in self._trace_types(first):
+                self._bump_head_iterations(addrs)
+            self._total_train_iterations += 1
+            self._total_train_traces += first.size
+            self._ema_update_host()
+        self._ema_sync_structure()  # polymorph may have grown the params
+        trace_count = first.size
+        while trace_count < num_traces:
+            lr = self._current_learning_rate()
+            outputs, sites = dataset.next_device_batch(batch_size)
+            batch = self._packed_batch_from_outputs(outputs, sites, batch_size)
+            loss_dev = self._loss_and_grad(batch)
+            self._optimizer_step(lr)
+            self._ema_update_host()
+            self._bump_head_iterations(batch.addrs)
+            self._total_train_iterations += 1
+            trace_count += batch_size
+            self._total_train_traces += batch_size
+            # the step's one host sync: the loss, read after the update
+            # was enqueued
+            ok = self._record_loss(
+                float(loss_dev), lr, batch_size, time_start, prev_total_train_seconds,
+                state, log_file,
+            )
+            if not ok and stop_with_bad_loss:
+                return
+
+    def optimize(
+        self,
+        num_traces,
+        dataset,
+        dataset_valid=None,
+        num_traces_end=1e9,
+        batch_size=64,
+        valid_every=None,
+        optimizer_type=Optimizer.ADAM,
+        learning_rate_init=0.0001,
+        learning_rate_end=1e-6,
+        learning_rate_scheduler_type=LearningRateScheduler.NONE,
+        momentum=0.9,
+        weight_decay=1e-5,
+        save_file_name_prefix=None,
+        save_every_sec=600,
+        distributed_backend=None,
+        distributed_params_sync_every_iter=10000,
+        distributed_num_buckets=None,
+        distributed_rank=0,
+        distributed_world_size=1,
+        stop_with_bad_loss=False,
+        log_file_name=None,
+        ema_decay=None,
+        keep_best=False,
+        keep_best_every=None,
+        keep_best_metric=None,
+    ):
+        """Train online for ``num_traces`` traces (in whole batches).
+        ``ema_decay``: keep a Polyak/EMA average of the parameters per
+        optimizer step and serve proposals from it, debiased.  The
+        learning-rate settings, the optimizer and ``num_traces_end`` are
+        latched by the first call; later calls continue the schedule on
+        the cumulative trace count."""
+        if not isinstance(dataset, OnlineDataset):
+            raise _not_ported("training from an offline dataset", "offline-dataset slice")
+        if distributed_backend is not None:
+            raise _not_ported(f"distributed_backend={distributed_backend!r}", "distributed slice")
+        if dataset_valid is not None:
+            raise _not_ported("validation (dataset_valid)", "offline-dataset slice")
+        if keep_best:
+            raise _not_ported("keep_best checkpoint selection", "offline-dataset slice")
+        if save_file_name_prefix is not None:
+            raise _not_ported("saving networks (save_file_name_prefix)", "save/load slice")
+        if optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC):
+            raise _not_ported(f"{optimizer_type.name} (optimizer_larc.py)", "LARC slice")
+        if not self._layers_initialized:
+            self._init_layers_observe_embedding(self._observe_embeddings_spec, example_trace=dataset[0])
+            self._init_layers()
+            self._layers_initialized = True
+        if self._optimizer_type is None:
+            self._optimizer_type = optimizer_type
+        if self._momentum is None:
+            self._momentum = momentum
+        if self._weight_decay is None:
+            self._weight_decay = weight_decay
+        if self._learning_rate_scheduler_type is None:
+            self._learning_rate_scheduler_type = learning_rate_scheduler_type
+        if self._learning_rate_init is None:
+            self._learning_rate_init = learning_rate_init
+        if self._learning_rate_end is None:
+            self._learning_rate_end = learning_rate_end
+        if self._total_train_traces_end is None:
+            self._total_train_traces_end = num_traces_end
+        if ema_decay is not None:
+            self._ema_decay = ema_decay
+        log_file = None
+        if log_file_name is not None:
+            log_file = open(log_file_name, mode="w", buffering=1)
+            log_file.write(
+                "time, iteration, trace, loss, valid_loss, learning_rate, "
+                "mean_trace_length_controlled, sub_mini_batches, "
+                "distributed_bucket_id, traces_per_second\n"
+            )
+        try:
+            self._online_optimize(
+                dataset, num_traces, batch_size, stop_with_bad_loss, log_file,
+                time.time(), self._total_train_seconds,
+            )
+        finally:
+            if log_file is not None:
+                log_file.close()
+
+
+def _map_arrays(tree, fn):
+    """Apply ``fn`` to every numpy array leaf of a nested dict/list."""
+    if isinstance(tree, np.ndarray):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_arrays(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_arrays(v, fn) for v in tree]
+    return tree

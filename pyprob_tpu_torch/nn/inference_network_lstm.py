@@ -6,7 +6,10 @@ distribution-type embeddings feed an LSTM core whose features drive
 per-address proposal heads.  On the batched tier the proposal step runs
 once per site over the whole ``[N]`` particle batch: the observe embedding
 is computed once per run and expanded, the LSTM state is ``[depth, N, H]``,
-and the head's mixture is scored by the mixture kernel.
+and the head's mixture is scored by the mixture kernel.  The training loss
+(``_make_loss_for``) runs the same layers over a packed ``[B]`` batch, one
+``lstm_step`` per controlled site, and is −Σ log q of the batch's values,
+its gradient reaching the heads through the mixture kernel's backward.
 """
 
 from __future__ import annotations
@@ -19,20 +22,24 @@ from ..util import ObserveEmbedding
 from ..vectorized import _draw
 from .inference_network import InferenceNetwork
 from .layers import (
+    _host,
     _tensor,
     lstm_from_numpy,
     lstm_init,
     lstm_step,
+    lstm_to_numpy,
     lstm_zero_state,
     mlp_apply,
     mlp_from_numpy,
     mlp_init,
+    mlp_to_numpy,
 )
 from .proposals import (
     head_apply,
     head_from_numpy,
     head_init,
     head_kind_for,
+    head_to_numpy,
     prior_param_arrays,
 )
 
@@ -75,12 +82,12 @@ class InferenceNetworkLSTM(InferenceNetwork):
             self._lstm_depth,
         )
 
-    def _polymorph(self, sub_batches):
+    def _polymorph(self, batch):
         """Grow per-address layers for the controlled sites of each
         sub-batch's example trace."""
         g, device = self._generator(), self._device
         layers_changed = False
-        for sub_batch in sub_batches:
+        for sub_batch in batch.sub_batches:
             for variable in sub_batch[0].variables_controlled:
                 address = variable.address
                 distribution = variable.distribution
@@ -153,8 +160,7 @@ class InferenceNetworkLSTM(InferenceNetwork):
             proposal_mixture_components=meta["proposal_mixture_components"],
             device=device,
         )
-        d = net._device
-        net._observe_params_from_numpy(params)
+        net._params.update(net._params_from_numpy(params))
         net._observe_meta = {}
         for name, m in meta["observe_meta"].items():
             m = dict(m)
@@ -163,23 +169,123 @@ class InferenceNetworkLSTM(InferenceNetwork):
             net._observe_meta[name] = m
         net._observe_embedding_dim = meta["observe_embedding_dim"]
         net._lstm_input_dim = meta["lstm_input_dim"]
-        net._params["lstm"] = lstm_from_numpy(params["lstm"], d)
-        net._params["proposal"] = {
-            a: head_from_numpy(p, d) for a, p in params["proposal"].items()
-        }
-        net._params["sample_embedding"] = {
-            a: mlp_from_numpy(p, d) for a, p in params["sample_embedding"].items()
-        }
-        net._params["address_embedding"] = {
-            a: _tensor(v, d) for a, v in params["address_embedding"].items()
-        }
-        net._params["dist_type_embedding"] = {
-            n: _tensor(v, d) for n, v in params["dist_type_embedding"].items()
-        }
         net._head_meta = {a: dict(m) for a, m in meta["head_meta"].items()}
         net._head_train_iterations = {a: 0 for a in net._head_meta}
         net._layers_initialized = True
         return net
+
+    def _params_from_numpy(self, params):
+        """The port's parameter tree (PyTorch layout, on this network's
+        device) from a tree in the JAX package's layout."""
+        d = self._device
+        out = self._observe_params_from_numpy(params)
+        out["lstm"] = lstm_from_numpy(params["lstm"], d)
+        out["proposal"] = {a: head_from_numpy(p, d) for a, p in params["proposal"].items()}
+        out["sample_embedding"] = {
+            a: mlp_from_numpy(p, d) for a, p in params["sample_embedding"].items()
+        }
+        out["address_embedding"] = {a: _tensor(v, d) for a, v in params["address_embedding"].items()}
+        out["dist_type_embedding"] = {
+            n: _tensor(v, d) for n, v in params["dist_type_embedding"].items()
+        }
+        return out
+
+    def to_numpy(self, params=None):
+        """``params`` (default: the network's own; also a tree of their
+        gradients) in the JAX package's layout as numpy arrays: the inverse
+        of ``from_numpy``, linear and LSTM weights transposed back."""
+        p = self._params if params is None else params
+        out = self._observe_params_to_numpy(p)
+        out["lstm"] = lstm_to_numpy(p["lstm"])
+        out["proposal"] = {a: head_to_numpy(h) for a, h in p["proposal"].items()}
+        out["sample_embedding"] = {a: mlp_to_numpy(m) for a, m in p["sample_embedding"].items()}
+        out["address_embedding"] = {a: _host(v) for a, v in p["address_embedding"].items()}
+        out["dist_type_embedding"] = {n: _host(v) for n, v in p["dist_type_embedding"].items()}
+        return out
+
+    # ------------------------------------------------------------------
+    # training loss
+    # ------------------------------------------------------------------
+    def _pack_sub_batch(self, sub_batch):
+        """One trace type's materialized traces as the loss's packed dict."""
+        device = self._device
+
+        def rows(arrays):
+            return torch.tensor(np.stack(arrays), dtype=util.dtype(), device=device)
+
+        steps = []
+        for t in range(sub_batch[0].length_controlled):
+            variables = [tr.variables_controlled[t] for tr in sub_batch]
+            prior = {}
+            for v in variables:
+                for k, val in prior_param_arrays(v.distribution).items():
+                    prior.setdefault(k, []).append(np.asarray(val, np.float32).reshape(-1))
+            steps.append({
+                "values": rows([np.asarray(v.value, np.float32) for v in variables]),
+                "prior": {k: rows(vals) for k, vals in prior.items()},
+            })
+        return {"obs": self._pack_observes(sub_batch), "steps": steps}
+
+    def _loss_params_subset(self, addrs, dist_names):
+        """Only the keys the LSTM loss reads."""
+        p = self._params
+        keys = set(addrs)
+        return {
+            "observe": p["observe"],
+            "observe_final": p["observe_final"],
+            "lstm": p["lstm"],
+            "proposal": {a: p["proposal"][a] for a in keys},
+            "sample_embedding": {a: p["sample_embedding"][a] for a in keys},
+            "address_embedding": {a: p["address_embedding"][a] for a in keys},
+            "dist_type_embedding": {n: p["dist_type_embedding"][n] for n in set(dist_names)},
+        }
+
+    def _make_loss_for(self, addrs, dist_names):
+        for addr in addrs:
+            if addr not in self._params["proposal"]:
+                raise RuntimeError(f"Address unknown by inference network: {addr}")
+        embed = self._embed_observe_pure
+        S = self._sample_embedding_dim
+        A = self._address_embedding_dim
+        D = self._distribution_type_embedding_dim
+
+        def loss_fn(params, packed):
+            emb = embed(params, packed["obs"])  # [B, O]
+            B, device = emb.shape[0], emb.device
+            state = lstm_zero_state(params["lstm"], (B,), device)
+            total = torch.zeros((), dtype=util.dtype(), device=device)
+            for t, addr in enumerate(addrs):
+                if t == 0:
+                    prev_sample_emb = torch.zeros((B, S), dtype=util.dtype(), device=device)
+                    prev_addr_emb = torch.zeros((B, A), dtype=util.dtype(), device=device)
+                    prev_dist_emb = torch.zeros((B, D), dtype=util.dtype(), device=device)
+                else:
+                    prev_addr = addrs[t - 1]
+                    prev_sample_emb = mlp_apply(
+                        params["sample_embedding"][prev_addr], packed["steps"][t - 1]["values"]
+                    )
+                    prev_addr_emb = params["address_embedding"][prev_addr].expand(B, A)
+                    prev_dist_emb = params["dist_type_embedding"][dist_names[t - 1]].expand(B, D)
+                x = torch.cat(
+                    [
+                        emb,
+                        prev_sample_emb,
+                        prev_dist_emb,
+                        prev_addr_emb,
+                        params["dist_type_embedding"][dist_names[t]].expand(B, D),
+                        params["address_embedding"][addr].expand(B, A),
+                    ],
+                    dim=1,
+                )
+                out, state = lstm_step(params["lstm"], x, state)
+                step = packed["steps"][t]
+                d = head_apply(params["proposal"][addr], out, step["prior"])
+                lp = d.log_prob(step["values"])
+                lp = torch.clamp(lp, min=-1e38)  # -inf repair, as the JAX package
+                total = total - lp.sum()
+            return total
+
+        return ("lstm", tuple(addrs)), loss_fn
 
     # ------------------------------------------------------------------
     # batched guided inference

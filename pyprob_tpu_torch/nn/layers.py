@@ -7,8 +7,9 @@ in the JAX package.  Weights use PyTorch's layout (``[out, in]``, LSTM
 ``[4H, in]`` and ``[4H, H]`` with gates in the order i, f, g, o) and its
 default initialisation, U(−1/√fan_in, 1/√fan_in).  The ``*_from_numpy``
 functions take the JAX package's parameter dicts (weights ``[in, out]``,
-``Static`` metadata already unwrapped) and own every transpose.  Matmuls
-stay with cuBLAS in full float32.
+``Static`` metadata already unwrapped) and own every transpose; the
+``*_to_numpy`` functions give that layout back.  Matmuls stay with cuBLAS
+in full float32.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ def _tensor(a, device):
     return torch.tensor(np.asarray(a), dtype=util.dtype(), device=device).contiguous()
 
 
+def _host(t):
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def linear_init(generator, in_dim, out_dim, device):
     bound = 1.0 / math.sqrt(max(in_dim, 1))
     return {
@@ -45,6 +50,10 @@ def linear_apply(params, x):
 
 def linear_from_numpy(p, device):
     return {"w": _tensor(np.asarray(p["w"]).T, device), "b": _tensor(p["b"], device)}
+
+
+def linear_to_numpy(p):
+    return {"w": _host(p["w"]).T.copy(), "b": _host(p["b"])}
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +108,10 @@ def mlp_from_numpy(p, device):
         "layers": [linear_from_numpy(layer, device) for layer in p["layers"]],
         "meta": meta,
     }
+
+
+def mlp_to_numpy(p):
+    return {"layers": [linear_to_numpy(layer) for layer in p["layers"]], "meta": dict(p["meta"])}
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +186,21 @@ def lstm_from_numpy(p, device):
     }
 
 
+def lstm_to_numpy(p):
+    return {
+        "layers": [
+            {
+                "w_ih": _host(layer["w_ih"]).T.copy(),
+                "w_hh": _host(layer["w_hh"]).T.copy(),
+                "b_ih": _host(layer["b_ih"]),
+                "b_hh": _host(layer["b_hh"]),
+            }
+            for layer in p["layers"]
+        ],
+        "meta": dict(p["meta"]),
+    }
+
+
 def map_tensors(tree, fn):
     """Apply ``fn`` to every tensor leaf of a nested dict/list."""
     if isinstance(tree, torch.Tensor):
@@ -182,3 +210,15 @@ def map_tensors(tree, fn):
     if isinstance(tree, list):
         return [map_tensors(v, fn) for v in tree]
     return tree
+
+
+def tensor_leaves(tree):
+    """The tensor leaves of a nested dict/list, in a fixed order (dict keys
+    sorted, as the JAX package flattens its pytrees)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensor_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return []

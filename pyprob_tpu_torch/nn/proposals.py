@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..distributions import Categorical, Mixture, Normal
-from .layers import mlp_apply, mlp_from_numpy, mlp_init
+from .layers import mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy
 
 
 def head_kind_for(distribution):
@@ -77,3 +77,8 @@ def head_from_numpy(p, device):
         "ff": mlp_from_numpy(p["ff"], device),
         "meta": {"kind": meta["kind"], "mixture_components": meta["mixture_components"]},
     }
+
+
+def head_to_numpy(p):
+    """The JAX package's layout of a head (the inverse of ``head_from_numpy``)."""
+    return {"ff": mlp_to_numpy(p["ff"]), "meta": dict(p["meta"])}

@@ -4,7 +4,10 @@ PyTorch versions.
 Counterparts of the Pallas kernels in ``pyprob_tpu/ops/kernels.py``:
 
 * ``mixture_normal_log_prob``: the mixture-of-Normals log-density that
-  scores the proposal of every particle (``csrc/mixture_normal.cu``);
+  scores the proposal of every particle (``csrc/mixture_normal.cu``), and
+  its gradient (``mixture_normal_log_prob_backward``,
+  ``csrc/mixture_normal_backward.cu``) behind the autograd Function
+  ``MixtureNormalLogProb``, where the JAX package has a custom VJP;
 * ``log_weight_stats``: (max, Σe^(w−max), Σe^2(w−max)) over the run's
   ``[N]`` log-weights, which give the ESS and log Z of a result
   (``csrc/log_weight_stats.cu``).
@@ -62,7 +65,9 @@ def mixture_normal_log_prob_plain(x, means, stddevs, logits):
 
 
 def mixture_normal_log_prob(x, means, stddevs, logits):
-    """Mixture-of-Normals log-density per row.  x: [B]; params: [B, K]."""
+    """Mixture-of-Normals log-density per row.  x: [B]; params: [B, K].
+    Differentiable: on the CPU through the plain version's autograd, on
+    CUDA through ``MixtureNormalLogProb``, whose backward is a kernel too."""
     if means.dim() != 2 or means.shape[1] < 1:
         raise ValueError("mixture_normal_log_prob: means must be [B, K] with K >= 1")
     B, K = means.shape
@@ -73,6 +78,15 @@ def mixture_normal_log_prob(x, means, stddevs, logits):
     )
     if device.type == "cpu":
         return mixture_normal_log_prob_plain(x, means, stddevs, logits)
+    return MixtureNormalLogProb.apply(x, means, stddevs, logits)
+
+
+mixture_normal_log_prob.launches = 0
+
+
+def _mixture_normal_forward_launch(x, means, stddevs, logits):
+    B, K = means.shape
+    device = x.device
     out = torch.empty((B,), dtype=torch.float32, device=device)
     if B == 0:
         return out
@@ -86,7 +100,74 @@ def mixture_normal_log_prob(x, means, stddevs, logits):
     return out
 
 
-mixture_normal_log_prob.launches = 0
+def mixture_normal_log_prob_backward_plain(x, means, stddevs, logits, out, g):
+    """Closed-form gradient of the mixture log-density (the VJP of
+    ``_mixture_normal_ref``): (dx, dmeans, dstddevs, dlogits) for the
+    cotangent ``g`` [B] of ``out`` [B].  With z = (x − μ)/σ and
+    r = exp(term − out): dlogits = g·r, dmeans = g·r·z/σ,
+    dstddevs = g·r·(z² − 1)/σ, dx = −Σ_k dmeans."""
+    z = (x[:, None] - means) / stddevs
+    t = -0.5 * z * z - torch.log(stddevs) - _LOG_SQRT_2PI + logits
+    gr = g[:, None] * torch.exp(t - out[:, None])
+    dmeans = gr * z / stddevs
+    dstddevs = gr * (z * z - 1.0) / stddevs
+    return -dmeans.sum(dim=-1), dmeans, dstddevs, gr
+
+
+def mixture_normal_log_prob_backward(x, means, stddevs, logits, out, g, need_x=True):
+    """(dx, dmeans, dstddevs, dlogits) of the mixture log-density for the
+    cotangent ``g`` of its output ``out``; dx is None unless ``need_x``."""
+    if means.dim() != 2 or means.shape[1] < 1:
+        raise ValueError("mixture_normal_log_prob_backward: means must be [B, K] with K >= 1")
+    B, K = means.shape
+    device = _check(
+        "mixture_normal_log_prob_backward",
+        (x, means, stddevs, logits, out, g),
+        ((B,), (B, K), (B, K), (B, K), (B,), (B,)),
+    )
+    if device.type == "cpu":
+        dx, dmeans, dstddevs, dlogits = mixture_normal_log_prob_backward_plain(
+            x, means, stddevs, logits, out, g
+        )
+        return (dx if need_x else None), dmeans, dstddevs, dlogits
+    dx = torch.empty((B,), dtype=torch.float32, device=device) if need_x else None
+    dmeans, dstddevs, dlogits = (
+        torch.empty((B, K), dtype=torch.float32, device=device) for _ in range(3)
+    )
+    if B == 0:
+        return dx, dmeans, dstddevs, dlogits
+    err = build.library().pyprob_mixture_normal_log_prob_backward_f32(
+        x.data_ptr(), means.data_ptr(), stddevs.data_ptr(), logits.data_ptr(),
+        out.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
+        dmeans.data_ptr(), dstddevs.data_ptr(), dlogits.data_ptr(), B, K,
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on_error("mixture_normal_log_prob_backward", err)
+    mixture_normal_log_prob_backward.launches += 1
+    return dx, dmeans, dstddevs, dlogits
+
+
+mixture_normal_log_prob_backward.launches = 0
+
+
+class MixtureNormalLogProb(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable op
+    (the JAX package's ``mixture_normal_log_prob_fused`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, means, stddevs, logits):
+        out = _mixture_normal_forward_launch(x, means, stddevs, logits)
+        ctx.save_for_backward(x, means, stddevs, logits, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, means, stddevs, logits, out = ctx.saved_tensors
+        # the cotangent of a sum arrives expanded (stride 0)
+        return mixture_normal_log_prob_backward(
+            x, means, stddevs, logits, out, g.contiguous(),
+            need_x=ctx.needs_input_grad[0],
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -132,4 +213,5 @@ log_weight_stats.launches = 0
 
 def reset_launch_counts():
     mixture_normal_log_prob.launches = 0
+    mixture_normal_log_prob_backward.launches = 0
     log_weight_stats.launches = 0

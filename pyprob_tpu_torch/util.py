@@ -68,11 +68,25 @@ class ObserveEmbedding(enum.Enum):
     CNN3D5C = 2
 
 
+class Optimizer(enum.Enum):
+    ADAM = 0
+    SGD = 1
+    ADAM_LARC = 2
+    SGD_LARC = 3
+
+
+class LearningRateScheduler(enum.Enum):
+    NONE = 0
+    POLY1 = 1
+    POLY2 = 2
+
+
 # ---------------------------------------------------------------------------
 # Global configuration
 # ---------------------------------------------------------------------------
 
 _verbosity = 2
+_print_refresh_rate = 0.25  # seconds between training progress lines
 _dtype = torch.float32
 _device = "cuda"
 

@@ -288,6 +288,24 @@ def run_traced(
     return outputs, handler
 
 
+@torch.no_grad()
+def run_training_batch(model, batch_size, prior_inflation=PriorInflation.DISABLED):
+    """A training batch for the IC training loop: one ``run_traced`` of
+    ``batch_size`` traces in ``PRIOR_FOR_INFERENCE_NETWORK`` mode (observes
+    draw their values), outputs left on the device as ``[B]`` tensors (no
+    trace materialization).  Returns (outputs, sites); each site record
+    holds its distribution with the batch's parameters."""
+    outputs, handler = run_traced(
+        model,
+        batch_size,
+        {},
+        TraceMode.PRIOR_FOR_INFERENCE_NETWORK,
+        InferenceEngine.IMPORTANCE_SAMPLING,
+        prior_inflation,
+    )
+    return outputs, handler.sites
+
+
 def _run_batched(
     model,
     num_traces,
@@ -412,6 +430,7 @@ def _materialize_traces(sites, outputs, dists, num):
     return traces
 
 
+@torch.no_grad()
 def vectorized_traces(
     model,
     num_traces,
@@ -426,7 +445,8 @@ def vectorized_traces(
     args=(),
     kwargs=None,
 ):
-    """Batched counterpart of ``Model._traces``; returns an Empirical."""
+    """Batched counterpart of ``Model._traces``; returns an Empirical.
+    Runs without autograd: a served network records no graph."""
     if file_name is not None:
         raise NotImplementedError(
             "file-backed Empirical results come with the storage slice"

@@ -71,6 +71,60 @@ def test_mixture_wrapper_rejects_bad_inputs():
         TK.mixture_normal_log_prob(x, means.t().contiguous().t(), stddevs, logits)
 
 
+def _backward_inputs(B, K, seed):
+    """Mixture inputs with one -inf logit in rows 1-3, every logit -inf in
+    row 5 (a degenerate row), and a cotangent per row."""
+    x, means, stddevs, logits = _mixture_inputs(B, K, seed=seed)
+    logits[1:4, 0] = -np.inf
+    logits[5, :] = -np.inf
+    g = np.random.default_rng(seed + 1).normal(size=B).astype(np.float32)
+    return x, means, stddevs, logits, g
+
+
+def test_mixture_backward_plain_matches_autograd_and_jax_vjp():
+    x, means, stddevs, logits, g = _backward_inputs(64, 5, seed=11)
+    t_in = [torch.from_numpy(a).requires_grad_(True) for a in (x, means, stddevs, logits)]
+    out = TK.mixture_normal_log_prob(*t_in)  # CPU: the plain version, under autograd
+    out.backward(torch.from_numpy(g))
+    autograd = [t.grad.numpy() for t in t_in]
+    closed = TK.mixture_normal_log_prob_backward(
+        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g)
+    )
+    jout, vjp = jax.vjp(JK._mixture_normal_ref, *[jnp.asarray(a) for a in (x, means, stddevs, logits)])
+    jax_grads = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-6)
+    for mine, ref, jref in zip(closed, autograd, jax_grads):
+        np.testing.assert_allclose(mine.numpy(), ref, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(jref), rtol=1e-5, atol=1e-6)
+    dx, dmeans, dstddevs, dlogits = (c.numpy() for c in closed)
+    # a -inf logit in a finite row takes no gradient; the degenerate row is
+    # NaN throughout, as PyTorch's and JAX's logsumexp backward give
+    assert (dlogits[1:4, 0] == 0).all() and (dmeans[1:4, 0] == 0).all()
+    assert np.isnan(dlogits[5]).all() and np.isnan(dx[5])
+    assert np.isfinite(np.delete(dx, 5)).all()
+    # dx only when asked for
+    assert TK.mixture_normal_log_prob_backward(
+        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g), need_x=False
+    )[0] is None
+
+
+@pytest.mark.cuda
+def test_mixture_backward_kernel_matches_plain_on_card():
+    _need_card()
+    x, means, stddevs, logits, g = _backward_inputs(262_144 + 37, 10, seed=3)
+    t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in (x, means, stddevs, logits)]
+    before = TK.mixture_normal_log_prob_backward.launches
+    out = TK.mixture_normal_log_prob(*t_in)
+    out.backward(torch.from_numpy(g).cuda())
+    torch.cuda.synchronize()
+    assert TK.mixture_normal_log_prob_backward.launches == before + 1
+    ref = TK.mixture_normal_log_prob_backward_plain(
+        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g).cuda()
+    )
+    for t, r in zip(t_in, ref):
+        torch.testing.assert_close(t.grad, r, atol=1e-5, rtol=1e-4, equal_nan=True)
+
+
 def _log_weights(n, seed, frac_neg_inf):
     rng = np.random.default_rng(seed)
     lw = rng.uniform(-10, 2, (n,)).astype(np.float32)

@@ -192,6 +192,7 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "pyprob_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "profile_guided_is.py",
+        REPO / "profile_train.py",
     ]
     assert len(files) > 10
     for path in files:
