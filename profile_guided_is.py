@@ -6,20 +6,25 @@ LSTM network, lstm_dim 512, 10 mixture components, 16-d observe
 embeddings) over 1,000,000 traces once to warm up, then once under
 ``torch.profiler``, and prints one JSON line: wall time, device time summed
 by kernel (top entries and groups), the device's idle share of the wall
-time, and the peak device memory.  Needs one CUDA card; run from the
-repository root:
+time, and the peak device memory.  With the argument ``marsaglia`` it
+serves GaussianUnknownMeanMarsagliaRejection instead, with a network
+trained first by bench.py's Marsaglia recipe (lstm_dim 128, 25,600
+traces), and adds the retry rounds per chunk.  Needs one CUDA card; run
+from the repository root:
 
-    python3 profile_guided_is.py
+    python3 profile_guided_is.py [marsaglia]
 """
 
 import json
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import pyprob_tpu_torch as pp
-from chip_smoke import NUM_TRACES, OBSERVE, guided_model
+from chip_smoke import MARSAGLIA, NUM_TRACES, OBSERVE, guided_model, marsaglia_train_kwargs
+from pyprob_tpu_torch.models import GaussianUnknownMeanMarsagliaRejection
 
 LSTM_DIM = 512
 
@@ -35,6 +40,8 @@ def group(name):
     n = name.lower()
     if "mixture_normal_log_prob_kernel" in n:
         return "mixture_normal_log_prob (CUDA kernel)"
+    if "mixture_truncated_normal_log_prob_kernel" in n:
+        return "mixture_truncated_normal_log_prob (CUDA kernel)"
     if "lw_stats" in n:
         return "log_weight_stats (CUDA kernel)"
     if "gemm" in n or "cutlass" in n or "cublas" in n:
@@ -53,7 +60,14 @@ def main():
     pp.seed(0)
     pp.set_verbosity(0)
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
-    model = guided_model(LSTM_DIM)
+    marsaglia = sys.argv[1:] == ["marsaglia"]
+    if marsaglia:
+        lstm_dim = MARSAGLIA["lstm_dim"]
+        model = GaussianUnknownMeanMarsagliaRejection()
+        model.learn_inference_network(num_traces=MARSAGLIA["train_traces"], **marsaglia_train_kwargs())
+    else:
+        lstm_dim = LSTM_DIM
+        model = guided_model(LSTM_DIM)
 
     def run():
         return model.posterior_results(
@@ -77,7 +91,7 @@ def main():
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "traces": NUM_TRACES, "lstm_dim": LSTM_DIM,
+        "model": type(model).__name__, "traces": NUM_TRACES, "lstm_dim": lstm_dim,
         "wall_ms": wall_us / 1e3, "traces_per_s": NUM_TRACES / (wall_us / 1e6),
         "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / wall_us,
         "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
@@ -86,6 +100,9 @@ def main():
         ],
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "ess_fraction": post.effective_sample_size / NUM_TRACES,
+        "rejection_rounds_per_chunk": [
+            r for meta in post.metadata for r in meta.get("rejection_rounds", [])
+        ],
     }), flush=True)
 
 

@@ -14,30 +14,38 @@ time, the host's top operators by self CPU time, host ms per stage, and
 the peak device memory.  Needs one CUDA card; run from the repository
 root:
 
-    python3 profile_train.py
+    python3 profile_train.py [marsaglia]
+
+With the argument ``marsaglia`` it trains GaussianUnknownMeanMarsagliaRejection
+with bench.py's Marsaglia recipe instead (lstm_dim 128, batch 256, lr
+0.004, 32-d observe embeddings, EMA 0.9).
 """
 
 import json
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import pyprob_tpu_torch as pp
-from chip_smoke import ARMS, train_kwargs
+from chip_smoke import ARMS, MARSAGLIA, marsaglia_train_kwargs, train_kwargs
 from profile_guided_is import device_us
-from pyprob_tpu_torch.models import GaussianUnknownMean
+from pyprob_tpu_torch.models import GaussianUnknownMean, GaussianUnknownMeanMarsagliaRejection
 
-ARM = ARMS[1]
 WARM_TRACES, PROFILED_TRACES, STAGED_STEPS = 12_800, 10_240, 20
 
 
 def group(name):
     n = name.lower()
-    if "mixture_normal_log_prob_backward_kernel" in n:
-        return "mixture_normal_log_prob_backward (CUDA kernel)"
-    if "mixture_normal_log_prob_kernel" in n:
-        return "mixture_normal_log_prob (CUDA kernel)"
+    for kernel in (
+        "mixture_normal_log_prob_backward",
+        "mixture_normal_log_prob",
+        "mixture_truncated_normal_log_prob_backward",
+        "mixture_truncated_normal_log_prob",
+    ):
+        if kernel + "_kernel" in n:
+            return kernel + " (CUDA kernel)"
     if "gemm" in n or "cutlass" in n or "cublas" in n:
         return "matmul (cuBLAS)"
     if "foreach" in n or "multi_tensor" in n:
@@ -51,14 +59,13 @@ def group(name):
     return "other"
 
 
-def stage_ms(model, steps):
-    """Host ms per stage of the online loop's step (``_online_optimize``),
-    averaged over ``steps`` steps."""
+def stage_ms(model, steps, B):
+    """Host ms per stage of the online loop's step (``_online_optimize``)
+    at batch size ``B``, averaged over ``steps`` steps."""
     from pyprob_tpu_torch.nn import OnlineDataset
 
     net = model._inference_network
     dataset = OnlineDataset(model)
-    B = ARM["batch_size"]
     names = ("draw batch", "pack", "loss forward", "backward", "optimizer step", "ema",
              "loss to host (sync)")
     totals = dict.fromkeys(names, 0.0)
@@ -100,8 +107,14 @@ def main():
     pp.set_device("cuda")
     pp.seed(0)
     pp.set_verbosity(0)
-    model = GaussianUnknownMean()
-    kw = train_kwargs(ARM, segments=4)
+    if sys.argv[1:] == ["marsaglia"]:
+        arm = MARSAGLIA
+        model = GaussianUnknownMeanMarsagliaRejection()
+        kw = marsaglia_train_kwargs()
+    else:
+        arm = ARMS[1]
+        model = GaussianUnknownMean()
+        kw = train_kwargs(arm, segments=4)
     model.learn_inference_network(num_traces=WARM_TRACES, **kw)
     net = model._inference_network
     torch.cuda.synchronize()
@@ -125,10 +138,11 @@ def main():
         (e for e in events if e.device_type.name == "CPU"),
         key=lambda e: e.self_cpu_time_total, reverse=True,
     )[:12]
-    stages = stage_ms(model, STAGED_STEPS)
+    stages = stage_ms(model, STAGED_STEPS, arm["batch_size"])
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "lstm_dim": ARM["lstm_dim"], "batch_size": ARM["batch_size"],
+        "model": type(model).__name__,
+        "lstm_dim": arm["lstm_dim"], "batch_size": arm["batch_size"],
         "traces": PROFILED_TRACES, "optimizer_steps": steps,
         "wall_ms": wall_us / 1e3, "wall_ms_per_step": wall_us / 1e3 / steps,
         "traces_per_s": PROFILED_TRACES / (wall_us / 1e6),

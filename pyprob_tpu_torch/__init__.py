@@ -5,9 +5,11 @@ Models are ordinary Python programs calling ``sample`` / ``observe``.  This
 port runs on an NVIDIA GPU (``cuda``) unless ``set_device('cpu')`` asks for
 the CPU.  So far it trains an LSTM inference network online
 (``Model.learn_inference_network``) and serves importance sampling, from
-the prior and guided by that network, on its batched tier, with the
-mixture log-density (forward and backward) and the log-weight statistics
-in hand-written CUDA kernels (``pyprob_tpu_torch.ops``).
+the prior and guided by that network, on its batched tier, for models
+with fixed structure and for rejection loops written with
+``rejection_sample``.  The mixture-of-Normals and mixture-of-truncated-
+Normals log-densities (forward and backward) and the log-weight
+statistics are hand-written CUDA kernels (``pyprob_tpu_torch.ops``).
 """
 
 from .util import (
@@ -23,7 +25,7 @@ from .util import (
     set_verbosity,
     set_device,
 )
-from .state import sample, observe
+from .state import sample, observe, factor, tag, rejection_sample
 from .model import Model
 from . import distributions
 from . import util
@@ -42,6 +44,9 @@ __all__ = [
     "set_device",
     "sample",
     "observe",
+    "factor",
+    "tag",
+    "rejection_sample",
     "Model",
     "distributions",
     "util",

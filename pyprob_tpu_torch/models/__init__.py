@@ -1,3 +1,3 @@
-from .models import GaussianUnknownMean
+from .models import GaussianUnknownMean, GaussianUnknownMeanMarsagliaRejection
 
-__all__ = ["GaussianUnknownMean"]
+__all__ = ["GaussianUnknownMean", "GaussianUnknownMeanMarsagliaRejection"]

@@ -81,7 +81,7 @@ class OnlineDataset:
     """Infinite dataset of fresh prior traces (observes receive sampled
     values) drawn on the batched tier.  A model that branches on sampled
     values raises there: the interpreter tier that would run it comes
-    with the engines slice."""
+    with the interpreter slice."""
 
     def __init__(self, model, prior_inflation=PriorInflation.DISABLED):
         self._model = model

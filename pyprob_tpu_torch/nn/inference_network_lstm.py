@@ -6,20 +6,27 @@ distribution-type embeddings feed an LSTM core whose features drive
 per-address proposal heads.  On the batched tier the proposal step runs
 once per site over the whole ``[N]`` particle batch: the observe embedding
 is computed once per run and expanded, the LSTM state is ``[depth, N, H]``,
-and the head's mixture is scored by the mixture kernel.  The training loss
-(``_make_loss_for``) runs the same layers over a packed ``[B]`` batch, one
-``lstm_step`` per controlled site, and is −Σ log q of the batch's values,
-its gradient reaching the heads through the mixture kernel's backward.
+and the head's mixture is scored by the mixture kernels.  For the retries
+of a ``rejection_sample`` block the step proposes from a defensive mixture
+with the prior and exposes its recurrent state (``get_state``,
+``set_state``, ``select_state``), so each retry restarts from the
+pre-block state and each lane continues from its accepted attempt's.
+The training loss (``_make_loss_for``) runs the same layers over a packed
+``[B]`` batch, one ``lstm_step`` per controlled site, and is −Σ log q of
+the batch's values, its gradient reaching the heads through the mixture
+kernels' backward.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from .. import util
 from ..util import ObserveEmbedding
-from ..vectorized import _draw
+from ..vectorized import _draw, _select
 from .inference_network import InferenceNetwork
 from .layers import (
     _host,
@@ -319,9 +326,13 @@ class InferenceNetworkLSTM(InferenceNetwork):
                 state["emb"] = embed(params, obs)
             return state["emb"]
 
-        def proposal_step(site, distribution, generator, observed, forced_value=None):
+        def proposal_step(site, distribution, generator, observed, forced_value=None,
+                          defensive=None):
             """Propose (or, given ``forced_value`` [n], score) the values of
-            one site for the whole batch: returns ([n] values, [n] log q)."""
+            one site for the whole batch: returns ([n] values, [n] log q).
+            ``defensive=π``: each lane draws from q with probability π, else
+            from the prior, and is scored against the mixture π·q + (1−π)·p
+            (rejection_sample retries)."""
             n = state["n"]
             addr = site.address
             if addr not in head_meta:
@@ -361,11 +372,49 @@ class InferenceNetworkLSTM(InferenceNetwork):
             d = head_apply(params["proposal"][addr], out, prior)
             if forced_value is not None:
                 value = util.to_tensor(forced_value, device).reshape(n)
+            elif defensive is not None:
+                xq = d.sample(generator)
+                xp = _draw(distribution, n, generator)
+                u = torch.rand((n,), generator=generator, dtype=util.dtype(), device=device)
+                value = torch.where(u < defensive, xq, xp)
             else:
                 value = d.sample(generator)
             plp = d.log_prob(value)
+            if defensive is not None:
+                plp = torch.logaddexp(
+                    math.log(defensive) + plp,
+                    math.log1p(-defensive) + distribution.log_prob(value),
+                )
             state["prev"] = (addr, value, distribution.name)
             return value, plp
 
+        def get_state():
+            """The step's recurrent state: the ``[depth, n, H]`` LSTM (h, c)
+            and the previous site's (address, [n] value, distribution name),
+            or None before the first site."""
+            return state["lstm"], state["prev"]
+
+        def set_state(s):
+            state["lstm"], state["prev"] = s
+
+        def select_state(mask, new, old):
+            """Per lane, ``new`` where ``mask`` [n] holds, else ``old``; the
+            two must have met the same previous site."""
+            (h1, c1), prev1 = new
+            (h0, c0), prev0 = old
+            if (prev1 is None) != (prev0 is None) or (
+                prev1 is not None and (prev1[0], prev1[2]) != (prev0[0], prev0[2])
+            ):
+                raise RuntimeError("proposal state structure changed across rejection attempts")
+            lanes = mask.reshape(1, -1, 1)
+            lstm = (torch.where(lanes, h1, h0), torch.where(lanes, c1, c0))
+            if prev1 is None:
+                return lstm, None
+            return lstm, (prev1[0], _select(mask, prev1[1], prev0[1]), prev1[2])
+
         proposal_step.reset = reset
+        proposal_step.get_state = get_state
+        proposal_step.set_state = set_state
+        proposal_step.select_state = select_state
+        proposal_step.supports_defensive = True
         return proposal_step

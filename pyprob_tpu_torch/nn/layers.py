@@ -87,7 +87,7 @@ def mlp_apply(params, x, activation=torch.relu, activation_last=torch.relu):
     if meta.get("one_hot_dim") is not None:
         raise NotImplementedError(
             "one-hot MLP inputs (categorical sample embeddings) come with "
-            "the Marsaglia/categorical slice"
+            "the distributions slice, beside the categorical proposal head"
         )
     x = x.reshape(-1, meta["in_dim"])
     n = len(params["layers"])

@@ -1,19 +1,27 @@
 """Per-address proposal heads (counterpart of ``pyprob_tpu/nn/proposals.py``).
 
 Each head maps the network features x [B, H] plus the site's prior
-parameters to a batched proposal distribution.  This slice serves the
-Normal prior's head, a mixture of K Normals whose means and stddevs are
-residual-scaled by the prior; the head builds its ``[B, K]`` parameter
-tensors once and hands them to the mixture kernel as they are.  The other
-head kinds are recognised and raise with the slice that brings them.
+parameters to a batched proposal distribution.  Ported so far:
+
+* Normal prior -> ``normal_mixture``: a mixture of K Normals whose means and
+  stddevs are residual-scaled by the prior;
+* Uniform prior -> ``uniform_truncated_normal_mixture``: a mixture of K
+  TruncatedNormals on the prior's [low, high], means squashed into it and
+  stddevs scaled by its width.
+
+The heads build their ``[B, K]`` parameter tensors once and hand them to
+the mixture kernels as they are.  The other head kinds are recognised and
+raise with the slice that brings them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..distributions import Categorical, Mixture, Normal
+from ..distributions import Categorical, Mixture, Normal, Uniform
 from .layers import mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy
+
+_PORTED_KINDS = ("normal_mixture", "uniform_truncated_normal_mixture")
 
 
 def head_kind_for(distribution):
@@ -21,6 +29,8 @@ def head_kind_for(distribution):
     proposal.  Only the distributions this port has are recognised."""
     if isinstance(distribution, Normal):
         return "normal_mixture"
+    if isinstance(distribution, Uniform):
+        return "uniform_truncated_normal_mixture"
     if isinstance(distribution, Categorical):
         return "categorical"
     return None
@@ -30,14 +40,16 @@ def prior_param_arrays(distribution):
     """The prior parameters the head consumes at apply time."""
     if isinstance(distribution, Normal):
         return {"mean": distribution.mean, "stddev": distribution.stddev}
+    if isinstance(distribution, Uniform):
+        return {"low": distribution.low, "high": distribution.high}
     return {}
 
 
 def _check_kind(kind):
-    if kind != "normal_mixture":
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"proposal head {kind!r} is not ported yet; it comes with the "
-            "Marsaglia slice"
+            "distributions slice, beside its prior distributions"
         )
 
 
@@ -51,22 +63,33 @@ def head_init(generator, kind, input_dim, device, mixture_components=10):
     }
 
 
+def _rows(prior_param, B):
+    """A prior parameter (a scalar or one value per row) as ``[B]``."""
+    return prior_param.reshape(-1).expand(B)
+
+
 def head_apply(params, x, prior_params):
     """x: [B, H] features; prior_params: dict of scalars or [B] tensors.
     Returns a proposal distribution with batch shape (B,)."""
     meta = params["meta"]
-    _check_kind(meta["kind"])
+    kind = meta["kind"]
+    _check_kind(kind)
     K = meta["mixture_components"]
     out = mlp_apply(params["ff"], x, activation=torch.relu, activation_last=None)
     B = out.shape[0]
-    means = out[:, :K]
-    stddevs = torch.exp(out[:, K : 2 * K])
     coeffs = torch.softmax(out[:, 2 * K :], dim=1)
-    prior_mean = prior_params["mean"].reshape(-1, 1).expand(B, 1)
-    prior_std = prior_params["stddev"].reshape(-1, 1).expand(B, 1)
-    means = prior_mean + means * prior_std
-    stddevs = stddevs * prior_std
-    return Mixture._from_normal_params(means, stddevs, coeffs)
+    if kind == "normal_mixture":
+        prior_mean = _rows(prior_params["mean"], B)[:, None]
+        prior_std = _rows(prior_params["stddev"], B)[:, None]
+        means = prior_mean + out[:, :K] * prior_std
+        stddevs = torch.exp(out[:, K : 2 * K]) * prior_std
+        return Mixture._from_normal_params(means, stddevs, coeffs)
+    low = _rows(prior_params["low"], B)
+    high = _rows(prior_params["high"], B)
+    width = (high - low)[:, None]
+    means = low[:, None] + torch.sigmoid(out[:, :K]) * width
+    stddevs = width / 1000.0 + torch.sigmoid(out[:, K : 2 * K]) * width * 10.0
+    return Mixture._from_truncated_normal_params(means, stddevs, coeffs, low, high)
 
 
 def head_from_numpy(p, device):

@@ -23,7 +23,13 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SOURCE_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("mixture_normal.cu", "mixture_normal_backward.cu", "log_weight_stats.cu")
+SOURCES = (
+    "mixture_normal.cu",
+    "mixture_normal_backward.cu",
+    "mixture_truncated_normal.cu",
+    "mixture_truncated_normal_backward.cu",
+    "log_weight_stats.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,6 +47,12 @@ _SIGNATURES = {
     "pyprob_mixture_normal_log_prob_f32": (ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "pyprob_mixture_normal_log_prob_backward_f32": (
         ctypes.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "pyprob_mixture_truncated_normal_log_prob_f32": (
+        ctypes.c_int, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "pyprob_mixture_truncated_normal_log_prob_backward_f32": (
+        ctypes.c_int, [_P] * 14 + [_I, _I, _I, _P],
     ),
     "pyprob_log_weight_stats_blocks": (ctypes.c_int64, [_I]),
     "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),

@@ -8,6 +8,12 @@ Counterparts of the Pallas kernels in ``pyprob_tpu/ops/kernels.py``:
   its gradient (``mixture_normal_log_prob_backward``,
   ``csrc/mixture_normal_backward.cu``) behind the autograd Function
   ``MixtureNormalLogProb``, where the JAX package has a custom VJP;
+* ``mixture_truncated_normal_log_prob``: the same with truncated
+  components, the density of the Uniform prior's proposal head
+  (``csrc/mixture_truncated_normal.cu``), and its gradient
+  (``mixture_truncated_normal_log_prob_backward``,
+  ``csrc/mixture_truncated_normal_backward.cu``) behind
+  ``MixtureTruncatedNormalLogProb``;
 * ``log_weight_stats``: (max, Σe^(w−max), Σe^2(w−max)) over the run's
   ``[N]`` log-weights, which give the ESS and log Z of a result
   (``csrc/log_weight_stats.cu``).
@@ -171,6 +177,188 @@ class MixtureNormalLogProb(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# mixture of truncated Normals: x, low, high [B], means/stddevs/logits [B, K]
+# -> [B] (the Uniform prior's proposal head)
+# ---------------------------------------------------------------------------
+
+_INV_SQRT_2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _ndtr(z):
+    # a product with 1/√2, not a quotient: PyTorch's CUDA division by a
+    # scalar multiplies by its reciprocal, and the kernels do the same, so
+    # Φ(β) − Φ(α) cancels alike on both sides
+    return 0.5 * (1.0 + torch.erf(z * _INV_SQRT_2))
+
+
+def _tnorm_terms(x, means, stddevs, logits, low, high):
+    """(terms, ξ, α, β, Z [B, K], inside [B]) of the truncated mixture, with
+    term = −ξ²/2 − log √(2π) − log σ − log max(Z, 1e-12) + logit and
+    Z = Φ(β) − Φ(α) unclipped."""
+    alpha = (low[:, None] - means) / stddevs
+    beta = (high[:, None] - means) / stddevs
+    zraw = _ndtr(beta) - _ndtr(alpha)
+    xi = (x[:, None] - means) / stddevs
+    t = (
+        -0.5 * xi * xi
+        - _LOG_SQRT_2PI
+        - torch.log(stddevs)
+        - torch.log(torch.clamp(zraw, min=1e-12))
+        + logits
+    )
+    inside = (x >= low) & (x <= high)
+    return t, xi, alpha, beta, zraw, inside
+
+
+def mixture_truncated_normal_log_prob_plain(x, means, stddevs, logits, low, high):
+    """Plain PyTorch version (``pyprob_tpu`` ``_mixture_tnorm_ref``): the
+    logsumexp of the K truncated terms, −inf where x ∉ [low, high]."""
+    t, _, _, _, _, inside = _tnorm_terms(x, means, stddevs, logits, low, high)
+    lse = torch.logsumexp(t, dim=-1)
+    return torch.where(inside, lse, torch.full_like(lse, -math.inf))
+
+
+def _check_tnorm(name, tensors, B, K):
+    shapes = ((B,), (B, K), (B, K), (B, K), (B,), (B,)) + ((B,),) * (len(tensors) - 6)
+    return _check(name, tensors, shapes)
+
+
+def mixture_truncated_normal_log_prob(x, means, stddevs, logits, low, high):
+    """Mixture-of-truncated-Normals log-density per row.  x, low, high: [B];
+    params: [B, K].  Differentiable through ``MixtureTruncatedNormalLogProb``
+    on both devices, so its gradient is the JAX package's custom VJP
+    (``_mt_bwd``) on both: the plain closed form on the CPU, the backward
+    kernel on CUDA."""
+    if means.dim() != 2 or means.shape[1] < 1:
+        raise ValueError("mixture_truncated_normal_log_prob: means must be [B, K] with K >= 1")
+    B, K = means.shape
+    _check_tnorm("mixture_truncated_normal_log_prob", (x, means, stddevs, logits, low, high), B, K)
+    return MixtureTruncatedNormalLogProb.apply(x, means, stddevs, logits, low, high)
+
+
+mixture_truncated_normal_log_prob.launches = 0
+
+
+def _mixture_tnorm_forward(x, means, stddevs, logits, low, high):
+    if x.device.type == "cpu":
+        return mixture_truncated_normal_log_prob_plain(x, means, stddevs, logits, low, high)
+    B, K = means.shape
+    out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    err = build.library().pyprob_mixture_truncated_normal_log_prob_f32(
+        x.data_ptr(), means.data_ptr(), stddevs.data_ptr(), logits.data_ptr(),
+        low.data_ptr(), high.data_ptr(), out.data_ptr(), B, K, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on_error("mixture_truncated_normal_log_prob", err)
+    mixture_truncated_normal_log_prob.launches += 1
+    return out
+
+
+def mixture_truncated_normal_log_prob_backward_plain(x, means, stddevs, logits, low, high, out, g):
+    """Closed-form gradient of the truncated mixture log-density, as the JAX
+    package's ``_mt_bwd`` takes it: a non-finite cotangent counts as 0, rows
+    with x ∉ [low, high] get 0, and every non-finite gradient becomes 0.
+    With r = g·exp(term − out), φ the standard Normal density and
+    Z = Φ(β) − Φ(α) (its terms 0 where the 1e-12 clip is active):
+    dlogits = r, dmeans = r·(ξ/σ − (φ(α)−φ(β))/(σZ)),
+    dstddevs = r·((ξ²−1)/σ − (αφ(α)−βφ(β))/(σZ)), dx = −Σ r·ξ/σ,
+    dlow = Σ r·φ(α)/(σZ), dhigh = −Σ r·φ(β)/(σZ).
+    Returns (dx, dmeans, dstddevs, dlogits, dlow, dhigh)."""
+    t, xi, alpha, beta, zraw, inside = _tnorm_terms(x, means, stddevs, logits, low, high)
+    g = torch.where(torch.isfinite(g) & inside, g, torch.zeros_like(g))
+    r = g[:, None] * torch.exp(t - out[:, None])
+    pa = torch.exp(-0.5 * alpha * alpha) * _INV_SQRT_2PI
+    pb = torch.exp(-0.5 * beta * beta) * _INV_SQRT_2PI
+    # σZ, or +inf where the clip is active so that the Z terms vanish
+    sz = torch.where(zraw >= 1e-12, stddevs * zraw, torch.full_like(zraw, math.inf))
+    r_sigma = r / stddevs
+    dmeans = r_sigma * xi - r * (pa - pb) / sz
+    dstddevs = r_sigma * (xi * xi - 1.0) - r * (alpha * pa - beta * pb) / sz
+    dx = -(r_sigma * xi).sum(dim=-1)
+    dlow = (r * pa / sz).sum(dim=-1)
+    dhigh = -(r * pb / sz).sum(dim=-1)
+    return tuple(
+        torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+        for a in (dx, dmeans, dstddevs, r, dlow, dhigh)
+    )
+
+
+def mixture_truncated_normal_log_prob_backward(
+    x, means, stddevs, logits, low, high, out, g, need_x=True, need_bounds=True
+):
+    """(dx, dmeans, dstddevs, dlogits, dlow, dhigh) of the truncated mixture
+    log-density for the cotangent ``g`` of its output ``out``; dx is None
+    unless ``need_x``, dlow and dhigh are None unless ``need_bounds``."""
+    if means.dim() != 2 or means.shape[1] < 1:
+        raise ValueError(
+            "mixture_truncated_normal_log_prob_backward: means must be [B, K] with K >= 1"
+        )
+    B, K = means.shape
+    device = _check_tnorm(
+        "mixture_truncated_normal_log_prob_backward",
+        (x, means, stddevs, logits, low, high, out, g), B, K,
+    )
+    if device.type == "cpu":
+        dx, dmeans, dstddevs, dlogits, dlow, dhigh = (
+            mixture_truncated_normal_log_prob_backward_plain(
+                x, means, stddevs, logits, low, high, out, g
+            )
+        )
+        if not need_bounds:
+            dlow = dhigh = None
+        return (dx if need_x else None), dmeans, dstddevs, dlogits, dlow, dhigh
+
+    def vector(needed):
+        return torch.empty((B,), dtype=torch.float32, device=device) if needed else None
+
+    dx, dlow, dhigh = vector(need_x), vector(need_bounds), vector(need_bounds)
+    dmeans, dstddevs, dlogits = (
+        torch.empty((B, K), dtype=torch.float32, device=device) for _ in range(3)
+    )
+    if B == 0:
+        return dx, dmeans, dstddevs, dlogits, dlow, dhigh
+    err = build.library().pyprob_mixture_truncated_normal_log_prob_backward_f32(
+        x.data_ptr(), means.data_ptr(), stddevs.data_ptr(), logits.data_ptr(),
+        low.data_ptr(), high.data_ptr(), out.data_ptr(), g.data_ptr(),
+        None if dx is None else dx.data_ptr(), dmeans.data_ptr(), dstddevs.data_ptr(),
+        dlogits.data_ptr(), None if dlow is None else dlow.data_ptr(),
+        None if dhigh is None else dhigh.data_ptr(), B, K, device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on_error("mixture_truncated_normal_log_prob_backward", err)
+    mixture_truncated_normal_log_prob_backward.launches += 1
+    return dx, dmeans, dstddevs, dlogits, dlow, dhigh
+
+
+mixture_truncated_normal_log_prob_backward.launches = 0
+
+
+class MixtureTruncatedNormalLogProb(torch.autograd.Function):
+    """The truncated mixture's forward and backward as one differentiable op
+    (the JAX package's ``mixture_truncated_normal_log_prob_fused`` custom
+    VJP): the kernels on CUDA, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, means, stddevs, logits, low, high):
+        out = _mixture_tnorm_forward(x, means, stddevs, logits, low, high)
+        ctx.save_for_backward(x, means, stddevs, logits, low, high, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, means, stddevs, logits, low, high, out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        # the cotangent of a sum arrives expanded (stride 0)
+        return mixture_truncated_normal_log_prob_backward(
+            x, means, stddevs, logits, low, high, out, g.contiguous(),
+            need_x=need[0], need_bounds=need[4] or need[5],
+        )
+
+
+# ---------------------------------------------------------------------------
 # log-weight statistics: [N] -> (max, Σ e^(w−max), Σ e^2(w−max))
 # ---------------------------------------------------------------------------
 
@@ -214,4 +402,6 @@ log_weight_stats.launches = 0
 def reset_launch_counts():
     mixture_normal_log_prob.launches = 0
     mixture_normal_log_prob_backward.launches = 0
+    mixture_truncated_normal_log_prob.launches = 0
+    mixture_truncated_normal_log_prob_backward.launches = 0
     log_weight_stats.launches = 0

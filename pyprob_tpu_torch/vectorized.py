@@ -6,9 +6,11 @@ of particles with a handler installed in ``state`` that draws an explicit
 ``[N]`` tensor at every ``sample`` site and accumulates ``[N]`` log-weights
 on the device.  Data-dependent Python control flow on those tensors fails
 as it fails under ``vmap``, and such models raise (the interpreter tier
-that would run them is not ported yet).  Results stay on the device until
-the end of a run; the ESS and log Z of a result come from the
-``log_weight_stats`` kernel over the run's ``[N]`` log-weights.
+that would run them is not ported yet).  Rejection loops written with
+``rejection_sample`` do run here: the block becomes a masked retry loop
+over the batch (``VectorizedHandler.rejection_sample``).  Results stay on
+the device until the end of a run; the ESS and log Z of a result come from
+the ``log_weight_stats`` kernel over the run's ``[N]`` log-weights.
 """
 
 from __future__ import annotations
@@ -29,12 +31,17 @@ from .util import InferenceEngine, PriorInflation, TraceMode
 
 _INTERPRETER_LATER = (
     "the interpreter tier (one trace at a time on the host) is not ported "
-    "yet; it comes with the engines slice"
+    "yet; it comes with the interpreter slice"
 )
 
 # Particles per forward call.  Bounds device memory: at lstm_dim 512 the
 # LSTM gates of one chunk are [2^18, 2048] float32, 2 GiB.
 _BATCH_LIMIT = 1 << 18
+
+_REJECTION_MAX_ATTEMPTS = 64
+# mixture weight on the learned proposal for rejection-retry attempts
+# (defensive importance sampling, Hesterberg 1995)
+_REJECTION_DEFENSIVE_PI = 0.5
 
 
 def _draw(distribution, n, generator):
@@ -56,6 +63,7 @@ class SiteRecord:
         "control",
         "observed",
         "distribution",
+        "rejection",  # True for sites inside a rejection_sample block
     )
 
     def __init__(self, **kw):
@@ -94,6 +102,7 @@ class VectorizedHandler:
         self.values = []
         self.log_probs = []
         self.instance_counts = {}
+        self.rejection_rounds = []  # attempts run by each rejection block
         zeros = lambda: torch.zeros(  # noqa: E731
             (num_particles,), dtype=util.dtype(), device=self.device
         )
@@ -138,7 +147,12 @@ class VectorizedHandler:
         self.values.append(value)
         self.log_probs.append(log_prob)
 
-    def sample(self, distribution, name=None, address=None, control=True):
+    def sample(self, distribution, name=None, address=None, control=True, mask=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "sample(mask=) sites are not ported yet; they come with the "
+                "Markov/SMC slice"
+            )
         base, full, instance = self._make_address(address, distribution.address_suffix)
         site = SiteRecord(
             address_base=base,
@@ -162,13 +176,7 @@ class VectorizedHandler:
             self._record(site, value, log_prob)
             return value
 
-        if (
-            self.trace_mode == TraceMode.POSTERIOR
-            and self.inference_engine
-            == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
-            and control
-            and self.proposal_step is not None
-        ):
+        if control and self._ic_proposals():
             value, proposal_log_prob = self.proposal_step(
                 site, distribution, self.generator, self.observed
             )
@@ -225,6 +233,231 @@ class VectorizedHandler:
         self.log_prob_total = self.log_prob_total + log_prob
         self._record(site, value, log_prob)
         return value
+
+    def factor(self, log_prob=None, log_prob_func=None, name=None, address=None, mask=None):
+        raise NotImplementedError(
+            "factor is not ported yet; it comes with the distributions slice "
+            "(the Factor distribution)"
+        )
+
+    def tag(self, value, name=None, address=None):
+        raise NotImplementedError(
+            "tag sites are not ported yet; they come with the interpreter slice"
+        )
+
+    def _ic_proposals(self):
+        return (
+            self.trace_mode == TraceMode.POSTERIOR
+            and self.inference_engine
+            == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+            and self.proposal_step is not None
+        )
+
+    def rejection_sample(self, attempt_fn, max_attempts=None):
+        """The block as a masked retry loop over the ``[n]`` particles,
+        with replacement semantics: every attempt restarts the instance
+        counts from the pre-block snapshot, so the block's sites keep
+        instance 1, and a lane still pending at the start of a round takes
+        that round's values, log-densities, distribution parameters and
+        outputs.  Each round runs every lane; rounds repeat while a lane is
+        pending, up to ``max_attempts`` (default 64), after which a pending
+        lane's weight is −inf.
+
+        The first attempt alone may propose from the learned network.
+        Under guided IS, retries restart the proposal network from the
+        pre-block state (training saw only accepted attempts) and propose
+        from the defensive mixture π·q + (1−π)·prior (π = 0.5), which caps
+        a rejected attempt's weight factor at 1/(1−π); each lane then
+        continues from the network state its accepted attempt left.  The
+        importance weight takes log p − log q of every attempt a lane
+        executed, accepted or not: exact by the extended-space argument
+        (the target and the proposal processes both define densities over
+        the sequence of executed attempts, with ratio Π p(x_i)/q(x_i))."""
+        max_attempts = int(max_attempts) if max_attempts else _REJECTION_MAX_ATTEMPTS
+        base_counts = dict(self.instance_counts)
+        step = self.proposal_step
+        ic_retry = self._ic_proposals() and all(
+            hasattr(step, a) for a in ("get_state", "set_state", "select_state")
+        )
+        defensive = (
+            _REJECTION_DEFENSIVE_PI
+            if ic_retry and getattr(step, "supports_defensive", False)
+            else None
+        )
+        s0 = step.get_state() if ic_retry else None
+
+        def run_attempt(use_proposal, defensive=None):
+            sub = _RejectionAttemptHandler(self, base_counts, use_proposal, defensive)
+            prev = state._set_handler(sub)
+            try:
+                out, accept = attempt_fn()
+            finally:
+                state._set_handler(prev)
+            accept = torch.as_tensor(accept, device=self.device).to(torch.bool)
+            return out, accept.expand(self.n), sub
+
+        out, accept, sub0 = run_attempt(use_proposal=True)
+        if not sub0.sites:
+            raise RuntimeError("rejection_sample block contains no sample sites")
+        for iw in sub0.log_iws:
+            if iw is not None:
+                self.log_importance_weight = self.log_importance_weight + iw
+        self.instance_counts = dict(sub0.instance_counts)
+        addresses = [s.address for s in sub0.sites]
+        values, log_probs = list(sub0.values), list(sub0.log_probs)
+        dists = [s.distribution for s in sub0.sites]
+        pstate = step.get_state() if ic_retry else None
+        rounds = 1
+        pending = ~accept
+        # one host sync per round: whether any lane is still pending
+        while rounds < max_attempts and bool(pending.any()):
+            if ic_retry:
+                step.set_state(s0)
+            o, acc, sub = run_attempt(use_proposal=ic_retry, defensive=defensive)
+            if [s.address for s in sub.sites] != addresses:
+                raise RuntimeError(
+                    "rejection_sample attempts must meet the same sample sites "
+                    "on the batched tier"
+                )
+            for iw in sub.log_iws:
+                if iw is not None:
+                    self.log_importance_weight = self.log_importance_weight + torch.where(
+                        pending, iw, torch.zeros_like(iw)
+                    )
+            out = _select(pending, o, out)
+            values = [_select(pending, a, b) for a, b in zip(sub.values, values)]
+            log_probs = [_select(pending, a, b) for a, b in zip(sub.log_probs, log_probs)]
+            dists = [
+                _select_distribution(pending, s.distribution, d)
+                for s, d in zip(sub.sites, dists)
+            ]
+            if ic_retry:
+                pstate = step.select_state(pending, step.get_state(), pstate)
+            accept = accept | (pending & acc)
+            pending = pending & ~acc
+            rounds += 1
+        self.rejection_rounds.append(rounds)
+        self.log_importance_weight = torch.where(
+            accept, self.log_importance_weight,
+            torch.full_like(self.log_importance_weight, -math.inf),
+        )
+        if ic_retry:
+            step.set_state(pstate)
+        for site, value, lp, dist in zip(sub0.sites, values, log_probs, dists):
+            site.distribution = dist
+            if site.control:
+                self.log_prob_total = self.log_prob_total + lp
+            self._record(site, value, lp)
+        return out
+
+
+def _select(mask, new, old):
+    """Per lane, ``new`` where ``mask`` [n] holds, else ``old``: tensors
+    with the lanes on their first dimension (0-d ones broadcast), or
+    tuples, lists and dicts of them."""
+    if isinstance(new, (tuple, list)):
+        return type(new)(_select(mask, a, b) for a, b in zip(new, old))
+    if isinstance(new, dict):
+        return {k: _select(mask, new[k], old[k]) for k in new}
+    new = torch.as_tensor(new, device=mask.device)
+    old = torch.as_tensor(old, device=mask.device)
+    dim = max(new.dim(), old.dim(), 1)
+    return torch.where(mask.reshape((-1,) + (1,) * (dim - 1)), new, old)
+
+
+def _select_distribution(mask, new, old):
+    """A site's distribution with per-lane parameters: ``new``'s where
+    ``mask`` holds, else ``old``'s (the parameters may depend on earlier
+    sites of the block)."""
+    if new is old:
+        return new
+    if type(new) is not type(old) or not type(new)._param_names:
+        raise NotImplementedError(
+            f"per-lane parameters of {type(new).__name__} inside a "
+            "rejection_sample block are not supported on the batched tier"
+        )
+    leaves = []
+    for a, b in zip(new._leaves(), old._leaves()):
+        # a parameter shared by every lane gains a lane dimension
+        a = a.unsqueeze(0) if new.batch_shape == () else a
+        b = b.unsqueeze(0) if old.batch_shape == () else b
+        leaves.append(_select(mask, a, b))
+    return type(new)._rebuild(leaves)
+
+
+class _RejectionAttemptHandler:
+    """Handler installed while one attempt of a rejection block runs.  It
+    records the attempt's sites, values, log-densities and weight terms
+    without touching the outer handler's accumulators; the outer
+    ``rejection_sample`` selects and commits them per lane."""
+
+    _make_address = VectorizedHandler._make_address
+
+    def __init__(self, outer, base_counts, use_proposal, defensive=None):
+        self.outer = outer
+        self.root_function_name = outer.root_function_name
+        self.instance_counts = dict(base_counts)
+        self.use_proposal = use_proposal
+        self.defensive = defensive  # mixture weight on q for retry proposals
+        self.sites = []
+        self.values = []
+        self.log_probs = []
+        self.log_iws = []
+
+    def sample(self, distribution, name=None, address=None, control=True, mask=None):
+        outer = self.outer
+        if mask is not None:
+            raise RuntimeError(
+                "sample(mask=) inside rejection_sample is not supported "
+                "(the block's acceptance indicator already gates attempts)"
+            )
+        if name is not None and name in outer.observed:
+            raise RuntimeError(
+                "observed sample sites inside rejection_sample are not supported"
+            )
+        base, full, instance = self._make_address(address, distribution.address_suffix)
+        site = SiteRecord(
+            address_base=base,
+            address=full,
+            instance=instance,
+            name=name,
+            control=control,
+            observed=False,
+            distribution=distribution,
+            rejection=True,
+        )
+        log_iw = None
+        if self.use_proposal and control and outer._ic_proposals():
+            kwargs = {} if self.defensive is None else {"defensive": self.defensive}
+            value, proposal_log_prob = outer.proposal_step(
+                site, distribution, outer.generator, outer.observed, **kwargs
+            )
+            lp = outer._per_particle(distribution.log_prob(value))
+            log_iw = lp - proposal_log_prob
+        else:
+            inflated = outer._inflate(distribution) if (self.use_proposal and control) else None
+            proposal = inflated if inflated is not None else distribution
+            value = _draw(proposal, outer.n, outer.generator)
+            lp = outer._per_particle(distribution.log_prob(value))
+            if inflated is not None:
+                log_iw = lp - outer._per_particle(inflated.log_prob(value))
+        self.sites.append(site)
+        self.values.append(value)
+        self.log_probs.append(lp)
+        self.log_iws.append(log_iw)
+        return value
+
+    def observe(self, distribution, value=None, name=None, address=None):
+        raise RuntimeError("observe/factor inside rejection_sample is not supported")
+
+    def factor(self, log_prob=None, log_prob_func=None, name=None, address=None, mask=None):
+        raise RuntimeError("observe/factor inside rejection_sample is not supported")
+
+    def tag(self, value, name=None, address=None):
+        raise RuntimeError("tag inside rejection_sample is not supported")
+
+    def rejection_sample(self, attempt_fn, max_attempts=None):
+        raise RuntimeError("nested rejection_sample is not supported on the batched tier")
 
 
 def run_traced(
@@ -322,13 +555,14 @@ def _run_batched(
     """Run ``forward`` over chunks of at most ``_BATCH_LIMIT`` particles;
     returns the outputs concatenated to ``num_traces`` on the device
     (only the ``fetch`` keys, when given), the per-chunk distributions of
-    each site, and the site list."""
+    each site, the site list, and per chunk the rounds its rejection
+    blocks ran (summed over the blocks; empty without blocks)."""
     device = util.device()
     observed = {
         k: util.to_tensor(v, device) for k, v in (observed or {}).items()
     }
     generator = util.generator(device)
-    chunks, dists, sites = [], [], None
+    chunks, dists, sites, rounds = [], [], None, []
     remaining = num_traces
     while remaining > 0:
         n = min(remaining, _BATCH_LIMIT)
@@ -342,12 +576,13 @@ def _run_batched(
         else:
             dists.append([s.distribution for s in handler.sites])
         chunks.append(out)
+        if handler.rejection_rounds:
+            rounds.append(sum(handler.rejection_rounds))
         if sites is None:
             sites = handler.sites
         remaining -= n
-    if len(chunks) == 1:
-        return chunks[0], dists, sites
-    return _concat(chunks), dists, sites
+    outputs = chunks[0] if len(chunks) == 1 else _concat(chunks)
+    return outputs, dists, sites, rounds
 
 
 def _concat(chunks):
@@ -455,7 +690,7 @@ def vectorized_traces(
         raise RuntimeError(f"Observe has missing value(s): {observe}")
     t0 = time.time()
     results_only = getattr(map_func, "__name__", "") == "trace_result"
-    outputs, dists, sites = _run_batched(
+    outputs, dists, sites, rounds = _run_batched(
         model,
         num_traces,
         observe,
@@ -499,6 +734,8 @@ def vectorized_traces(
             effective_sample_size=ess,
         )
     emp.add_metadata(log_evidence=log_evidence)
+    if rounds:
+        emp.add_metadata(rejection_rounds=rounds)
     duration = time.time() - t0
     if util.verbosity() > 1:
         util.log_print(

@@ -1,14 +1,18 @@
 """Shared set-up of the parity tests between pyprob_tpu and pyprob_tpu_torch.
 
-The Gaussian-unknown-mean body is defined once here and both packages'
-models call it: an address embeds the source line of its ``sample`` call
-and the function-name chain, so the two packages' sites get equal
-addresses and carried proposal heads land on the right address.
+The Gaussian-unknown-mean body and its Marsaglia variant (the prior drawn
+by the polar method inside ``rejection_sample``) are defined once here and
+both packages' models call them: an address embeds the source line of its
+``sample`` call and the function-name chain, so the two packages' sites
+get equal addresses and carried proposal heads land on the right address.
+The Marsaglia body takes its ``sqrt`` and ``log`` from the caller.
 """
 
 import math
 
 import numpy as np
+import jax.numpy as jnp
+import torch
 
 import pyprob_tpu
 import pyprob_tpu_torch
@@ -38,6 +42,33 @@ class TorchGUM(pyprob_tpu_torch.Model):
         return gum_body(pyprob_tpu_torch)
 
 
+def marsaglia_body(pp, sqrt, log):
+    uniform = pp.distributions.Uniform(-1.0, 1.0)
+
+    def attempt():
+        x = pp.sample(uniform)
+        y = pp.sample(uniform)
+        s = x * x + y * y
+        return (x, s), s < 1.0
+
+    x, s = pp.rejection_sample(attempt)
+    mu = 1.0 + math.sqrt(5.0) * (x * sqrt(-2.0 * log(s) / s))
+    likelihood = pp.distributions.Normal(mu, math.sqrt(2.0))
+    pp.observe(likelihood, name="obs0")
+    pp.observe(likelihood, name="obs1")
+    return mu
+
+
+class JaxMarsaglia(pyprob_tpu.Model):
+    def forward(self):
+        return marsaglia_body(pyprob_tpu, jnp.sqrt, jnp.log)
+
+
+class TorchMarsaglia(pyprob_tpu_torch.Model):
+    def forward(self):
+        return marsaglia_body(pyprob_tpu_torch, torch.sqrt, torch.log)
+
+
 def unwrap_static(tree):
     if isinstance(tree, Static):
         return tree.value
@@ -48,9 +79,10 @@ def unwrap_static(tree):
     return np.asarray(tree) if hasattr(tree, "shape") else tree
 
 
-def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7):
+def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7, vectorized=None):
     """An untrained pyprob_tpu LSTM network for ``model``: constructor plus
-    layer pre-generation on two interpreter-tier prior traces."""
+    layer pre-generation on two prior traces (``vectorized`` picks the
+    tier that draws them)."""
     pyprob_tpu.seed(seed)
     net = JaxLSTM(
         model=model,
@@ -58,7 +90,7 @@ def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7)
         lstm_dim=lstm_dim,
         proposal_mixture_components=mixture_components,
     )
-    net._pre_generate_layers(model.prior(num_traces=2).get_values())
+    net._pre_generate_layers(model.prior(num_traces=2, vectorized=vectorized).get_values())
     return net
 
 

@@ -142,3 +142,106 @@ def test_empirical_list_values_match():
     t = TD.Empirical(values=vals, log_weights=lw)
     for name in ("effective_sample_size", "mean", "stddev"):
         np.testing.assert_allclose(float(getattr(t, name)), float(getattr(j, name)), rtol=1e-9)
+
+
+def test_uniform_matches():
+    rng = np.random.default_rng(5)
+    low = rng.uniform(-3, 0, 30).astype(np.float32)
+    high = (low + rng.uniform(0.5, 4, 30)).astype(np.float32)
+    x = rng.uniform(-4, 5, 30).astype(np.float32)
+    j = JD.Uniform(jnp.asarray(low), jnp.asarray(high))
+    t = TD.Uniform(torch.from_numpy(low), torch.from_numpy(high))
+    jlp, tlp = np.asarray(j.log_prob(jnp.asarray(x))), t.log_prob(torch.from_numpy(x)).numpy()
+    assert np.isneginf(jlp).any() and np.isfinite(jlp).any()
+    np.testing.assert_array_equal(np.isneginf(tlp), np.isneginf(jlp))
+    _close(tlp[np.isfinite(jlp)], jlp[np.isfinite(jlp)])
+    u = rng.uniform(0, 1, 30).astype(np.float32)
+    _close(t.cdf(torch.from_numpy(x)), j.cdf(jnp.asarray(x)))
+    _close(t.icdf(torch.from_numpy(u)), j.icdf(jnp.asarray(u)))
+    _close(t.mean, j.mean)
+    _close(t.variance, j.variance)
+    assert t.address_suffix == j.address_suffix == "Uniform"
+    assert t.batch_shape == j.batch_shape == (30,)
+    draws = TD.Uniform(-1.0, 3.0).sample(sample_shape=(100_000,))
+    assert float(draws.min()) >= -1.0 and float(draws.max()) <= 3.0
+    np.testing.assert_allclose(float(draws.mean()), 1.0, atol=0.02)
+    np.testing.assert_allclose(float(draws.var()), 16.0 / 12.0, rtol=0.02)
+
+
+def _truncated(B, seed):
+    rng = np.random.default_rng(seed)
+    low = rng.uniform(-2, 0, B).astype(np.float32)
+    high = (low + rng.uniform(0.5, 3, B)).astype(np.float32)
+    # means near the bounds: Φ(β) − Φ(α) far from cancellation, where two
+    # erf implementations agree to f32
+    loc = (low + rng.uniform(-0.2, 1.2, B) * (high - low)).astype(np.float32)
+    scale = rng.uniform(0.3, 3, B).astype(np.float32)
+    return loc, scale, low, high
+
+
+def test_truncated_normal_matches():
+    loc, scale, low, high = _truncated(40, seed=6)
+    x = np.random.default_rng(7).uniform(-2.5, 3.5, 40).astype(np.float32)
+    j = JD.TruncatedNormal(*[jnp.asarray(a) for a in (loc, scale, low, high)])
+    t = TD.TruncatedNormal(*[torch.from_numpy(a) for a in (loc, scale, low, high)])
+    jlp, tlp = np.asarray(j.log_prob(jnp.asarray(x))), t.log_prob(torch.from_numpy(x)).numpy()
+    inside = np.isfinite(jlp)
+    assert 0 < inside.sum() < 40
+    np.testing.assert_array_equal(np.isfinite(tlp), inside)
+    _close(tlp[inside], jlp[inside])
+    _close(t.mean, j.mean)
+    _close(t.variance, j.variance)
+    assert t.address_suffix == j.address_suffix == "TruncatedNormal"
+    # inverse-CDF draws stay inside the bounds and match the analytic moments
+    d = TD.TruncatedNormal(0.3, 0.8, -0.5, 2.0)
+    draws = d.sample(sample_shape=(200_000,))
+    assert float(draws.min()) >= -0.5 and float(draws.max()) <= 2.0
+    np.testing.assert_allclose(float(draws.mean()), float(d.mean), atol=0.01)
+    np.testing.assert_allclose(float(draws.var()), float(d.variance), rtol=0.02)
+
+
+def test_truncated_mixture_matches():
+    B, K = 30, 4
+    rng = np.random.default_rng(8)
+    low = rng.uniform(-2, 0, B).astype(np.float32)
+    high = (low + rng.uniform(0.5, 3, B)).astype(np.float32)
+    means = (low[:, None] + rng.uniform(0, 1, (B, K)) * (high - low)[:, None]).astype(np.float32)
+    stds = rng.uniform(0.2, 2, (B, K)).astype(np.float32)
+    probs = rng.uniform(0.1, 1, (B, K)).astype(np.float32)
+    x = (low + rng.uniform(0, 1, B) * (high - low)).astype(np.float32)
+
+    @jax.jit  # one compile is cheaper than op-by-op dispatch
+    def jax_moments(means, stds, probs, low, high, x):
+        j = JD.Mixture(
+            [JD.TruncatedNormal(means[:, k], stds[:, k], low, high) for k in range(K)], probs=probs
+        )
+        return j.log_prob(x), j.mean, j.variance
+
+    jlp, jmean, jvar = jax_moments(*[jnp.asarray(a) for a in (means, stds, probs, low, high, x)])
+    tlow, thigh = torch.from_numpy(low), torch.from_numpy(high)
+    generic = TD.Mixture(
+        [TD.TruncatedNormal(torch.from_numpy(means[:, k]), torch.from_numpy(stds[:, k]), tlow, thigh)
+         for k in range(K)],
+        probs=torch.from_numpy(probs),
+    )
+    packed = TD.Mixture._from_truncated_normal_params(
+        torch.from_numpy(means), torch.from_numpy(stds), torch.from_numpy(probs), tlow, thigh
+    )
+    for d in (generic, packed):
+        assert d._stacked_tnorm_params() is not None  # the kernel path
+        _close(d.log_prob(torch.from_numpy(x)), jlp)
+        _close(d.mean, jmean, 1e-4)
+        _close(d.variance, jvar, 1e-4)
+        assert d.address_suffix == "Mixture(" + ", ".join(["TruncatedNormal"] * K) + ")"
+    # one draw per row, from the row's chosen component, inside its bounds
+    rows = 100_000
+    wide = TD.Mixture._from_truncated_normal_params(
+        torch.tensor([[-0.5, 0.4, 0.9]]).expand(rows, 3).contiguous(),
+        torch.tensor([[0.3, 1.0, 0.2]]).expand(rows, 3).contiguous(),
+        torch.tensor([[0.2, 0.5, 0.3]]).expand(rows, 3).contiguous(),
+        torch.full((rows,), -1.0), torch.full((rows,), 1.0),
+    )
+    draws = wide.sample()
+    assert draws.shape == (rows,) and float(draws.abs().max()) <= 1.0
+    np.testing.assert_allclose(float(draws.mean()), float(wide.mean[0]), atol=0.01)
+    np.testing.assert_allclose(float(draws.var()), float(wide.variance[0]), rtol=0.03)

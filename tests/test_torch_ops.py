@@ -197,3 +197,131 @@ def test_log_weight_stats_kernel_matches_plain_on_card():
         e = np.exp(w - rm)
         np.testing.assert_allclose(s1, e.sum(), rtol=1e-5)
         np.testing.assert_allclose(s2, (e * e).sum(), rtol=1e-5)
+
+
+def _tnorm_inputs(B, K, seed=0):
+    """Truncated-mixture inputs away from the 1e-12 clip: per-row bounds,
+    means inside them, stddevs wide enough that Φ(β) − Φ(α) stays large;
+    x inside the bounds except in rows 2 and 7."""
+    rng = np.random.default_rng(seed)
+    low = rng.uniform(-2.0, -0.5, (B,)).astype(np.float32)
+    high = (low + rng.uniform(1.0, 3.0, (B,))).astype(np.float32)
+    width = (high - low)[:, None]
+    means = (low[:, None] + rng.uniform(0, 1, (B, K)) * width).astype(np.float32)
+    stddevs = (rng.uniform(0.2, 2.0, (B, K)) * width).astype(np.float32)
+    raw = rng.uniform(-1, 1, (B, K))
+    logits = (raw - np.log(np.exp(raw).sum(1, keepdims=True))).astype(np.float32)
+    x = (low + rng.uniform(0, 1, (B,)) * (high - low)).astype(np.float32)
+    x[2], x[min(7, B - 1)] = low[2] - 0.1, high[min(7, B - 1)] + 0.1
+    return x, means, stddevs, logits, low, high
+
+
+@pytest.mark.parametrize("B,K", [(200, 10), (37, 3)])
+def test_tnorm_plain_matches_pallas_kernel(pallas_interpret, B, K):
+    inputs = _tnorm_inputs(B, K, seed=B + K)
+    jax_in = [jnp.asarray(a) for a in inputs]
+    jax_out = np.asarray(jax.jit(JK.mixture_truncated_normal_log_prob)(*jax_in))
+    jax_ref = np.asarray(jax.jit(JK._mixture_tnorm_ref)(*jax_in))
+    out = TK.mixture_truncated_normal_log_prob(*[torch.from_numpy(a) for a in inputs])
+    assert out.shape == (B,)
+    outside = np.isneginf(jax_ref)
+    assert outside[2] and outside[min(7, B - 1)] and outside.sum() == 2
+    np.testing.assert_array_equal(np.isneginf(out.detach().numpy()), outside)
+    # the Pallas kernel's rational erf is within 1.5e-7 of erf
+    np.testing.assert_allclose(out.detach().numpy()[~outside], jax_out[~outside], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.detach().numpy()[~outside], jax_ref[~outside], atol=1e-5, rtol=0)
+
+
+def _tnorm_backward_inputs(B, K, seed):
+    """Truncated-mixture inputs with a -inf logit in rows 1 and 3, every
+    logit -inf in row 5, the 1e-12 clip active in rows 4 and 6 (bounds
+    far in one tail of every component), and a cotangent that is NaN in
+    row 8 and +inf in row 9."""
+    x, means, stddevs, logits, low, high = _tnorm_inputs(B, K, seed=seed)
+    logits[[1, 3], 0] = -np.inf
+    logits[5, :] = -np.inf
+    for row in (4, 6):
+        means[row] = high[row] + 40.0
+        stddevs[row] = 1.0
+    g = np.random.default_rng(seed + 1).normal(size=B).astype(np.float32)
+    g[8], g[9] = np.nan, np.inf
+    return x, means, stddevs, logits, low, high, g
+
+
+def test_tnorm_backward_plain_matches_jax_vjp_and_autograd():
+    x, means, stddevs, logits, low, high, g = _tnorm_backward_inputs(64, 5, seed=13)
+    arrays = (x, means, stddevs, logits, low, high)
+    t_in = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = TK.mixture_truncated_normal_log_prob(*t_in)
+    out.backward(torch.from_numpy(g))
+    function_grads = [t.grad.numpy() for t in t_in]
+    closed = TK.mixture_truncated_normal_log_prob_backward(
+        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g)
+    )
+
+    def jax_forward_backward(*args):
+        out, vjp = jax.vjp(JK.mixture_truncated_normal_log_prob_fused, *args[:6])
+        return out, vjp(args[6])
+
+    # jit: one compile is cheaper than op-by-op dispatch
+    jout, jgrads = jax.jit(jax_forward_backward)(*[jnp.asarray(a) for a in arrays + (g,)])
+    jax_grads = [np.asarray(v) for v in jgrads]
+    ref_out = np.asarray(jout)
+    np.testing.assert_array_equal(np.isneginf(out.detach().numpy()), np.isneginf(ref_out))
+    finite = np.isfinite(ref_out)
+    assert not finite[5] and finite[4] and finite[6]  # the clip rows stay finite
+    np.testing.assert_allclose(out.detach().numpy()[finite], ref_out[finite], rtol=1e-5, atol=1e-5)
+    for mine, via_function, ref in zip(closed, function_grads, jax_grads):
+        assert np.isfinite(mine.numpy()).all()
+        np.testing.assert_allclose(mine.numpy(), ref, rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(mine.numpy(), via_function)
+    dx, dmeans, dstddevs, dlogits, dlow, dhigh = (c.numpy() for c in closed)
+    # zeroed: rows outside the bounds, the degenerate row, non-finite g
+    for row in (2, 7, 5, 8, 9):
+        assert dx[row] == dlow[row] == dhigh[row] == 0 and not dmeans[row].any()
+    assert (dlogits[[1, 3], 0] == 0).all() and dmeans[4].any()
+    # where the terms are finite and the cotangent is too, the closed form is
+    # autograd of the plain forward
+    rows = np.isfinite(g) & finite
+    plain_in = [torch.from_numpy(a[rows]).requires_grad_(True) for a in arrays]
+    logits_ok = np.isfinite(logits[rows]).all(axis=1)
+    TK.mixture_truncated_normal_log_prob_plain(*plain_in).backward(torch.from_numpy(g[rows]))
+    for mine, t in zip(closed, plain_in):
+        got, want = mine.numpy()[rows][logits_ok], t.grad.numpy()[logits_ok]
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    # dx, dlow and dhigh only when asked for
+    lean = TK.mixture_truncated_normal_log_prob_backward(
+        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g), need_x=False, need_bounds=False
+    )
+    assert lean[0] is None and lean[4] is None and lean[5] is None
+
+
+def test_tnorm_wrapper_rejects_bad_inputs():
+    x, means, stddevs, logits, low, high = [torch.from_numpy(a) for a in _tnorm_inputs(8, 3)]
+    with pytest.raises(TypeError):
+        TK.mixture_truncated_normal_log_prob(x, means, stddevs, logits, low.double(), high)
+    with pytest.raises(ValueError):
+        TK.mixture_truncated_normal_log_prob(x, means, stddevs, logits, low[:7], high)
+    with pytest.raises(ValueError):
+        TK.mixture_truncated_normal_log_prob(x, means, stddevs.t().contiguous().t(), logits, low, high)
+
+
+@pytest.mark.cuda
+def test_tnorm_kernels_match_plain_on_card():
+    _need_card()
+    arrays = _tnorm_backward_inputs(262_144 + 37, 10, seed=5)
+    g = torch.from_numpy(arrays[-1]).cuda()
+    t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays[:-1]]
+    before = (TK.mixture_truncated_normal_log_prob.launches,
+              TK.mixture_truncated_normal_log_prob_backward.launches)
+    out = TK.mixture_truncated_normal_log_prob(*t_in)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (TK.mixture_truncated_normal_log_prob.launches,
+            TK.mixture_truncated_normal_log_prob_backward.launches) == (before[0] + 1, before[1] + 1)
+    plain_in = [t.detach() for t in t_in]
+    ref = TK.mixture_truncated_normal_log_prob_plain(*plain_in)
+    torch.testing.assert_close(out.detach(), ref, atol=1e-5, rtol=1e-5)
+    grads = TK.mixture_truncated_normal_log_prob_backward_plain(*plain_in, ref, g)
+    for t, r in zip(t_in, grads):
+        torch.testing.assert_close(t.grad, r, atol=1e-5, rtol=1e-4)
