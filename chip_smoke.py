@@ -50,7 +50,26 @@ Phases, each printing one JSON line:
     and their weights are heavy-tailed: the estimate runs low, PERF.md);
 14. Marsaglia defensive IS: the trained network with every attempt drawn
     from the defensive mixture 0.5 q + 0.5 prior (bounded weights), log Z
-    within 0.15 of the analytic value: the retry weighting is exact.
+    within 0.15 of the analytic value: the retry weighting is exact;
+15. linalg kernels: the panel Cholesky's diagonal-tile kernel at B = 8,192
+    tiles of P = 64 and at a ragged P = 8, the fused MVN quad/log-det
+    kernel at (B, N) = (8,192, 256), (2,048, 512), (8,192, 200) and one
+    unbatched N = 256, each against its plain version on GP covariances,
+    with one matrix that is not positive definite whose NaN must match;
+    then the panel factorization against torch.linalg.cholesky on the
+    same [8192, 256, 256] and [2048, 512, 512] batches (a yardstick line);
+16. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
+    learn lengthscale, noise 0.2) with y = synthesize(rng=3,
+    lengthscale=1.0) at N = 256 x 8,192 and N = 512 x 2,048 traces (the
+    sizes of tests/extra/chip_gp.py): posterior mean within 0.25 grid
+    stddevs of the grid truth, ESS fraction inside a band around its
+    analytic value, N/64 diagonal-tile launches per chunk and no call to
+    torch.linalg.cholesky; then N = 256 x 32,768 traces and the chunk size
+    it settled on;
+17. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
+    [-2, 2] through the model on the card (panel path, diagonal-tile
+    kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
+    for three of them), against numpy float64.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -84,8 +103,24 @@ KERNEL_NAMES = (
     "mixture_truncated_normal_log_prob",
     "mixture_truncated_normal_log_prob_backward",
     "log_weight_stats",
+    "chol_inv_tile",
+    "mvn_quad_logdet",
+    "mvn_quad_logdet_single",
 )
 TNORM_KERNELS = KERNEL_NAMES[2:4]
+
+# GP regression: the repository's sizes (tests/extra/chip_gp.py:59-64) and
+# the analytic prior-IS ESS fraction E[w]^2 / E[w^2] at y = synthesize(rng=3,
+# lengthscale=1.0) (numpy float64 integration over the prior); the band
+# holds the 0.05 %-99.95 % quantiles of 2,000 simulated runs of that size
+# (0.225-0.251 and 0.120-0.164) with room to spare
+GP_RUNS = ((256, 8192), (512, 2048))
+GP_ESS = {256: (0.2379, 0.208, 0.268), 512: (0.1420, 0.102, 0.182)}
+GP_LARGE = (256, 32768)  # ran out of memory on a 16 GB TPU (chip_gp.py:62)
+# f32 log-likelihood of an [N, N] GP covariance (cond up to ~6e3) against
+# float64: at most 0.0051 on the CPU over the same 256 lengthscales in
+# three float32 routes; ten times that
+GP_LOGLIK_ATOL = 0.05
 
 # bench.py's Marsaglia arm (bench.py:159-167, 184) and its ESS guard
 # (bench.py:55); 0.016 is the JAX package's IC test floor
@@ -187,10 +222,24 @@ def stats_inputs(n, device, seed=1):
     return lw, torch.tensor(lw, device=device)
 
 
-def launch_counts():
-    from pyprob_tpu_torch.ops import kernels as K
+def kernel_functions():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from pyprob_tpu_torch.ops import kernels as K, mvn_logpdf, tile_chol
 
-    return {name: getattr(K, name).launches for name in KERNEL_NAMES}
+    fns = {name: getattr(K, name) for name in KERNEL_NAMES[:5]}
+    fns["chol_inv_tile"] = tile_chol.chol_inv_tile
+    fns["mvn_quad_logdet"] = mvn_logpdf._quad_logdet_stacked
+    fns["mvn_quad_logdet_single"] = mvn_logpdf._quad_logdet_single
+    return fns
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in kernel_functions().items()}
+
+
+def reset_launch_counts():
+    for fn in kernel_functions().values():
+        fn.launches = 0
 
 
 def check_mixture_backward(rows, device, degenerate=False):
@@ -437,7 +486,7 @@ def phase_prior_is(device, num_traces):
 
     model = GaussianUnknownMean()
     model.posterior_results(num_traces, observe=OBSERVE, vectorized=True)  # warm-up
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     t0 = time.perf_counter()
     post = model.posterior_results(num_traces, observe=OBSERVE, vectorized=True)
@@ -480,7 +529,6 @@ def guided_model(lstm_dim, marsaglia=False):
 def phase_guided_is(device, num_traces, lstm_dim):
     import torch
     import pyprob_tpu_torch as pp
-    from pyprob_tpu_torch.ops import kernels as K
 
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
     model = guided_model(lstm_dim)
@@ -488,7 +536,7 @@ def phase_guided_is(device, num_traces, lstm_dim):
         num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
     )
     run()  # warm-up
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -563,7 +611,6 @@ def phase_grad_card_vs_cpu(lstm_dim, rows, devices=("cuda", "cpu"), marsaglia=Fa
     from pyprob_tpu_torch import vectorized
     from pyprob_tpu_torch.nn import PackedBatch
     from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
-    from pyprob_tpu_torch.ops import kernels as K
 
     model = guided_model(lstm_dim, marsaglia)
     net = model._inference_network
@@ -577,7 +624,7 @@ def phase_grad_card_vs_cpu(lstm_dim, rows, devices=("cuda", "cpu"), marsaglia=Fa
         pp.set_device(device)
         net.to(device)
         packed = map_tensors(batch.packed, lambda t: t.to(device))
-        K.reset_launch_counts()
+        reset_launch_counts()
         loss = float(net._loss_and_grad(
             PackedBatch(packed, rows, batch.addrs, batch.dist_names)
         ))
@@ -624,11 +671,10 @@ def phase_train(device, arm, train_traces=TRAIN_TRACES, segments=TRAIN_SEGMENTS)
     """bench.py's training recipe for one arm: a cold call, then timed
     segments continuing the same network and schedule."""
     from pyprob_tpu_torch.models import GaussianUnknownMean
-    from pyprob_tpu_torch.ops import kernels as K
 
     model = GaussianUnknownMean()
     kw = train_kwargs(arm, segments)
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     t0 = time.perf_counter()
     model.learn_inference_network(num_traces=train_traces, **kw)
@@ -664,14 +710,13 @@ def phase_guided_is_trained(device, model, arm, num_traces):
     import torch
     import pyprob_tpu_torch as pp
     from pyprob_tpu_torch.nn.layers import tensor_leaves
-    from pyprob_tpu_torch.ops import kernels as K
 
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
     run = lambda: model.posterior_results(  # noqa: E731
         num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
     )
     run()  # warm-up
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -719,12 +764,11 @@ def phase_marsaglia_prior_is(device, num_traces):
     """IS from the prior of the Marsaglia model: the rejection block as a
     masked retry loop over each 2^18-particle chunk."""
     from pyprob_tpu_torch.models import GaussianUnknownMeanMarsagliaRejection
-    from pyprob_tpu_torch.ops import kernels as K
 
     model = GaussianUnknownMeanMarsagliaRejection()
     run = lambda: model.posterior_results(num_traces, observe=OBSERVE, vectorized=True)  # noqa: E731
     run()  # warm-up
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     t0 = time.perf_counter()
     post = run()
@@ -769,12 +813,11 @@ def phase_marsaglia_train(device, train_traces=MARSAGLIA["train_traces"]):
     """bench.py's Marsaglia training recipe (constant learning rate): a cold
     call for the first half of the traces, a timed call for the second."""
     from pyprob_tpu_torch.models import GaussianUnknownMeanMarsagliaRejection
-    from pyprob_tpu_torch.ops import kernels as K
 
     model = GaussianUnknownMeanMarsagliaRejection()
     kw = marsaglia_train_kwargs()
     half = train_traces // 2
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     t0 = time.perf_counter()
     model.learn_inference_network(num_traces=half, **kw)
@@ -815,14 +858,13 @@ def phase_marsaglia_guided_is_trained(device, model, num_traces, prior_fraction)
     log Z, which is printed beside the analytic value, not checked."""
     import torch
     import pyprob_tpu_torch as pp
-    from pyprob_tpu_torch.ops import kernels as K
 
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
     run = lambda: model.posterior_results(  # noqa: E731
         num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
     )
     run()  # warm-up
-    K.reset_launch_counts()
+    reset_launch_counts()
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -896,6 +938,347 @@ def phase_marsaglia_defensive_is(device, model, num_traces):
     })
 
 
+def gp_model(N):
+    """The GP of the JAX package's test and chip study at N points, with its
+    data y = synthesize(rng=3, lengthscale=1.0)."""
+    from pyprob_tpu_torch.models import GaussianProcessRegression
+
+    model = GaussianProcessRegression(np.linspace(0, 4, N), learn=("lengthscale",), noise=0.2)
+    return model, model.synthesize(rng=3, lengthscale=1.0)
+
+
+def gp_covariances(N, B, device, log_lengthscales=None, seed=0):
+    """B kernel matrices [B, N, N] of the GP at log-lengthscales drawn from
+    its prior (or given), and diff = y for each: the inputs the GP path
+    factors."""
+    import torch
+
+    model, y = gp_model(N)
+    if log_lengthscales is None:
+        log_lengthscales = np.random.default_rng(seed).normal(size=B)
+    ell = torch.tensor(np.exp(log_lengthscales), dtype=torch.float32, device=device)
+    K = model._cov_batched(model._sq_dists_tensor(torch.device(device)), (B,), ell, 1.0, 0.2)
+    diff = torch.tensor(y, dtype=torch.float32, device=device).expand(B, N).contiguous()
+    return K, diff
+
+
+def nan_pattern_equal(a, b):
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+
+
+def check_tile(B, P, device):
+    """Kernel 4 against its plain version on the diagonal tiles of B GP
+    covariances (N = 256, the first P rows and columns), tile 5 made
+    indefinite: equal NaN patterns, elsewhere |kernel - plain| <= 1e-3 (1 +
+    |plain|).  Both run the same column loop with each product and
+    difference rounded alone; rsqrtf and torch.rsqrt may part by an ulp,
+    which the tile's condition number (up to ~2e3 for these tiles)
+    amplifies.  Returns the tiles and the max abs error."""
+    import torch
+    from pyprob_tpu_torch.ops import tile_chol
+
+    K, _ = gp_covariances(256, B, device, seed=P)
+    tiles = K[:, :P, :P].contiguous()
+    del K
+    tiles[5, P // 2, P // 2] = -1.0
+    L, M = tile_chol.chol_inv_tile(tiles)
+    pL, pM = tile_chol.chol_inv_tile_plain(tiles)
+    err = 0.0
+    for what, mine, ref in (("L", L, pL), ("L^-1", M, pM)):
+        check(nan_pattern_equal(mine, ref), f"chol_inv_tile P={P}: NaN pattern of {what}")
+        check(bool(torch.isnan(ref[5]).any()) and not bool(torch.isnan(ref[:5]).any()),
+              f"chol_inv_tile P={P}: NaN only in the indefinite tile")
+        ok = ~torch.isnan(ref)
+        excess = float(((mine - ref).abs() - 1e-3 * (1 + ref.abs()))[ok].max())
+        check(excess <= 0, f"chol_inv_tile P={P}: {what} exceeds 1e-3 (1 + |plain|) by {excess}")
+        err = max(err, float((mine - ref).abs()[ok].max()))
+    return tiles, err
+
+
+def check_quad_logdet(B, N, device):
+    """Kernels 5/6 against the plain version (cuSOLVER Cholesky and a
+    triangular solve) on B GP covariances, matrix 2 made indefinite
+    (B = None: one unbatched matrix, no indefinite one): equal NaN
+    patterns, elsewhere |kernel - plain| <= 0.02 + 1e-4 |plain| per output.
+    Two float32 Cholesky factorizations of a matrix with condition number
+    up to ~6e3 part by up to ~0.005 in the log-likelihood (the CPU against
+    float64), and the sums run in other orders.  Returns the inputs and
+    the max abs error."""
+    import torch
+    from pyprob_tpu_torch.ops import mvn_logpdf
+
+    cov, diff = gp_covariances(N, B or 1, device, seed=N)
+    if B is None:
+        cov, diff = cov[0], diff[0]
+    else:
+        cov[2, 7, 7] = -1.0
+    out = mvn_logpdf.mvn_quad_logdet(cov, diff)
+    ref = mvn_logpdf.mvn_quad_logdet_plain(cov, diff)
+    err = 0.0
+    for what, mine, want in zip(("quad", "half_logdet"), out, ref):
+        check(nan_pattern_equal(mine, want), f"mvn_quad_logdet B={B} N={N}: NaN pattern of {what}")
+        ok = ~torch.isnan(want)
+        if B is not None:
+            check(not bool(ok[2]) and bool(ok[:2].all()), f"mvn_quad_logdet B={B} N={N}: NaN only at 2")
+        excess = float(((mine - want).abs() - (0.02 + 1e-4 * want.abs()))[ok].max())
+        check(excess <= 0, f"mvn_quad_logdet B={B} N={N}: {what} exceeds 0.02 + 1e-4|plain| by {excess}")
+        err = max(err, float((mine - want).abs()[ok].max()))
+    return cov, diff, err
+
+
+def tile_bytes(B, P):
+    """Kernel 4's least traffic: each tile's lower triangle read (the
+    column loop reads nothing above the diagonal), L and L^-1 written."""
+    return 4 * B * (P * (P + 1) // 2 + 2 * P * P)
+
+
+def quad_logdet_bytes(B, N):
+    """Kernels 5/6's least traffic: each K's lower triangle and diff
+    read, two floats written."""
+    return 4 * B * (N * (N + 1) // 2 + N + 2)
+
+
+def phase_linalg_kernels():
+    import torch
+    from pyprob_tpu_torch.ops import blocked_linalg, mvn_logpdf, tile_chol
+
+    rate, flops = MEMORY_RATE, F32_RATE
+    rows = []
+
+    def other_shape(name, fn, plain, bytes_moved, ops, shape, err):
+        """A timing line for a shape the kernels line does not carry."""
+        emit({
+            "phase": "kernel_shape", "name": name, "shape": shape, "max_abs_err": err,
+            "ms": time_ms(fn, iters=3, warmup=1), "plain_ms": time_ms(plain, iters=3, warmup=1),
+            "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
+            "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        })
+
+    small, err = check_tile(8192, 8, "cuda")  # the ragged last panel of N = 200
+    other_shape(
+        "chol_inv_tile", lambda: tile_chol.chol_inv_tile(small),
+        lambda: tile_chol.chol_inv_tile_plain(small), tile_bytes(8192, 8), 2 * 8**3 * 8192 // 3,
+        [8192, 8, 8], err,
+    )
+    del small
+    tiles, err = check_tile(8192, 64, "cuda")
+    B, P = tiles.shape[0], 64
+    bytes_moved = tile_bytes(B, P)
+    ops = 2 * P**3 * B // 3  # useful work: P^3/3 factor + P^3/3 inverse
+    rows.append({
+        "name": "chol_inv_tile", "route": "cuda",
+        "source": "pyprob_tpu_torch/ops/csrc/tile_chol.cu",
+        "replaces": "pyprob_tpu/ops/tile_chol.py:127",
+        "max_abs_err": err, "tolerance": "1e-3 (1 + |plain|), equal NaN",
+        "ms": time_ms(lambda: tile_chol.chol_inv_tile(tiles), iters=20),
+        "plain_ms": time_ms(lambda: tile_chol.chol_inv_tile_plain(tiles), iters=3, warmup=1),
+        "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
+        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "library_ms": None, "shape": [B, P, P],
+    })
+    del tiles
+    for b, n in ((2048, 512), (8192, 200)):
+        c, d, e = check_quad_logdet(b, n, "cuda")
+        other_shape(
+            "mvn_quad_logdet", lambda: mvn_logpdf.mvn_quad_logdet(c, d),
+            lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), quad_logdet_bytes(b, n),
+            b * (n**3 // 3 + n * n), [b, n, n], e,
+        )
+        del c, d
+    cov1, diff1, err1 = check_quad_logdet(None, 256, "cuda")
+    cov, diff, err = check_quad_logdet(8192, 256, "cuda")
+    for name, c, d, e, replaces in (
+        ("mvn_quad_logdet", cov, diff, err, "pyprob_tpu/ops/mvn_logpdf.py:254"),
+        ("mvn_quad_logdet_single", cov1, diff1, err1, "pyprob_tpu/ops/mvn_logpdf.py:302"),
+    ):
+        b = c.numel() // (c.shape[-1] ** 2)
+        n = c.shape[-1]
+        bytes_moved = quad_logdet_bytes(b, n)
+        ops = b * (n**3 // 3 + n * n)  # the factorization and the solve
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu",
+            "replaces": replaces, "max_abs_err": e,
+            "tolerance": "0.02 + 1e-4 |plain| per output, equal NaN",
+            "ms": time_ms(lambda: mvn_logpdf.mvn_quad_logdet(c, d), iters=5, warmup=1),
+            "plain_ms": time_ms(lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), iters=5, warmup=1),
+            "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
+            "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+            "library_ms": None, "shape": list(c.shape),
+        })
+    counts = launch_counts()
+    for row in rows:
+        emit({
+            "phase": "kernel", **row, "bound_us": row["bound_ms"] * 1e3,
+            "launches_in_phase": counts[row["name"]],
+        })
+    del cov, diff
+    # the yardstick: the panel factorization (kernel 4 + f32 GEMMs) against
+    # the library's batched Cholesky on the same GP covariances
+    yard = {}
+    for N, B in GP_RUNS:
+        K, _ = gp_covariances(N, B, "cuda", seed=1)
+        panel = blocked_linalg.panel_cholesky(K)
+        library = torch.linalg.cholesky(K)
+        yard[f"{B}x{N}x{N}"] = {
+            "panel_ms": time_ms(lambda: blocked_linalg.panel_cholesky(K), iters=5, warmup=1),
+            "library_ms": time_ms(lambda: torch.linalg.cholesky(K), iters=5, warmup=1),
+            "max_abs_diff": float((panel - library).abs().max()),
+            "bound_ms": B * N**3 / 3 / F32_RATE * 1e3,
+        }
+        del K, panel, library
+    emit({"phase": "cholesky_yardstick", "batches": yard})
+    return rows
+
+
+class CountCholesky:
+    """Counts calls of torch.linalg.cholesky and cholesky_ex while active."""
+
+    def __enter__(self):
+        import torch
+
+        self.calls = 0
+        self.saved = (torch.linalg.cholesky, torch.linalg.cholesky_ex)
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        torch.linalg.cholesky, torch.linalg.cholesky_ex = (counted(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.linalg.cholesky, torch.linalg.cholesky_ex = self.saved
+
+
+def phase_gp_is(device, N, num_traces, warm_up=True):
+    """Prior IS of the GP through the user's entry point, against the grid
+    truth (numpy float64): mean within 0.25 grid stddevs, ESS fraction in
+    its band, N/64 diagonal-tile launches per chunk, no library Cholesky."""
+    import torch
+    from pyprob_tpu_torch import vectorized
+
+    model, y = gp_model(N)
+    grid_mean, grid_std = model.true_posterior_moments(y)
+    run = lambda: model.posterior_results(num_traces, observe={"y": y})  # noqa: E731
+    if warm_up:
+        run()
+    reset_launch_counts()
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with CountCholesky() as library:
+        t0 = time.perf_counter()
+        post = run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    chunk = min(num_traces, vectorized._BATCH_LIMIT,
+                vectorized._oom_batch_limit.get(id(model), vectorized._BATCH_LIMIT))
+    chunks = math.ceil(num_traces / chunk)
+    mean = float(np.asarray(post.mean).reshape(-1)[0])
+    std = float(np.asarray(post.stddev).reshape(-1)[0])
+    ess_fraction = post.effective_sample_size / num_traces
+    analytic, low, high = GP_ESS[N]
+    check(abs(mean - grid_mean) <= 0.25 * grid_std,
+          f"GP IS N={N}: mean {mean} vs grid {grid_mean} +- {grid_std}")
+    check(low <= ess_fraction <= high, f"GP IS N={N}: ESS fraction {ess_fraction} not in [{low}, {high}]")
+    if device == "cuda":
+        panels = math.ceil(N / 64)
+        check(launches["chol_inv_tile"] == panels * chunks,
+              f"GP IS N={N}: chol_inv_tile launched {launches['chol_inv_tile']} times, "
+              f"not {panels} per chunk x {chunks}")
+        check(library.calls == 0, f"GP IS N={N}: torch.linalg.cholesky called {library.calls} times")
+        check(launches["log_weight_stats"] >= 1, f"GP IS N={N} did not launch log_weight_stats")
+    emit({
+        "phase": "gp_is", "N": N, "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "grid_mean": grid_mean, "grid_stddev": grid_std,
+        "mean_error_in_grid_stddevs": (mean - grid_mean) / grid_std,
+        "ess_fraction": ess_fraction, "ess_fraction_analytic": analytic,
+        "ess_fraction_band": [low, high], "chunk": chunk, "chunks": chunks,
+        "library_cholesky_calls": library.calls, "peak_memory_gib": peak_gib,
+        "launches": launches,
+    })
+    return launches
+
+
+def forced_log_likelihood(model, y, log_lengthscales, device):
+    """The observe's log-density per particle at forced log-lengthscales:
+    the model's own forward on ``device``."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch import vectorized
+
+    values = torch.tensor(log_lengthscales, dtype=torch.float32, device=device)
+
+    def forced(site, distribution, generator, observed, **kwargs):
+        return values, torch.zeros_like(values)
+
+    forced.reset = lambda n: None
+    outputs, _ = vectorized.run_traced(
+        model, len(values), {"y": y}, pp.TraceMode.POSTERIOR,
+        pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
+        proposal_step=forced,
+    )
+    return outputs["log_prob_observed"]
+
+
+def phase_gp_card_vs_cpu(device, N=256, n=256):
+    """The GP log-likelihood at n log-lengthscales in [-2, 2] on the card,
+    through the model (panel path, kernel 4) and through mvn_quad_logdet's
+    kernel (batched, and unbatched at three of them), against numpy
+    float64, within GP_LOGLIK_ATOL."""
+    import torch
+    from pyprob_tpu_torch.ops import mvn_logpdf
+
+    model, y = gp_model(N)
+    lg = np.linspace(-2.0, 2.0, n)
+    exact = np.array([model._log_marglik(y, math.exp(g), 1.0, 0.2) for g in lg])
+    reset_launch_counts()
+    with torch.no_grad():
+        ll_model = forced_log_likelihood(model, y, lg, device).double().cpu().numpy()
+        cov, diff = gp_covariances(N, n, device, log_lengthscales=lg)
+        const = 0.5 * N * math.log(2 * math.pi)
+        q, ld = mvn_logpdf.mvn_quad_logdet(cov, diff)
+        ll_kernel = (-0.5 * q.double() - ld.double() - const).cpu().numpy()
+        picks = (0, n // 2, n - 1)
+        ll_single = np.array([
+            float(-0.5 * q1.double() - ld1.double() - const)
+            for q1, ld1 in (mvn_logpdf.mvn_quad_logdet(cov[i], diff[i]) for i in picks)
+        ])
+    sync(device)
+    launches = launch_counts()
+    if device == "cuda":
+        check(launches["chol_inv_tile"] == math.ceil(N / 64),
+              f"GP card vs CPU: {launches['chol_inv_tile']} tile launches")
+        check(launches["mvn_quad_logdet"] == 1 and launches["mvn_quad_logdet_single"] == len(picks),
+              f"GP card vs CPU: mvn_quad_logdet launches {launches}")
+    errs = {}
+    for what, got, want in (
+        ("model", ll_model, exact), ("mvn_quad_logdet", ll_kernel, exact),
+        ("mvn_quad_logdet_single", ll_single, exact[list(picks)]),
+    ):
+        err = np.abs(got - want)
+        check(np.isfinite(got).all() and err.max() <= GP_LOGLIK_ATOL,
+              f"GP card vs CPU: {what} log-likelihood off by {err.max()} at "
+              f"log-lengthscale {lg[err.argmax()] if len(err) == n else picks[err.argmax()]}")
+        errs[what] = float(err.max())
+    emit({
+        "phase": "gp_card_vs_cpu", "N": N, "lengthscales": n,
+        "max_abs_err": errs, "tolerance": f"atol {GP_LOGLIK_ATOL} vs numpy float64",
+        "loglik_range": [float(exact.min()), float(exact.max())], "launches": launches,
+    })
+    return launches
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -904,8 +1287,9 @@ def main():
     pp.set_device("cuda")
     pp.set_verbosity(1)
     pp.seed(0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the port computes in full f32")
     phase_build()
-    rows = phase_kernels()
+    rows = phase_kernels() + phase_linalg_kernels()
     phase_prior_is("cuda", NUM_TRACES)
     model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
     phase_card_vs_cpu(model, 4096)
@@ -922,6 +1306,10 @@ def main():
         phase_marsaglia_guided_is_trained("cuda", marsaglia, NUM_TRACES, prior_fraction),
     ]
     phase_marsaglia_defensive_is("cuda", marsaglia, NUM_TRACES)
+    for N, num_traces in GP_RUNS:
+        path_launches.append(phase_gp_is("cuda", N, num_traces))
+    path_launches.append(phase_gp_is("cuda", *GP_LARGE, warm_up=False))
+    path_launches.append(phase_gp_card_vs_cpu("cuda"))
     for row in rows:
         row["launches"] = sum(counts[row["name"]] for counts in path_launches)
         check(row["launches"] >= 1, f"the main path never launched {row['name']}")

@@ -7,9 +7,14 @@ the CPU.  So far it trains an LSTM inference network online
 (``Model.learn_inference_network``) and serves importance sampling, from
 the prior and guided by that network, on its batched tier, for models
 with fixed structure and for rejection loops written with
-``rejection_sample``.  The mixture-of-Normals and mixture-of-truncated-
-Normals log-densities (forward and backward) and the log-weight
-statistics are hand-written CUDA kernels (``pyprob_tpu_torch.ops``).
+``rejection_sample``, and prior IS of GP regression
+(``models.GaussianProcessRegression``), whose MultivariateNormal factors
+one kernel matrix per particle by a panel Cholesky.  The mixture-of-Normals
+and mixture-of-truncated-Normals log-densities (forward and backward), the
+log-weight statistics, the panel Cholesky's diagonal-tile factor and
+inverse, and the fused MVN quadratic form and log-determinant
+(``ops.mvn_quad_logdet``) are hand-written CUDA kernels
+(``pyprob_tpu_torch.ops``).
 """
 
 from .util import (
@@ -28,6 +33,8 @@ from .util import (
 from .state import sample, observe, factor, tag, rejection_sample
 from .model import Model
 from . import distributions
+from . import models
+from . import ops
 from . import util
 
 __all__ = [
@@ -49,5 +56,7 @@ __all__ = [
     "rejection_sample",
     "Model",
     "distributions",
+    "models",
+    "ops",
     "util",
 ]

@@ -4,6 +4,7 @@ from .uniform import Uniform
 from .truncated_normal import TruncatedNormal
 from .categorical import Categorical
 from .mixture import Mixture
+from .multivariate_normal import MultivariateNormal
 from .empirical import Empirical
 
 __all__ = [
@@ -13,5 +14,6 @@ __all__ = [
     "TruncatedNormal",
     "Categorical",
     "Mixture",
+    "MultivariateNormal",
     "Empirical",
 ]

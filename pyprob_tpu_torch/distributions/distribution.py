@@ -27,6 +27,9 @@ class Distribution:
     ``_sample(generator, shape)`` and ``log_prob``."""
 
     _param_names: tuple = ()
+    # per parameter, how many trailing dims are event dims (the rest are
+    # batch dims); None means 0 for every parameter
+    _param_event_dims = None
 
     def __init__(self, name, address_suffix="", batch_shape=()):
         self._name = name

@@ -61,7 +61,3 @@ class Normal(Distribution):
     @property
     def stddev(self):
         return self._scale
-
-    @property
-    def stddev(self):
-        return self._scale

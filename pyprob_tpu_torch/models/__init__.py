@@ -1,3 +1,11 @@
-from .models import GaussianUnknownMean, GaussianUnknownMeanMarsagliaRejection
+from .models import (
+    GaussianProcessRegression,
+    GaussianUnknownMean,
+    GaussianUnknownMeanMarsagliaRejection,
+)
 
-__all__ = ["GaussianUnknownMean", "GaussianUnknownMeanMarsagliaRejection"]
+__all__ = [
+    "GaussianProcessRegression",
+    "GaussianUnknownMean",
+    "GaussianUnknownMeanMarsagliaRejection",
+]

@@ -29,6 +29,8 @@ SOURCES = (
     "mixture_truncated_normal.cu",
     "mixture_truncated_normal_backward.cu",
     "log_weight_stats.cu",
+    "tile_chol.cu",
+    "mvn_quad_logdet.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +58,9 @@ _SIGNATURES = {
     ),
     "pyprob_log_weight_stats_blocks": (ctypes.c_int64, [_I]),
     "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
+    "pyprob_tile_chol_inv_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
+    "pyprob_mvn_quad_logdet_in_smem": (ctypes.c_int, [_I]),
+    "pyprob_mvn_quad_logdet_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 

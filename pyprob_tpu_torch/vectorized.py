@@ -38,6 +38,12 @@ _INTERPRETER_LATER = (
 # LSTM gates of one chunk are [2^18, 2048] float32, 2 GiB.
 _BATCH_LIMIT = 1 << 18
 
+# Learned per-model chunk caps after a device OOM (keyed by model
+# identity, as in the JAX package): programs that are heavy per particle
+# (an [N, N] Cholesky per particle) exhaust device memory far below
+# _BATCH_LIMIT; once a size fails, later calls start from the working cap.
+_oom_batch_limit = {}
+
 _REJECTION_MAX_ATTEMPTS = 64
 # mixture weight on the learned proposal for rejection-retry attempts
 # (defensive importance sampling, Hesterberg 1995)
@@ -147,6 +153,15 @@ class VectorizedHandler:
         self.values.append(value)
         self.log_probs.append(log_prob)
 
+    def _per_particle_value(self, distribution, value):
+        """An observed value as one row per particle (a trace takes row i).
+        A value with no dims beyond the distribution's event dims is the
+        same for every particle and becomes a [n, ...] view; one with a
+        leading particle dim (computed from latents) is kept as it is."""
+        if value.dim() > len(distribution.event_shape):
+            return value
+        return value.expand((self.n,) + tuple(value.shape))
+
     def sample(self, distribution, name=None, address=None, control=True, mask=None):
         if mask is not None:
             raise NotImplementedError(
@@ -173,7 +188,7 @@ class VectorizedHandler:
             self.log_prob_observed = self.log_prob_observed + log_prob
             self.log_prob_total = self.log_prob_total + log_prob
             site.control, site.observed = False, True
-            self._record(site, value, log_prob)
+            self._record(site, self._per_particle_value(distribution, value), log_prob)
             return value
 
         if control and self._ic_proposals():
@@ -231,7 +246,7 @@ class VectorizedHandler:
             self.log_importance_weight = self.log_importance_weight + log_prob
         self.log_prob_observed = self.log_prob_observed + log_prob
         self.log_prob_total = self.log_prob_total + log_prob
-        self._record(site, value, log_prob)
+        self._record(site, self._per_particle_value(distribution, value), log_prob)
         return value
 
     def factor(self, log_prob=None, log_prob_func=None, name=None, address=None, mask=None):
@@ -555,22 +570,43 @@ def _run_batched(
     """Run ``forward`` over chunks of at most ``_BATCH_LIMIT`` particles;
     returns the outputs concatenated to ``num_traces`` on the device
     (only the ``fetch`` keys, when given), the per-chunk distributions of
-    each site, the site list, and per chunk the rounds its rejection
-    blocks ran (summed over the blocks; empty without blocks)."""
+    each site, the site list, per chunk the rounds its rejection blocks
+    ran (summed over the blocks; empty without blocks), and the chunk
+    sizes.  A chunk that runs out of device memory is retried at half its
+    size (down to one particle, where the error is raised), and the size
+    that worked caps this model's later chunks (``_oom_batch_limit``), as
+    the JAX package backs off; the run stays on the device."""
     device = util.device()
     observed = {
         k: util.to_tensor(v, device) for k, v in (observed or {}).items()
     }
     generator = util.generator(device)
-    chunks, dists, sites, rounds = [], [], None, []
+    chunks, dists, sites, rounds, sizes = [], [], None, [], []
+    limit = min(_BATCH_LIMIT, _oom_batch_limit.get(id(model), _BATCH_LIMIT))
     remaining = num_traces
     while remaining > 0:
-        n = min(remaining, _BATCH_LIMIT)
-        out, handler = run_traced(
-            model, n, observed, trace_mode, inference_engine, prior_inflation,
-            likelihood_importance, proposal_step=proposal_step,
-            generator=generator, args=args, kwargs=kwargs,
-        )
+        n = min(remaining, limit)
+        try:
+            out, handler = run_traced(
+                model, n, observed, trace_mode, inference_engine, prior_inflation,
+                likelihood_importance, proposal_step=proposal_step,
+                generator=generator, args=args, kwargs=kwargs,
+            )
+        except torch.cuda.OutOfMemoryError:
+            if n <= 1:
+                raise
+            out = None
+        if out is None:
+            # outside the except block: the error's traceback holds the
+            # failed chunk's tensors until the block is left
+            limit = max(1, n // 2)
+            _oom_batch_limit[id(model)] = limit
+            warnings.warn(
+                f"device OOM at {n} particles/dispatch; retrying with chunks of {limit}"
+            )
+            torch.cuda.empty_cache()
+            continue
+        sizes.append(n)
         if fetch is not None:
             out = {k: out[k] for k in fetch}
         else:
@@ -582,7 +618,7 @@ def _run_batched(
             sites = handler.sites
         remaining -= n
     outputs = chunks[0] if len(chunks) == 1 else _concat(chunks)
-    return outputs, dists, sites, rounds
+    return outputs, dists, sites, rounds, sizes
 
 
 def _concat(chunks):
@@ -603,24 +639,30 @@ def _host(x):
 
 def _site_leaves(per_chunk, sizes):
     """A site's distribution parameters on the host, one row per trace:
-    batched leaves are concatenated over chunks, shared ones repeated."""
+    batched leaves are concatenated over chunks, shared ones repeated.  A
+    leaf is batched when it has batch dims (dims beyond its parameter's
+    event dims) and the distribution a batch shape."""
     leaves = []
-    for ls in zip(*[d._leaves() for d in per_chunk]):
+    for j, ls in enumerate(zip(*[d._leaves() for d in per_chunk])):
         rows = []
         for d, leaf, c in zip(per_chunk, ls, sizes):
             leaf = leaf.detach().cpu()
-            batched = d.batch_shape != () and leaf.dim() >= 1 and leaf.shape[0] == c
-            rows.append(leaf if batched else leaf.expand((c,) + tuple(leaf.shape)))
+            event_dims = d._param_event_dims[j] if d._param_event_dims else 0
+            batched = d.batch_shape != () and leaf.dim() > event_dims
+            rows.append(
+                leaf.expand((c,) + tuple(leaf.shape[1:]))
+                if batched
+                else leaf.expand((c,) + tuple(leaf.shape))
+            )
         leaves.append(torch.cat(rows))
     return leaves
 
 
-def _materialize_traces(sites, outputs, dists, num):
+def _materialize_traces(sites, outputs, dists, sizes):
     """Per-trace ``Trace`` objects from the batched outputs (only when the
-    caller asks for traces, not results)."""
-    sizes = [_BATCH_LIMIT] * (num // _BATCH_LIMIT) + (
-        [num % _BATCH_LIMIT] if num % _BATCH_LIMIT else []
-    )
+    caller asks for traces, not results); ``sizes`` are the chunk sizes
+    the run took."""
+    num = sum(sizes)
     values = {a: _host(v) for a, v in outputs["values"].items()}
     log_probs = {a: _host(v) for a, v in outputs["log_probs"].items()}
     results = _host(outputs["result"])
@@ -690,7 +732,7 @@ def vectorized_traces(
         raise RuntimeError(f"Observe has missing value(s): {observe}")
     t0 = time.time()
     results_only = getattr(map_func, "__name__", "") == "trace_result"
-    outputs, dists, sites, rounds = _run_batched(
+    outputs, dists, sites, rounds, sizes = _run_batched(
         model,
         num_traces,
         observe,
@@ -725,7 +767,7 @@ def vectorized_traces(
         values = _host(outputs["result"])[keep]
         emp = Empirical.from_arrays(values, log_weights[keep], effective_sample_size=ess)
     else:
-        traces = _materialize_traces(sites, outputs, dists, num_traces)
+        traces = _materialize_traces(sites, outputs, dists, sizes)
         if map_func is not None:
             traces = [map_func(t) for t in traces]
         emp = Empirical(
