@@ -55,7 +55,11 @@ Phases, each printing one JSON line:
     tiles of P = 64 and at a ragged P = 8, the fused MVN quad/log-det
     kernel at (B, N) = (8,192, 256), (2,048, 512), (8,192, 200) and one
     unbatched N = 256, each against its plain version on GP covariances,
-    with one matrix that is not positive definite whose NaN must match;
+    with matrices that are not positive definite (the fused kernel's: one
+    failing at the first column of its second panel) whose NaN must match;
+    for kernels 5/6 also the ratio to the plain (library) route, the panel
+    width and threads per block in use, and the registers, shared memory
+    and spills that ptxas reported;
     then the panel factorization against torch.linalg.cholesky on the
     same [8192, 256, 256] and [2048, 512, 512] batches (a yardstick line);
 16. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
@@ -78,6 +82,7 @@ raises and the script exits non-zero without that line.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -131,6 +136,8 @@ MARSAGLIA = {
 }
 # analytic GUM evidence for observes {8, 9}: log N(8; 1, sqrt 7) + log N(9; 6, sqrt(24/7))
 LOG_EVIDENCE = -8.2395
+
+PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
 
 # Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -999,8 +1006,9 @@ def check_tile(B, P, device):
 
 def check_quad_logdet(B, N, device):
     """Kernels 5/6 against the plain version (cuSOLVER Cholesky and a
-    triangular solve) on B GP covariances, matrix 2 made indefinite
-    (B = None: one unbatched matrix, no indefinite one): equal NaN
+    triangular solve) on B GP covariances, matrix 2 made indefinite at
+    column 7 and matrix 3 at column 32, the first of the kernel's second
+    panel (B = None: one unbatched matrix, no indefinite one): equal NaN
     patterns, elsewhere |kernel - plain| <= 0.02 + 1e-4 |plain| per output.
     Two float32 Cholesky factorizations of a matrix with condition number
     up to ~6e3 part by up to ~0.005 in the log-likelihood (the CPU against
@@ -1014,6 +1022,7 @@ def check_quad_logdet(B, N, device):
         cov, diff = cov[0], diff[0]
     else:
         cov[2, 7, 7] = -1.0
+        cov[3, PANEL, PANEL] = -1.0  # first fails at a panel boundary
     out = mvn_logpdf.mvn_quad_logdet(cov, diff)
     ref = mvn_logpdf.mvn_quad_logdet_plain(cov, diff)
     err = 0.0
@@ -1021,11 +1030,46 @@ def check_quad_logdet(B, N, device):
         check(nan_pattern_equal(mine, want), f"mvn_quad_logdet B={B} N={N}: NaN pattern of {what}")
         ok = ~torch.isnan(want)
         if B is not None:
-            check(not bool(ok[2]) and bool(ok[:2].all()), f"mvn_quad_logdet B={B} N={N}: NaN only at 2")
+            check(not bool(ok[2:4].any()) and bool(ok[:2].all()) and bool(ok[4:].all()),
+                  f"mvn_quad_logdet B={B} N={N}: NaN only at 2 and 3")
         excess = float(((mine - want).abs() - (0.02 + 1e-4 * want.abs()))[ok].max())
         check(excess <= 0, f"mvn_quad_logdet B={B} N={N}: {what} exceeds 0.02 + 1e-4|plain| by {excess}")
         err = max(err, float((mine - want).abs()[ok].max()))
     return cov, diff, err
+
+
+def ptxas_report(fragment):
+    """Registers, shared memory and spills that ptxas reported (nvcc
+    -Xptxas -v, ops.build.build_log) for each entry function whose mangled
+    name holds ``fragment``."""
+    from pyprob_tpu_torch.ops import build
+
+    report, entry = {}, None
+    for line in build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if fragment in m.group(1) else None
+        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report.setdefault(entry, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)  # static; absent when 0
+            report.setdefault(entry, {}).update(
+                registers=int(m[1]), static_smem_bytes=int(smem[1]) if smem else 0)
+    return report
+
+
+def quad_logdet_launch(B, N):
+    """Kernels 5/6's launch at B matrices of size N: panel width, threads
+    per block, blocks, workspace, dynamic shared memory a block, and
+    ptxas's report for that instance."""
+    import torch
+    from pyprob_tpu_torch.ops import mvn_logpdf
+
+    plan = mvn_logpdf.launch_plan(B, N, torch.device("cuda", torch.cuda.current_device()))
+    instance = f"Li{plan['threads']}E"  # the template argument in the mangled name
+    resources = [r for name, r in ptxas_report("mvn_quad_logdet_kernel").items() if instance in name]
+    check(len(resources) == 1, f"mvn_quad_logdet: no ptxas report for {instance}")
+    return {**plan, **resources[0]}
 
 
 def tile_bytes(B, P):
@@ -1047,13 +1091,15 @@ def phase_linalg_kernels():
     rate, flops = MEMORY_RATE, F32_RATE
     rows = []
 
-    def other_shape(name, fn, plain, bytes_moved, ops, shape, err):
+    def other_shape(name, fn, plain, bytes_moved, ops, shape, err, launch=None):
         """A timing line for a shape the kernels line does not carry."""
+        ms, plain_ms = time_ms(fn, iters=3, warmup=1), time_ms(plain, iters=3, warmup=1)
         emit({
             "phase": "kernel_shape", "name": name, "shape": shape, "max_abs_err": err,
-            "ms": time_ms(fn, iters=3, warmup=1), "plain_ms": time_ms(plain, iters=3, warmup=1),
+            "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
             "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
             "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+            **({"launch": launch} if launch else {}),
         })
 
     small, err = check_tile(8192, 8, "cuda")  # the ragged last panel of N = 200
@@ -1084,7 +1130,7 @@ def phase_linalg_kernels():
         other_shape(
             "mvn_quad_logdet", lambda: mvn_logpdf.mvn_quad_logdet(c, d),
             lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), quad_logdet_bytes(b, n),
-            b * (n**3 // 3 + n * n), [b, n, n], e,
+            b * (n**3 // 3 + n * n), [b, n, n], e, quad_logdet_launch(b, n),
         )
         del c, d
     cov1, diff1, err1 = check_quad_logdet(None, 256, "cuda")
@@ -1097,16 +1143,17 @@ def phase_linalg_kernels():
         n = c.shape[-1]
         bytes_moved = quad_logdet_bytes(b, n)
         ops = b * (n**3 // 3 + n * n)  # the factorization and the solve
+        ms = time_ms(lambda: mvn_logpdf.mvn_quad_logdet(c, d), iters=5, warmup=1)
+        plain_ms = time_ms(lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), iters=5, warmup=1)
         rows.append({
             "name": name, "route": "cuda",
             "source": "pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu",
             "replaces": replaces, "max_abs_err": e,
             "tolerance": "0.02 + 1e-4 |plain| per output, equal NaN",
-            "ms": time_ms(lambda: mvn_logpdf.mvn_quad_logdet(c, d), iters=5, warmup=1),
-            "plain_ms": time_ms(lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), iters=5, warmup=1),
+            "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
             "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
             "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
-            "library_ms": None, "shape": list(c.shape),
+            "library_ms": None, "shape": list(c.shape), "launch": quad_logdet_launch(b, n),
         })
     counts = launch_counts()
     for row in rows:

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "pyprob_log_weight_stats_blocks": (ctypes.c_int64, [_I]),
     "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
     "pyprob_tile_chol_inv_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
-    "pyprob_mvn_quad_logdet_in_smem": (ctypes.c_int, [_I]),
+    "pyprob_mvn_quad_logdet_plan": (ctypes.c_int, [_I, _I, _I, _P]),
     "pyprob_mvn_quad_logdet_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
@@ -122,12 +122,15 @@ def _build(target):
 
 def library():
     """The loaded kernel library, built first if needed."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             target = BUILD_DIR / f"libpyprob_tpu_torch_kernels_{_source_key()}.so"
             if not target.exists():
                 _build(target)
+            else:  # built by an earlier process: its nvcc output is beside it
+                log = BUILD_DIR / (target.stem + ".log")
+                build_log = log.read_text() if log.exists() else ""
             lib = ctypes.CDLL(str(target))
             for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)

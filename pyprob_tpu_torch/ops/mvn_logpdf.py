@@ -3,15 +3,24 @@
 Counterpart of ``pyprob_tpu/ops/mvn_logpdf.py``: ``mvn_quad_logdet(cov,
 diff)`` returns ``(diffᵀ K⁻¹ diff, ½ log|K|)`` per matrix, the GP family's
 log marginal likelihood up to ``−½ quad − half_logdet − ½ N log 2π``.  On
-CUDA tensors one hand-written kernel (``csrc/mvn_quad_logdet.cu``: a block
-per particle, Cholesky, forward substitution and log-determinant fused)
-serves both TPU kernels: the stacked entry for a batch
-(``_quad_logdet_stacked``) and the single one for one matrix
-(``_quad_logdet_single``, the same kernel at B = 1); each counts its own
-launches.  On CPU tensors both take the plain version,
-``mvn_quad_logdet_plain`` (the JAX package's ``_quad_logdet_reference``).
-The TPU's identity padding of N to a multiple of 128 and its particles per
-grid cell are TPU tile rules and have no counterpart.
+CUDA tensors one hand-written kernel (``csrc/mvn_quad_logdet.cu``) serves
+both TPU kernels: the stacked entry for a batch (``_quad_logdet_stacked``)
+and the single one for one matrix (``_quad_logdet_single``; fewer matrices
+than SMs launch 512 threads a block, more 256); each counts its own
+launches.  The kernel is the TPU kernels' left-looking panel Cholesky in
+Hopper's terms: panels of 32 columns; the panel update a GEMM whose
+operands stream into shared memory by ``cp.async`` and whose FMAs run in
+8 × 8 register micro-tiles, split along k between groups of 128 threads;
+the 32 × 32 diagonal tile factored by one warp with shuffles; the rows
+below solved a thread per row; and the forward substitution folded in by
+factoring ``[K; diffᵀ]`` (its last row ends as ``z = L⁻¹ diff``).  A
+persistent grid keeps each block's finished panels, column-major, in a
+slot of one workspace (``launch_plan``), read back through L2.  On CPU
+tensors both entries take the plain version, ``mvn_quad_logdet_plain``
+(the JAX package's ``_quad_logdet_reference``), which on the card is the
+library route (cuSOLVER's batched Cholesky, then a triangular solve).  The
+TPU's identity padding of N to a multiple of 128 and its particles per grid
+cell are TPU tile rules and have no counterpart.
 
 ``MvnQuadLogdet`` carries the JAX package's custom VJP (``_bwd``): a
 plain-PyTorch recompute with ``cholesky_solve`` on both devices, as the
@@ -20,6 +29,8 @@ JAX package's backward is stock XLA.  As in the JAX package,
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,17 +49,25 @@ def mvn_quad_logdet_plain(cov, diff):
     return quad, half_logdet
 
 
+def launch_plan(B, N, device):
+    """The kernel's launch for B matrices of size N on a CUDA ``device``:
+    panel width, threads per block, blocks (the persistent grid), the
+    workspace it needs, in floats (a slot of N columns of N + 1 rows,
+    rounded up to 4, per block), and its dynamic shared memory a block."""
+    plan = (ctypes.c_int64 * 5)()
+    err = build.library().pyprob_mvn_quad_logdet_plan(B, N, device.index, ctypes.addressof(plan))
+    _raise_on_error("mvn_quad_logdet", err)
+    return dict(zip(("panel", "threads", "blocks", "workspace_floats", "shared_bytes"), plan))
+
+
 def _launch(cov, diff, B, N):
     """The kernel over ``cov`` [B, N, N], ``diff`` [B, N] -> [B, 2]."""
     device = cov.device
-    lib = build.library()
+    work = torch.empty(launch_plan(B, N, device)["workspace_floats"], dtype=torch.float32, device=device)
     out = torch.empty((B, 2), dtype=torch.float32, device=device)
-    work = None
-    if not lib.pyprob_mvn_quad_logdet_in_smem(N):
-        work = torch.empty((B, N * (N + 1) // 2), dtype=torch.float32, device=device)
-    err = lib.pyprob_mvn_quad_logdet_f32(
-        cov.data_ptr(), diff.data_ptr(), None if work is None else work.data_ptr(),
-        out.data_ptr(), B, N, device.index, torch.cuda.current_stream(device).cuda_stream,
+    err = build.library().pyprob_mvn_quad_logdet_f32(
+        cov.data_ptr(), diff.data_ptr(), work.data_ptr(), out.data_ptr(), B, N,
+        device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on_error("mvn_quad_logdet", err)
     return out[:, 0], out[:, 1]

@@ -5,8 +5,10 @@ kernels 5/6 (``mvn_quad_logdet``) on the CPU take their plain PyTorch
 versions; they are held against the Pallas kernels in interpret mode at
 small sizes (P = 8, N = 16), against numpy float64 at the panel width
 P = 64, and the panel path against the JAX package's ``chol_panels`` and
-numpy.  The ``cuda``-marked tests hold each CUDA kernel against its plain
-version on the card and skip without one.
+numpy.  A numpy mirror of the CUDA kernel of kernels 5/6 (left-looking
+panels of 32 columns over ``[K; diffᵀ]``) is held against the plain
+version and the Pallas kernel.  The ``cuda``-marked tests hold each CUDA
+kernel against its plain version on the card and skip without one.
 """
 
 import numpy as np
@@ -170,6 +172,85 @@ def test_mvn_quad_logdet_nan_where_not_positive_definite():
     assert torch.isfinite(q[[0, 2]]).all() and torch.isfinite(ld[[0, 2]]).all()
 
 
+_NB = 32  # the CUDA kernel's panel width (ops/csrc/mvn_quad_logdet.cu)
+
+
+def _blocked_quad_logdet(cov, diff, nb=_NB):
+    """numpy float32 mirror of the CUDA kernel of kernels 5/6: left-looking
+    panels of nb columns over the augmented [K; diffᵀ] (only K's lower
+    triangle read), the diagonal tile by a column loop with d = 1/√pivot,
+    the rows below it, diff's row among them, by forward substitution
+    against the tile.  Row N of L ends as z = L⁻¹ diff."""
+    B, n, _ = cov.shape
+    A = np.concatenate([np.tril(cov), diff[:, None, :]], axis=1).astype(np.float32)
+    L = np.zeros_like(A)  # [B, n + 1, n]
+    half_logdet = np.zeros(B, np.float32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for j0 in range(0, n, nb):
+            w = min(nb, n - j0)
+            P = A[:, j0:, j0 : j0 + w] - L[:, j0:, :j0] @ L[:, j0 : j0 + w, :j0].transpose(0, 2, 1)
+            S, T = P[:, :w].copy(), np.zeros((B, w, w), np.float32)
+            dinv = np.zeros((B, w), np.float32)
+            for j in range(w):
+                dinv[:, j] = d = np.float32(1) / np.sqrt(S[:, j, j])
+                T[:, j, j] = S[:, j, j] * d
+                T[:, j + 1 :, j] = S[:, j + 1 :, j] * d[:, None]
+                S[:, j + 1 :, j + 1 :] -= T[:, j + 1 :, j, None] * T[:, None, j + 1 :, j]
+            X = P[:, w:].copy()
+            for c in range(w):
+                X[:, :, c] = (X[:, :, c] - np.einsum("brk,bk->br", X[:, :, :c], T[:, c, :c])) * dinv[:, c, None]
+            L[:, j0 : j0 + w, j0 : j0 + w] = T
+            L[:, j0 + w :, j0 : j0 + w] = X
+            half_logdet += np.log(np.diagonal(T, axis1=1, axis2=2)).sum(-1)
+    z = L[:, n]
+    return (z * z).sum(-1), half_logdet
+
+
+_pallas_stacked = jax.jit(
+    lambda c, d: JM._quad_logdet_stacked(*JM._pad_cov_diff(c, d), interpret=True, particles_per_cell=2)
+)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 200])
+def test_blocked_quad_logdet_matches_plain_and_pallas(n):
+    # ragged panels (31, 33, 200 = 6 x 32 + 8) and N = 1; f32 against the
+    # library route, and for N <= 64 against the Pallas kernel in interpret
+    # mode (padded to 128 there): rtol 1e-5, atol 1e-5
+    cov = _spd(2, n, seed=20 + n)
+    diff = np.random.default_rng(n).normal(size=(2, n)).astype(np.float32)
+    q, ld = _blocked_quad_logdet(cov, diff)
+    pq, pld = TM.mvn_quad_logdet_plain(torch.from_numpy(cov), torch.from_numpy(diff))
+    np.testing.assert_allclose(q, pq.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ld, pld.numpy(), rtol=1e-5, atol=1e-5)
+    if n <= 64:
+        jq, jld = _pallas_stacked(jnp.asarray(cov), jnp.asarray(diff))
+        np.testing.assert_allclose(q, np.asarray(jq), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ld, np.asarray(jld), rtol=1e-5, atol=1e-5)
+
+
+def _indefinite_at(cov, b, col):
+    """Make matrix b of ``cov`` (in place) fail first at column ``col``:
+    that column's pivot becomes −1, the columns before keep theirs."""
+    L = np.linalg.cholesky(cov[b].astype(np.float64))
+    cov[b, col, col] -= L[col, col] ** 2 + 1.0
+
+
+@pytest.mark.parametrize("col", [0, _NB - 1, _NB, 197])
+def test_blocked_quad_logdet_nan_from_failing_column(col):
+    # N = 200: the first column, the last and first of a panel, and a
+    # column of the ragged last panel (192-199); NaN in both outputs of
+    # matrix 1 only, as in the plain version
+    cov = _spd(3, 200, seed=30)
+    _indefinite_at(cov, 1, col)
+    diff = np.random.default_rng(31).normal(size=(3, 200)).astype(np.float32)
+    q, ld = _blocked_quad_logdet(cov, diff)
+    pq, pld = TM.mvn_quad_logdet(torch.from_numpy(cov), torch.from_numpy(diff))
+    for out in (q, ld, pq.numpy(), pld.numpy()):
+        assert np.isnan(out[1]) and np.isfinite(out[[0, 2]]).all()
+    np.testing.assert_allclose(q[[0, 2]], pq.numpy()[[0, 2]], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ld[[0, 2]], pld.numpy()[[0, 2]], rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         TT.chol_inv_tile(torch.eye(65))
@@ -200,14 +281,25 @@ def test_tile_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
-def test_mvn_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("n", [1, 33, 64, 65, 200, 256, 512])
+def test_mvn_kernel_matches_plain_on_card(n):
+    # unbatched, B = 3 (the 512-thread launch) and B = 257 (the 256-thread
+    # one: more matrices than blocks at N = 512); in the batches matrices
+    # fail first at column 0, 31, 32 and in the last panel (B = 3: the last
+    # column), each must give NaN in both outputs, equal to the plain version
     _need_card()
-    for B, N in ((257, 256), (33, 512), (40, 200), (None, 256)):
-        cov = torch.from_numpy(_spd(B or 1, N, seed=N)).cuda()
-        diff = torch.from_numpy(np.random.default_rng(N).normal(size=(B or 1, N)).astype(np.float32)).cuda()
-        if B:
-            cov[2, 7, 7] = -1.0
-        else:
+    rng = np.random.default_rng(n)
+    pool = _spd(4, n, seed=n)  # a few SPD matrices, scaled and shifted per particle
+    for B in (None, 3, 257):
+        count = B or 1
+        scale = rng.uniform(0.5, 2.0, size=(count, 1, 1))
+        cov = (pool[np.arange(count) % 4] * scale + rng.uniform(0, 1, (count, 1, 1)) * np.eye(n)).astype(np.float32)
+        diff = rng.normal(size=(count, n)).astype(np.float32)
+        cols = [] if B is None else [n - 1] if B == 3 else sorted({c for c in (0, _NB - 1, _NB, n - 3) if 0 <= c < n})
+        for b, col in enumerate(cols, start=1):
+            _indefinite_at(cov, b, col)
+        cov, diff = torch.from_numpy(cov).cuda(), torch.from_numpy(diff).cuda()
+        if B is None:
             cov, diff = cov[0], diff[0]
         counter = TM._quad_logdet_stacked if B else TM._quad_logdet_single
         before = counter.launches
@@ -215,5 +307,8 @@ def test_mvn_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         pq, pld = TM.mvn_quad_logdet_plain(cov, diff)
-        torch.testing.assert_close(q, pq, atol=1e-3, rtol=1e-4, equal_nan=True)
-        torch.testing.assert_close(ld, pld, atol=1e-3, rtol=1e-4, equal_nan=True)
+        for mine, ref in ((q, pq), (ld, pld)):
+            nan = torch.isnan(ref).cpu().numpy().reshape(-1)
+            assert list(np.flatnonzero(nan)) == list(range(1, 1 + len(cols)))
+            assert torch.equal(torch.isnan(mine), torch.isnan(ref))
+            torch.testing.assert_close(mine, ref, atol=1e-3, rtol=1e-4, equal_nan=True)
