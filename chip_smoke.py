@@ -18,6 +18,8 @@ Phases, each printing one JSON line:
    1's against autograd of the plain forward); the truncated mixture's
    inputs hold x outside [low, high], rows where the 1e-12 clip on
    Phi(beta) - Phi(alpha) is active, -inf logits and non-finite cotangents;
+   the four mixture kernels also timed at the rows a training step
+   launches them at (256 and 512; 256 for the truncated ones);
 4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
    posterior N(7.25, sqrt(1/1.2));
 5. guided IS: 1,000,000 traces proposed by an untrained LSTM inference
@@ -51,8 +53,13 @@ Phases, each printing one JSON line:
 14. Marsaglia defensive IS: the trained network with every attempt drawn
     from the defensive mixture 0.5 q + 0.5 prior (bounded weights), log Z
     within 0.15 of the analytic value: the retry weighting is exact;
-15. linalg kernels: the panel Cholesky's diagonal-tile kernel at B = 8,192
-    tiles of P = 64 and at a ragged P = 8, the fused MVN quad/log-det
+15. linalg kernels: the panel Cholesky's diagonal-tile kernel as the panel
+    loop launches it (tiles read in place from [B, N, N] matrices, L
+    written into the panel's rows of the full factor, zeros past the
+    block) at B = 8,192 tiles of P = 64 (N = 256's first panel), B = 2,048
+    (N = 512's), and the ragged last panels P = 8 (N = 200) and P = 2
+    (N = 130), and through its contiguous entry at B = 8,192, P = 64;
+    the fused MVN quad/log-det
     kernel at (B, N) = (8,192, 256), (2,048, 512), (8,192, 200) and one
     unbatched N = 256, each against its plain version on GP covariances,
     with matrices that are not positive definite (the fused kernel's: one
@@ -75,8 +82,9 @@ Phases, each printing one JSON line:
     kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
     for three of them), against numpy float64.
 
-Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
+Then the main path's launches by phase, the ``{"kernels": [...]}`` line,
+the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Any failed check
 raises and the script exits non-zero without that line.
 """
 
@@ -171,6 +179,44 @@ def time_ms(fn, iters=100, warmup=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved, ops):
+    """The least time on this card (ms), and what sets it: the bytes over
+    the memory rate or the operations over the float32 rate."""
+    by_bytes, by_ops = bytes_moved / MEMORY_RATE, ops / F32_RATE
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def emit_shape(name, fn, plain, bytes_moved, ops, shape, err, iters=3, **extra):
+    """A timing line for a shape the kernels line does not carry."""
+    ms, plain_ms = time_ms(fn, iters=iters, warmup=1), time_ms(plain, iters=iters, warmup=1)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    emit({
+        "phase": "kernel_shape", "name": name, "shape": shape, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, **extra,
+    })
+
+
+# each mixture kernel's least traffic (bytes) and rough operation count
+# at B rows of K components
+def mixture_cost(B, K):
+    return 4 * B + 3 * 4 * B * K + 4 * B, 15 * B * K + 3 * B  # ~15 per component (2 transcendental)
+
+
+def mixture_backward_cost(B, K):
+    return 12 * B + 12 * B * K + 4 * B + 12 * B * K, 25 * B * K + 2 * B  # ~25 per component
+
+
+def tnorm_cost(B, K):
+    # x, low, high, 3 [B, K] in; out; ~60 per component (2 erff, 2 logf, 1 expf)
+    return (4 + 3 * K) * 4 * B, 60 * B * K + 5 * B
+
+
+def tnorm_backward_cost(B, K):
+    # x, low, high, out, g, 3 [B, K] in; 3 [B, K] + 3 [B] out; ~80 per component
+    return (8 + 6 * K) * 4 * B, 80 * B * K + 5 * B
 
 
 def phase_device():
@@ -358,7 +404,6 @@ def phase_kernels():
     import torch
     from pyprob_tpu_torch.ops import kernels as K
 
-    rate, flops = MEMORY_RATE, F32_RATE
     rows = []
 
     B, Kc = MIXTURE_ROWS, MIXTURE_COMPONENTS
@@ -369,9 +414,7 @@ def phase_kernels():
     err = float((out - ref).abs().max())
     check(bool(torch.isfinite(out).all()), "mixture kernel: non-finite output")
     check(err <= 1e-5, f"mixture kernel vs plain: max abs err {err} > 1e-5")
-    bytes_moved = 4 * B + 3 * 4 * B * Kc + 4 * B
-    ops = 15 * B * Kc + 3 * B  # ~15 per component (2 transcendental), 3 per row
-    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    bound_ms, bound_by = bound(*mixture_cost(B, Kc))
     rows.append({
         "name": "mixture_normal_log_prob", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/mixture_normal.cu",
@@ -379,17 +422,28 @@ def phase_kernels():
         "max_abs_err": err, "tolerance": "atol 1e-5 vs plain",
         "ms": time_ms(lambda: K.mixture_normal_log_prob(*inputs)),
         "plain_ms": time_ms(lambda: K.mixture_normal_log_prob_plain(*inputs)),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": [B, Kc],
     })
 
     check_mixture_backward(1000, "cuda", degenerate=True)  # ragged last block
-    for n in (TRAIN_ROWS, B):
-        inputs, out, g, err = check_mixture_backward(n, "cuda")
-    bytes_moved = 12 * B + 12 * B * Kc + 4 * B + 12 * B * Kc
-    ops = 25 * B * Kc + 2 * B  # ~25 per component (2 transcendental), 2 per row
-    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    # the rows a training step launches both directions at (the IC loss
+    # scores the head once per sub-batch: at most the arm's batch)
+    for n in sorted({arm["batch_size"] for arm in ARMS}):
+        small, small_out, small_g, small_err = check_mixture_backward(n, "cuda")
+        emit_shape(
+            "mixture_normal_log_prob", lambda: K.mixture_normal_log_prob(*small),
+            lambda: K.mixture_normal_log_prob_plain(*small), *mixture_cost(n, Kc), [n, Kc],
+            float((small_out - K.mixture_normal_log_prob_plain(*small)).abs().max()), iters=100,
+        )
+        emit_shape(
+            "mixture_normal_log_prob_backward",
+            lambda: K.mixture_normal_log_prob_backward(*small, small_out, small_g),
+            lambda: K.mixture_normal_log_prob_backward_plain(*small, small_out, small_g),
+            *mixture_backward_cost(n, Kc), [n, Kc], small_err, iters=100,
+        )
+    inputs, out, g, err = check_mixture_backward(B, "cuda")
+    bound_ms, bound_by = bound(*mixture_backward_cost(B, Kc))
     rows.append({
         "name": "mixture_normal_log_prob_backward", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/mixture_normal_backward.cu",
@@ -398,17 +452,27 @@ def phase_kernels():
         "tolerance": "1e-5 + 1e-4 |ref| per gradient vs plain and vs autograd of the plain forward",
         "ms": time_ms(lambda: K.mixture_normal_log_prob_backward(*inputs, out, g)),
         "plain_ms": time_ms(lambda: K.mixture_normal_log_prob_backward_plain(*inputs, out, g)),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": [B, Kc],
     })
 
     check_tnorm(1000, "cuda", seed=1)  # ragged last block
-    check_tnorm(MARSAGLIA["batch_size"], "cuda", seed=2)
+    # the Marsaglia training step's rows
+    n = MARSAGLIA["batch_size"]
+    small, small_out, small_g, small_fwd, small_bwd = check_tnorm(n, "cuda", seed=2)
+    emit_shape(
+        "mixture_truncated_normal_log_prob", lambda: K.mixture_truncated_normal_log_prob(*small),
+        lambda: K.mixture_truncated_normal_log_prob_plain(*small), *tnorm_cost(n, Kc), [n, Kc],
+        small_fwd, iters=100,
+    )
+    emit_shape(
+        "mixture_truncated_normal_log_prob_backward",
+        lambda: K.mixture_truncated_normal_log_prob_backward(*small, small_out, small_g),
+        lambda: K.mixture_truncated_normal_log_prob_backward_plain(*small, small_out, small_g),
+        *tnorm_backward_cost(n, Kc), [n, Kc], small_bwd, iters=100,
+    )
     inputs, out, g, fwd_err, bwd_err = check_tnorm(B, "cuda")
-    bytes_moved = (4 + 3 * Kc) * 4 * B  # x, low, high, 3 [B, K] in; out
-    ops = 60 * B * Kc + 5 * B  # ~60 per component (2 erff, 2 logf, 1 expf)
-    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    bound_ms, bound_by = bound(*tnorm_cost(B, Kc))
     rows.append({
         "name": "mixture_truncated_normal_log_prob", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/mixture_truncated_normal.cu",
@@ -416,13 +480,10 @@ def phase_kernels():
         "max_abs_err": fwd_err, "tolerance": "1e-5 + 1e-5 |ref| vs plain, equal -inf/NaN",
         "ms": time_ms(lambda: K.mixture_truncated_normal_log_prob(*inputs)),
         "plain_ms": time_ms(lambda: K.mixture_truncated_normal_log_prob_plain(*inputs)),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": [B, Kc],
     })
-    bytes_moved = (8 + 6 * Kc) * 4 * B  # x, low, high, out, g, 3 [B, K] in; 3 [B, K] + 3 [B] out
-    ops = 80 * B * Kc + 5 * B  # ~80 per component (2 erff, 2 logf, 3 expf)
-    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    bound_ms, bound_by = bound(*tnorm_backward_cost(B, Kc))
     rows.append({
         "name": "mixture_truncated_normal_log_prob_backward", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/mixture_truncated_normal_backward.cu",
@@ -433,8 +494,7 @@ def phase_kernels():
         "plain_ms": time_ms(
             lambda: K.mixture_truncated_normal_log_prob_backward_plain(*inputs, out, g)
         ),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": [B, Kc],
     })
 
@@ -448,9 +508,7 @@ def phase_kernels():
     check(m == rm and m == pm, f"log_weight_stats: max {m} != {rm}")
     for got, want, what in ((s1, rs1, "s1"), (s2, rs2, "s2"), (s1, ps1, "s1 plain"), (s2, ps2, "s2 plain")):
         check(abs(got - want) <= 1e-5 * abs(want), f"log_weight_stats {what}: {got} vs {want}")
-    bytes_moved = 4 * STATS_N + 12
-    ops = 6 * STATS_N
-    bound = max(bytes_moved / rate, ops / flops) * 1e3
+    bound_ms, bound_by = bound(4 * STATS_N + 12, 6 * STATS_N)
     rows.append({
         "name": "log_weight_stats", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/log_weight_stats.cu",
@@ -460,8 +518,7 @@ def phase_kernels():
         "tolerance": "m exact, s1 and s2 rtol 1e-5 vs float64 and plain",
         "ms": time_ms(lambda: K.log_weight_stats(lw)),
         "plain_ms": time_ms(lambda: K.log_weight_stats_plain(lw)),
-        "bound_ms": bound,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": [STATS_N],
     })
     counts = launch_counts()
@@ -975,25 +1032,35 @@ def nan_pattern_equal(a, b):
     return bool(torch.equal(torch.isnan(a), torch.isnan(b)))
 
 
-def check_tile(B, P, device):
-    """Kernel 4 against its plain version on the diagonal tiles of B GP
-    covariances (N = 256, the first P rows and columns), tile 5 made
-    indefinite: equal NaN patterns, elsewhere |kernel - plain| <= 1e-3 (1 +
-    |plain|).  Both run the same column loop with each product and
+def check_tile(B, P, device, N=256, k0=0):
+    """Kernel 4 against its plain version on the tiles K[:, k0:k0+P,
+    k0:k0+P] of B GP covariances of size N, tile 5 made indefinite: the
+    contiguous entry on a copy, and the panel loop's entry reading the
+    tiles in place (row stride N) and writing L into the rows out[:, k0:k0+P,
+    k0:] of an [B, N, N] matrix, with zeros past the diagonal block and
+    nothing else touched.  Equal NaN patterns, elsewhere |kernel - plain| <=
+    1e-3 (1 + |plain|).  Both run the same column loop with each product and
     difference rounded alone; rsqrtf and torch.rsqrt may part by an ulp,
     which the tile's condition number (up to ~2e3 for these tiles)
-    amplifies.  Returns the tiles and the max abs error."""
+    amplifies.  Returns the tile view, the rows of out and the max abs
+    error."""
     import torch
     from pyprob_tpu_torch.ops import tile_chol
 
-    K, _ = gp_covariances(256, B, device, seed=P)
-    tiles = K[:, :P, :P].contiguous()
-    del K
+    K, _ = gp_covariances(N, B, device, seed=P + k0)
+    tiles = K[:, k0 : k0 + P, k0 : k0 + P]
     tiles[5, P // 2, P // 2] = -1.0
-    L, M = tile_chol.chol_inv_tile(tiles)
+    out = torch.full_like(K, 7.0)
+    rows = out[:, k0 : k0 + P, k0:]
+    M_in_place = tile_chol.chol_inv_tile_into(tiles, rows)
+    L, M = tile_chol.chol_inv_tile(tiles.contiguous())
     pL, pM = tile_chol.chol_inv_tile_plain(tiles)
+    sync(device)
     err = 0.0
-    for what, mine, ref in (("L", L, pL), ("L^-1", M, pM)):
+    for what, mine, ref in (
+        ("L", L, pL), ("L^-1", M, pM), ("L in place", rows[:, :, :P], pL),
+        ("L^-1 of the in-place entry", M_in_place, pM),
+    ):
         check(nan_pattern_equal(mine, ref), f"chol_inv_tile P={P}: NaN pattern of {what}")
         check(bool(torch.isnan(ref[5]).any()) and not bool(torch.isnan(ref[:5]).any()),
               f"chol_inv_tile P={P}: NaN only in the indefinite tile")
@@ -1001,7 +1068,12 @@ def check_tile(B, P, device):
         excess = float(((mine - ref).abs() - 1e-3 * (1 + ref.abs()))[ok].max())
         check(excess <= 0, f"chol_inv_tile P={P}: {what} exceeds 1e-3 (1 + |plain|) by {excess}")
         err = max(err, float((mine - ref).abs()[ok].max()))
-    return tiles, err
+    check(bool((rows[:, :, P:] == 0).all()), f"chol_inv_tile P={P}: no zeros right of the block")
+    check(bool((out[:, :k0] == 7).all() and (out[:, k0 + P :] == 7).all()
+               and (rows[:, :, :0] == 7).all() and (out[:, k0 : k0 + P, :k0] == 7).all()),
+          f"chol_inv_tile P={P}: wrote outside the panel's rows")
+    del K, out, L, M, pL, pM, M_in_place
+    return tiles, rows, err
 
 
 def check_quad_logdet(B, N, device):
@@ -1072,10 +1144,11 @@ def quad_logdet_launch(B, N):
     return {**plan, **resources[0]}
 
 
-def tile_bytes(B, P):
+def tile_bytes(B, P, width=None):
     """Kernel 4's least traffic: each tile's lower triangle read (the
-    column loop reads nothing above the diagonal), L and L^-1 written."""
-    return 4 * B * (P * (P + 1) // 2 + 2 * P * P)
+    column loop reads nothing above the diagonal), L^-1 written, and L's
+    rows of ``width`` (default P) written, zeros past the block included."""
+    return 4 * B * (P * (P + 1) // 2 + P * (width or P) + P * P)
 
 
 def quad_logdet_bytes(B, N):
@@ -1088,49 +1161,58 @@ def phase_linalg_kernels():
     import torch
     from pyprob_tpu_torch.ops import blocked_linalg, mvn_logpdf, tile_chol
 
-    rate, flops = MEMORY_RATE, F32_RATE
     rows = []
-
-    def other_shape(name, fn, plain, bytes_moved, ops, shape, err, launch=None):
-        """A timing line for a shape the kernels line does not carry."""
-        ms, plain_ms = time_ms(fn, iters=3, warmup=1), time_ms(plain, iters=3, warmup=1)
-        emit({
-            "phase": "kernel_shape", "name": name, "shape": shape, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
-            "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
-            "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
-            **({"launch": launch} if launch else {}),
-        })
-
-    small, err = check_tile(8192, 8, "cuda")  # the ragged last panel of N = 200
-    other_shape(
-        "chol_inv_tile", lambda: tile_chol.chol_inv_tile(small),
-        lambda: tile_chol.chol_inv_tile_plain(small), tile_bytes(8192, 8), 2 * 8**3 * 8192 // 3,
-        [8192, 8, 8], err,
-    )
-    del small
-    tiles, err = check_tile(8192, 64, "cuda")
-    B, P = tiles.shape[0], 64
-    bytes_moved = tile_bytes(B, P)
+    into, plain = tile_chol.chol_inv_tile_into, tile_chol.chol_inv_tile_plain
+    # the last panels of N = 130 and N = 200 (P = 2 and 8), and the first
+    # of N = 512 at its batch, each as the panel loop launches it: read in
+    # place, L written into the rows of the full factor
+    for B, N, k0, P in ((8192, 130, 128, 2), (8192, 200, 192, 8), (2048, 512, 0, 64)):
+        tiles, out_rows, err = check_tile(B, P, "cuda", N, k0)
+        emit_shape(
+            "chol_inv_tile", lambda: into(tiles, out_rows), lambda: plain(tiles),
+            tile_bytes(B, P, N - k0), 2 * P**3 * B // 3, [B, P, P], err,
+            entry="chol_inv_tile_into", l_row_width=N - k0,
+        )
+        del tiles, out_rows
+    # the four panels of N = 256 at the largest GP batch, B = 32,768, as the
+    # panel loop launches them: the tile read from the trailing matrix [B,
+    # m, m] (row stride m = 256, 192, 128, 64), L written into rows of width m
+    B, P = GP_LARGE[1], 64
+    for m in range(GP_LARGE[0], 0, -P):
+        tiles, out_rows, err = check_tile(B, P, "cuda", m)
+        emit_shape(
+            "chol_inv_tile", lambda: into(tiles, out_rows), lambda: plain(tiles),
+            tile_bytes(B, P, m), 2 * P**3 * B // 3, [B, P, P], err,
+            entry="chol_inv_tile_into", l_row_width=m, panel_of=GP_LARGE[0],
+        )
+        del tiles, out_rows
+    # kernel 4's row: the first panel of N = 256, B = 8,192
+    B, N, P = 8192, 256, 64
+    tiles, out_rows, err = check_tile(B, P, "cuda", N)
     ops = 2 * P**3 * B // 3  # useful work: P^3/3 factor + P^3/3 inverse
+    bound_ms, bound_by = bound(tile_bytes(B, P, N), ops)
     rows.append({
         "name": "chol_inv_tile", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/tile_chol.cu",
         "replaces": "pyprob_tpu/ops/tile_chol.py:127",
         "max_abs_err": err, "tolerance": "1e-3 (1 + |plain|), equal NaN",
-        "ms": time_ms(lambda: tile_chol.chol_inv_tile(tiles), iters=20),
-        "plain_ms": time_ms(lambda: tile_chol.chol_inv_tile_plain(tiles), iters=3, warmup=1),
-        "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
-        "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
-        "library_ms": None, "shape": [B, P, P],
+        "ms": time_ms(lambda: into(tiles, out_rows), iters=20),
+        "plain_ms": time_ms(lambda: plain(tiles), iters=3, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": [B, P, P],
+        "entry": "chol_inv_tile_into", "l_row_width": N,
     })
-    del tiles
+    contiguous = tiles.contiguous()
+    emit_shape(
+        "chol_inv_tile", lambda: tile_chol.chol_inv_tile(contiguous), lambda: plain(contiguous),
+        tile_bytes(B, P), ops, [B, P, P], err, entry="chol_inv_tile",
+    )
+    del tiles, out_rows, contiguous
     for b, n in ((2048, 512), (8192, 200)):
         c, d, e = check_quad_logdet(b, n, "cuda")
-        other_shape(
+        emit_shape(
             "mvn_quad_logdet", lambda: mvn_logpdf.mvn_quad_logdet(c, d),
             lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), quad_logdet_bytes(b, n),
-            b * (n**3 // 3 + n * n), [b, n, n], e, quad_logdet_launch(b, n),
+            b * (n**3 // 3 + n * n), [b, n, n], e, launch=quad_logdet_launch(b, n),
         )
         del c, d
     cov1, diff1, err1 = check_quad_logdet(None, 256, "cuda")
@@ -1141,8 +1223,7 @@ def phase_linalg_kernels():
     ):
         b = c.numel() // (c.shape[-1] ** 2)
         n = c.shape[-1]
-        bytes_moved = quad_logdet_bytes(b, n)
-        ops = b * (n**3 // 3 + n * n)  # the factorization and the solve
+        bound_ms, bound_by = bound(quad_logdet_bytes(b, n), b * (n**3 // 3 + n * n))
         ms = time_ms(lambda: mvn_logpdf.mvn_quad_logdet(c, d), iters=5, warmup=1)
         plain_ms = time_ms(lambda: mvn_logpdf.mvn_quad_logdet_plain(c, d), iters=5, warmup=1)
         rows.append({
@@ -1151,8 +1232,7 @@ def phase_linalg_kernels():
             "replaces": replaces, "max_abs_err": e,
             "tolerance": "0.02 + 1e-4 |plain| per output, equal NaN",
             "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
-            "bound_ms": max(bytes_moved / rate, ops / flops) * 1e3,
-            "bound_by": "bytes" if bytes_moved / rate >= ops / flops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "shape": list(c.shape), "launch": quad_logdet_launch(b, n),
         })
     counts = launch_counts()
@@ -1341,24 +1421,29 @@ def main():
     model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
     phase_card_vs_cpu(model, 4096)
     phase_grad_card_vs_cpu(512, TRAIN_ROWS)
-    path_launches = [launches]
+    # each main-path phase's launches, by phase: the training phases launch
+    # the mixture kernels at the arm's batch rows, the serving phases at
+    # chunks of up to 2^18
+    path = {"guided_is": launches}
     for arm in ARMS:
-        trained, train_launches = phase_train("cuda", arm)
-        path_launches += [train_launches, phase_guided_is_trained("cuda", trained, arm, NUM_TRACES)]
-    prior_fraction, prior_launches = phase_marsaglia_prior_is("cuda", NUM_TRACES)
+        trained, path[f"train_lstm{arm['lstm_dim']}"] = phase_train("cuda", arm)
+        path[f"guided_is_trained_lstm{arm['lstm_dim']}"] = phase_guided_is_trained(
+            "cuda", trained, arm, NUM_TRACES)
+    prior_fraction, path["marsaglia_prior_is"] = phase_marsaglia_prior_is("cuda", NUM_TRACES)
     phase_grad_card_vs_cpu(MARSAGLIA["lstm_dim"], MARSAGLIA["batch_size"], marsaglia=True)
-    marsaglia, train_launches = phase_marsaglia_train("cuda")
-    path_launches += [
-        prior_launches, train_launches,
-        phase_marsaglia_guided_is_trained("cuda", marsaglia, NUM_TRACES, prior_fraction),
-    ]
+    marsaglia, path["marsaglia_train"] = phase_marsaglia_train("cuda")
+    path["marsaglia_guided_is_trained"] = phase_marsaglia_guided_is_trained(
+        "cuda", marsaglia, NUM_TRACES, prior_fraction)
     phase_marsaglia_defensive_is("cuda", marsaglia, NUM_TRACES)
     for N, num_traces in GP_RUNS:
-        path_launches.append(phase_gp_is("cuda", N, num_traces))
-    path_launches.append(phase_gp_is("cuda", *GP_LARGE, warm_up=False))
-    path_launches.append(phase_gp_card_vs_cpu("cuda"))
+        path[f"gp_is_{N}x{num_traces}"] = phase_gp_is("cuda", N, num_traces)
+    path[f"gp_is_{GP_LARGE[0]}x{GP_LARGE[1]}"] = phase_gp_is("cuda", *GP_LARGE, warm_up=False)
+    path["gp_card_vs_cpu"] = phase_gp_card_vs_cpu("cuda")
+    emit({"phase": "launches_by_phase", "launches": {
+        phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
+    }})
     for row in rows:
-        row["launches"] = sum(counts[row["name"]] for counts in path_launches)
+        row["launches"] = sum(counts[row["name"]] for counts in path.values())
         check(row["launches"] >= 1, f"the main path never launched {row['name']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -19,12 +19,12 @@ the repository root:
 
 import ctypes
 import json
-import subprocess
 import sys
 
 import torch
 
 from chip_smoke import gp_covariances, time_ms
+from kernel_profile import block_cycles, build_copy, counters, insert, shares
 from pyprob_tpu_torch.ops import build
 
 PHASES = ("gemm", "epilogue", "tile", "rows_below_last", "rows_below_and_chunk_start")
@@ -32,46 +32,24 @@ MAX_BLOCKS = 4096
 
 
 def instrumented_source():
+    declare, start, store = counters(PHASES, MAX_BLOCKS)
     src = (build.SOURCE_DIR / "mvn_quad_logdet.cu").read_text()
-
-    def insert(anchor, text, before=True):
-        nonlocal src
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"anchor not found once in the kernel source: {anchor!r}")
-        src = src.replace(anchor, text + anchor if before else anchor + text)
-
-    insert("namespace {", f"__device__ unsigned long long phase_cycles[{MAX_BLOCKS}][5];\n")
-    insert("  Smem& s = *reinterpret_cast<Smem*>(smem_raw);\n",
-           "  long long t_last = clock64();\n"
-           "  unsigned long long cycles[5] = {0, 0, 0, 0, 0};\n"
-           "#define MARK(n) do { if (threadIdx.x == 0) { const long long t_ = clock64();"
-           " cycles[n] += t_ - t_last; t_last = t_; } } while (0)\n", before=False)
-    insert("        // ---- GEMM", "        MARK(4);\n")
-    insert("        // ---- epilogue", "        MARK(0);\n")
-    insert("        // ---- diagonal tile", "        MARK(1);\n")
-    insert("        // ---- rows below", "        MARK(2);\n")
-    insert("    __syncthreads();\n    if (tid == 0) {\n      out[", "    MARK(3);\n")
-    insert("      out[2 * static_cast<int64_t>(b) + 1] = logdet;\n    }\n  }\n",
-           "  if (threadIdx.x == 0) for (int n = 0; n < 5; ++n) phase_cycles[blockIdx.x][n] = cycles[n];\n",
-           before=False)
-    return src + ('\nextern "C" int read_phase_cycles(unsigned long long* dst) {\n'
-                  "  return (int)cudaMemcpyFromSymbol(dst, phase_cycles, sizeof(phase_cycles));\n}\n")
+    src = insert(src, "namespace {", declare)
+    src = insert(src, "  Smem& s = *reinterpret_cast<Smem*>(smem_raw);\n", start, before=False)
+    src = insert(src, "        // ---- GEMM", "        MARK(4);\n")
+    src = insert(src, "        // ---- epilogue", "        MARK(0);\n")
+    src = insert(src, "        // ---- diagonal tile", "        MARK(1);\n")
+    src = insert(src, "        // ---- rows below", "        MARK(2);\n")
+    src = insert(src, "    __syncthreads();\n    if (tid == 0) {\n      out[", "    MARK(3);\n")
+    return insert(src, "      out[2 * static_cast<int64_t>(b) + 1] = logdet;\n    }\n  }\n", store,
+                  before=False)
 
 
 def load():
-    out = build.BUILD_DIR / "profile"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "mvn_quad_logdet_phases.cu").write_text(instrumented_source())
-    subprocess.run(
-        [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", str(out / "phases.so"),
-         str(out / "mvn_quad_logdet_phases.cu")],
-        check=True,
-    )
-    lib = ctypes.CDLL(str(out / "phases.so"))
+    lib = build_copy("mvn_quad_logdet_phases", instrumented_source())
     P, I = ctypes.c_void_p, ctypes.c_int64
     lib.pyprob_mvn_quad_logdet_plan.argtypes = [I, I, I, P]
     lib.pyprob_mvn_quad_logdet_f32.argtypes = [P, P, P, P, I, I, I, P]
-    lib.read_phase_cycles.argtypes = [P]
     return lib
 
 
@@ -90,23 +68,21 @@ def main():
             raise RuntimeError(f"more than {MAX_BLOCKS} blocks")
         work = torch.empty(plan["workspace_floats"], device=device)
         out = torch.empty(B, 2, device=device)
-        err = lib.pyprob_mvn_quad_logdet_f32(cov.data_ptr(), diff.data_ptr(), work.data_ptr(),
-                                             out.data_ptr(), B, N, device.index, stream)
-        torch.cuda.synchronize()
-        if err != 0:
-            raise RuntimeError(f"instrumented launch failed with error {err}")
-        cycles = (ctypes.c_ulonglong * (MAX_BLOCKS * 5))()
-        if lib.read_phase_cycles(ctypes.addressof(cycles)) != 0:
-            raise RuntimeError("reading the phase cycles failed")
+
+        def launch():
+            err = lib.pyprob_mvn_quad_logdet_f32(cov.data_ptr(), diff.data_ptr(), work.data_ptr(),
+                                                 out.data_ptr(), B, N, device.index, stream)
+            if err != 0:
+                raise RuntimeError(f"instrumented launch failed with error {err}")
+
+        total, share = shares(block_cycles(lib, launch, PHASES, MAX_BLOCKS), PHASES)
         blocks = plan["blocks"]
-        per_phase = [sum(cycles[b * 5 + n] for b in range(blocks)) / blocks for n in range(5)]
-        total = sum(per_phase)
         matrices_per_block = -(-B // blocks)
         print(json.dumps({
             "B": B, "N": N, "device": torch.cuda.get_device_name(0), "launch": plan,
             "ms": time_ms(lambda: mvn_logpdf.mvn_quad_logdet(cov, diff), iters=5, warmup=1),
             "block_kcycles_per_matrix": total / matrices_per_block / 1e3,
-            "share": {name: c / total for name, c in zip(PHASES, per_phase)},
+            "share": share,
         }), flush=True)
         del cov, diff, work
 

@@ -8,7 +8,9 @@ the dispatch in
 ``pyprob_tpu/backend.py`` (``cholesky``, ``tri_solve_lower``).  The panel
 path is the right-looking blocked algorithm with panel width 64: per panel
 the diagonal tile is factored together with its inverse by the
-``chol_inv_tile`` kernel (``ops/tile_chol.py``), the panel solve is one
+``chol_inv_tile`` kernel (``ops/tile_chol.py``: ``chol_inv_tile_into``
+reads the tile in place and writes L's diagonal block, and the zeros to
+its right, into L), the panel solve is one
 batched GEMM against that inverse, and the trailing update is one rank-64
 batched GEMM (``torch.baddbmm``, ``S22 − L21 L21ᵀ`` with the subtraction
 in the GEMM's epilogue, which saves one ``[B, m, m]`` temporary), all in
@@ -35,7 +37,7 @@ import math
 
 import torch
 
-from .tile_chol import chol_inv_tile
+from .tile_chol import chol_inv_tile_into
 
 _PANEL = 64
 _PANEL_MIN_N = 128  # smallest event size the panel path takes on the card
@@ -51,15 +53,15 @@ def chol_panels(a, panel=_PANEL):
     [≤P, ≤P] diagonal tile."""
     n = a.shape[-1]
     batch = a.shape[:-2]
-    S = a.reshape((-1, n, n))
-    L = torch.empty_like(S)
+    S = a.reshape((-1, n, n)).contiguous()  # a copy only of a strided view
+    L = torch.empty(S.shape, dtype=S.dtype, device=S.device)
     minvs = []
     for k0 in range(0, n, panel):
         p = min(panel, n - k0)
         k1 = k0 + p
-        lkk, mkk = chol_inv_tile(S[:, :p, :p].contiguous())
-        L[:, k0:k1, k0:k1] = lkk
-        L[:, k0:k1, k1:] = 0
+        # the tile read in place; L's diagonal block and the zeros right
+        # of it written in place
+        mkk = chol_inv_tile_into(S[:, :p, :p], L[:, k0:k1, k0:])
         if k1 < n:
             l21 = torch.matmul(S[:, p:, :p], mkk.mT)
             L[:, k1:, k0:k1] = l21

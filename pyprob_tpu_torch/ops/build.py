@@ -58,7 +58,7 @@ _SIGNATURES = {
     ),
     "pyprob_log_weight_stats_blocks": (ctypes.c_int64, [_I]),
     "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
-    "pyprob_tile_chol_inv_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
+    "pyprob_tile_chol_inv_f32": (ctypes.c_int, [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P]),
     "pyprob_mvn_quad_logdet_plan": (ctypes.c_int, [_I, _I, _I, _P]),
     "pyprob_mvn_quad_logdet_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _P]),
 }

@@ -80,17 +80,65 @@ def test_tile_plain_nan_from_first_failing_column():
     assert (L[1][~lower] == 0).all() and (M[1][~lower] == 0).all()
 
 
-def test_chol_panels_match_jax_panel_path():
-    # the JAX package's chol_panels at panel 8, N = 24: strips and tile
-    # inverses, 1e-5 on entries <= ~1.5 (f32 round-off of two GEMM orders)
-    a = _spd(2, 24, seed=4)
-    jstrips, jminvs = jax.jit(lambda a: JB.chol_panels(a, panel=8))(jnp.asarray(a))
-    L, minvs = TB.chol_panels(torch.from_numpy(a), panel=8)
-    assert L.shape == (2, 24, 24) and (np.triu(L.numpy(), 1) == 0).all()
-    strips = [L[..., k0:, k0 : k0 + 8] for k0 in range(0, 24, 8)]
+@pytest.mark.parametrize("n, panel", [(24, 8), (18, 8)])
+def test_chol_panels_match_jax_panel_path(n, panel):
+    # the JAX package's chol_panels at panel 8, N = 24 and N = 18 (a last
+    # panel 2 wide, as at N = 130 with panel 64, whose JAX compile alone
+    # takes seconds): strips and tile inverses, 1e-5 on entries <= ~1.5
+    # (f32 round-off of two GEMM orders), and L against numpy float64; the
+    # tiles are read as views of the trailing matrix and each diagonal
+    # block is written into L in place
+    a = _spd(2, n, seed=4)
+    jstrips, jminvs = jax.jit(lambda a: JB.chol_panels(a, panel=panel))(jnp.asarray(a))
+    L, minvs = TB.chol_panels(torch.from_numpy(a), panel=panel)
+    assert L.shape == (2, n, n) and (np.triu(L.numpy(), 1) == 0).all()
+    strips = [L[..., k0:, k0 : k0 + panel] for k0 in range(0, n, panel)]
     assert [tuple(s.shape) for s in strips] == [s.shape for s in jstrips]
+    assert [tuple(m.shape) for m in minvs] == [m.shape for m in jminvs]
     for mine, ref in zip(strips + minvs, list(jstrips) + list(jminvs)):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    ref = np.linalg.cholesky(a.astype(np.float64))
+    np.testing.assert_allclose(L.numpy(), ref, atol=2e-5, rtol=0)
+
+
+def test_tile_on_strided_view_equals_contiguous_copy():
+    # a tile read in place from a larger matrix (row stride 130, batch
+    # stride 130^2, and the 2-D case) gives bit for bit what its copy gives
+    a = torch.from_numpy(_spd(3, 130, seed=12))
+    view = a[:, 66:130, 66:130]
+    assert not view.is_contiguous() and view.stride(-1) == 1
+    for tile in (view, view[1]):
+        L, M = TT.chol_inv_tile(tile)
+        cL, cM = TT.chol_inv_tile(tile.contiguous())
+        assert torch.equal(L, cL) and torch.equal(M, cM) and L.shape == tile.shape
+
+
+def test_tile_into_writes_the_panel_rows_in_place():
+    # L into the first P columns of a view of wider rows, zeros in the
+    # rest; nothing outside the view is touched; M returned contiguous
+    a = torch.from_numpy(_spd(2, 24, seed=13))
+    out = torch.full((2, 24, 24), 7.0)
+    M = TT.chol_inv_tile_into(a[:, 8:16, 8:16], out[:, 8:16, 8:])
+    L, refM = TT.chol_inv_tile(a[:, 8:16, 8:16])
+    assert torch.equal(M, refM) and M.is_contiguous()
+    assert torch.equal(out[:, 8:16, 8:16], L) and (out[:, 8:16, 16:] == 0).all()
+    assert (out[:, :8] == 7).all() and (out[:, 16:] == 7).all() and (out[:, 8:16, :8] == 7).all()
+
+
+def test_tile_wrappers_reject_bad_views():
+    a = torch.from_numpy(_spd(2, 16, seed=14))
+    with pytest.raises(ValueError, match="unit stride"):
+        TT.chol_inv_tile(a.mT[:, :8, :8])  # rows of stride 16
+    with pytest.raises(ValueError, match="unit stride"):
+        TT.chol_inv_tile_into(a.mT[:, :8, :8], torch.empty(2, 8, 8))
+    with pytest.raises(ValueError, match="unit stride"):
+        TT.chol_inv_tile_into(a[:, :8, :8], torch.empty(2, 8, 8).mT)
+    for bad in (torch.empty(2, 8, 7), torch.empty(3, 8, 8), torch.empty(2, 7, 8),
+                torch.empty(2, 8, 8, dtype=torch.float64), torch.empty(16, 8)):
+        with pytest.raises(ValueError, match="l_out"):
+            TT.chol_inv_tile_into(a[:, :8, :8], bad)
+    with pytest.raises(ValueError, match=r"\[B, P, P\]"):
+        TT.chol_inv_tile_into(a[0, :8, :8], torch.empty(8, 8))
 
 
 @pytest.mark.parametrize("n", [130, 200])
@@ -102,6 +150,15 @@ def test_panel_cholesky_matches_float64(n):
     np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(a), atol=2e-5, rtol=0)
     _, minvs = TB.chol_panels(torch.from_numpy(a.astype(np.float32)))
     assert [m.shape[-1] for m in minvs] == [64, 64] + ([2] if n == 130 else [64, 8])
+
+
+def test_panel_cholesky_on_transposed_view():
+    # a covariance whose rows are strided (a transposed view, as a
+    # Fortran-ordered array gives it) factors as its contiguous copy does
+    a = torch.from_numpy(_spd(2, 130, seed=15))
+    view = a.mT
+    assert view.stride(-1) != 1
+    assert torch.equal(TB.panel_cholesky(view), TB.panel_cholesky(view.contiguous()))
 
 
 def test_cholesky_dispatch_on_cpu():
@@ -278,6 +335,31 @@ def test_tile_kernel_matches_plain_on_card():
         for mine, ref in ((L, pL), (M, pM)):
             assert torch.equal(torch.isnan(mine), torch.isnan(ref))
             torch.testing.assert_close(mine, ref, atol=1e-5, rtol=1e-5, equal_nan=True)
+    # the panel loop's entry: tiles read in place from matrices of odd row
+    # width (N = 130: row strides 130 and 66, a last panel of 2; N = 200: a
+    # last panel of 8; N = 161: one of 33, a 64-wide tile's kernel only part
+    # filled), L written into the rows of a wider matrix with zeros past the
+    # diagonal block, one tile indefinite
+    for n, k0, P in ((130, 0, 64), (130, 64, 64), (130, 128, 2), (200, 192, 8), (161, 128, 33)):
+        a = torch.from_numpy(_spd(257, n, seed=n + k0)).cuda()
+        tiles = a[:, k0 : k0 + P, k0 : k0 + P]
+        tiles[3, P // 2, P // 2] = -1.0
+        out = torch.full_like(a, 7.0)
+        before = TT.chol_inv_tile.launches
+        M = TT.chol_inv_tile_into(tiles, out[:, k0 : k0 + P, k0:])
+        torch.cuda.synchronize()
+        assert TT.chol_inv_tile.launches == before + 1
+        pL, pM = TT.chol_inv_tile_plain(tiles)
+        for mine, ref in ((out[:, k0 : k0 + P, k0 : k0 + P], pL), (M, pM)):
+            assert torch.equal(torch.isnan(mine), torch.isnan(ref))
+            torch.testing.assert_close(mine, ref, atol=1e-5, rtol=1e-5, equal_nan=True)
+        assert (out[:, k0 : k0 + P, k0 + P :] == 0).all()
+        assert (out[:, k0 : k0 + P, :k0] == 7).all() and (out[:, k0 + P :] == 7).all()
+        assert (out[:, :k0] == 7).all()
+    # the panel path on a covariance whose rows are strided (a transposed
+    # view): as on its contiguous copy
+    a = torch.from_numpy(_spd(9, 130, seed=16)).cuda()
+    assert torch.equal(TB.panel_cholesky(a.mT), TB.panel_cholesky(a.mT.contiguous()))
 
 
 @pytest.mark.cuda
