@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
    inputs hold x outside [low, high], rows where the 1e-12 clip on
    Phi(beta) - Phi(alpha) is active, -inf logits and non-finite cotangents;
    the four mixture kernels also timed at the rows a training step
-   launches them at (256 and 512; 256 for the truncated ones);
+   launches them at (256 and 512; 256 for the truncated ones), the
+   backwards also checked at K = 17 (one row a warp); then the
+   launch floor: a trivial kernel timed back to back the same way;
 4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
    posterior N(7.25, sqrt(1/1.2));
 5. guided IS: 1,000,000 traces proposed by an untrained LSTM inference
@@ -295,18 +297,19 @@ def reset_launch_counts():
         fn.launches = 0
 
 
-def check_mixture_backward(rows, device, degenerate=False):
+def check_mixture_backward(rows, device, degenerate=False, components=MIXTURE_COMPONENTS):
     """The mixture backward, by its wrapper and through the autograd
     Function, against the plain closed form and against autograd of the
     plain forward, each gradient within 1e-5 + 1e-4 |ref| and NaN where
     the reference is NaN.  ``degenerate``: a -inf logit in rows 1-3 and
-    every logit -inf in row 5.  Returns the inputs, the forward's output,
-    the cotangent and the wrapper's max abs error against the plain
+    every logit -inf in row 5.  ``components``: K (17 puts one row on a
+    warp).  Returns the inputs, the forward's output, the
+    cotangent and the wrapper's max abs error against the plain
     version."""
     import torch
     from pyprob_tpu_torch.ops import kernels as K
 
-    inputs = mixture_inputs(rows, MIXTURE_COMPONENTS, device, seed=rows)
+    inputs = mixture_inputs(rows, components, device, seed=rows)
     if degenerate:
         inputs[3][1:4, 0] = -math.inf
         inputs[3][5, :] = -math.inf
@@ -330,7 +333,7 @@ def check_mixture_backward(rows, device, degenerate=False):
                 check(
                     bool((torch.isnan(mine) == nan).all() and torch.isfinite(mine[~nan]).all())
                     and excess <= 0,
-                    f"mixture backward d{what} at B={rows}: {mine_name} vs {ref_name} "
+                    f"mixture backward d{what} at B={rows}, K={components}: {mine_name} vs {ref_name} "
                     f"exceeds 1e-5 + 1e-4|ref| by {excess}",
                 )
         finite = ~torch.isnan(plain[i])
@@ -364,16 +367,17 @@ def tnorm_inputs(rows, components, device, seed=0):
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
 
 
-def check_tnorm(rows, device, seed=0):
+def check_tnorm(rows, device, seed=0, components=MIXTURE_COMPONENTS):
     """The truncated mixture's forward and backward, by their wrappers and
     through the autograd Function, against the plain versions: forward
     within 1e-5 + 1e-5 |ref| with equal -inf/NaN patterns, each of the six
-    gradients within 1e-5 + 1e-4 |ref| and finite.  Returns the inputs,
-    the forward's output, g and the two max abs errors."""
+    gradients within 1e-5 + 1e-4 |ref| and finite, at ``components``
+    components a row.  Returns the inputs, the forward's output, g and the
+    two max abs errors."""
     import torch
     from pyprob_tpu_torch.ops import kernels as K
 
-    *inputs, g = tnorm_inputs(rows, MIXTURE_COMPONENTS, device, seed)
+    *inputs, g = tnorm_inputs(rows, components, device, seed)
     out = K.mixture_truncated_normal_log_prob(*inputs)
     ref = K.mixture_truncated_normal_log_prob_plain(*inputs)
     for what in (torch.isnan, torch.isneginf, torch.isposinf):
@@ -393,7 +397,7 @@ def check_tnorm(rows, device, seed=0):
             excess = float(((mine - plain[i]).abs() - (1e-5 + 1e-4 * plain[i].abs())).max())
             check(
                 bool(torch.isfinite(mine).all()) and excess <= 0,
-                f"truncated mixture backward d{what} at B={rows}: {name} vs plain "
+                f"truncated mixture backward d{what} at B={rows}, K={components}: {name} vs plain "
                 f"exceeds 1e-5 + 1e-4|ref| by {excess}",
             )
         bwd_err = max(bwd_err, float((wrapper[i] - plain[i]).abs().max()))
@@ -427,6 +431,8 @@ def phase_kernels():
     })
 
     check_mixture_backward(1000, "cuda", degenerate=True)  # ragged last block
+    # K = 17: one row a warp, 15 of its lanes idle
+    check_mixture_backward(256, "cuda", degenerate=True, components=17)
     # the rows a training step launches both directions at (the IC loss
     # scores the head once per sub-batch: at most the arm's batch)
     for n in sorted({arm["batch_size"] for arm in ARMS}):
@@ -457,6 +463,8 @@ def phase_kernels():
     })
 
     check_tnorm(1000, "cuda", seed=1)  # ragged last block
+    check_tnorm(256, "cuda", seed=3, components=17)  # one row a warp
+    check_tnorm(512, "cuda", seed=4)
     # the Marsaglia training step's rows
     n = MARSAGLIA["batch_size"]
     small, small_out, small_g, small_fwd, small_bwd = check_tnorm(n, "cuda", seed=2)
@@ -528,6 +536,19 @@ def phase_kernels():
             "launches_in_phase": counts[row["name"]],
         })
     return rows
+
+
+def phase_launch_floor():
+    """The least device time of one launch at these rows: a trivial kernel
+    (a spin of no cycles, an add to one element) timed back to back by the
+    same ``time_ms`` as the kernels."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    sleep_ms = time_ms(lambda: torch.cuda._sleep(0))
+    add_ms = time_ms(lambda: one.add_(1.0))
+    emit({"phase": "launch_floor", "ms": min(sleep_ms, add_ms), "sleep0_ms": sleep_ms,
+          "add_one_element_ms": add_ms})
 
 
 def check_posterior(post, label):
@@ -1417,6 +1438,7 @@ def main():
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the port computes in full f32")
     phase_build()
     rows = phase_kernels() + phase_linalg_kernels()
+    phase_launch_floor()
     phase_prior_is("cuda", NUM_TRACES)
     model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
     phase_card_vs_cpu(model, 4096)

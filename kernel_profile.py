@@ -5,8 +5,10 @@ each block reads ``clock64()`` at the kernel's section comments: it
 inserts ``counters``' three pieces of text and a ``MARK(n)`` (the cycles
 since the last mark go to phase n) at anchors of the source with
 ``insert``, builds the copy with ``build_copy`` and reads each block's
-cycles back with ``block_cycles`` after a launch.  Needs nvcc and a CUDA
-card.
+cycles back with ``block_cycles`` after a launch.  Where no barrier ends a
+phase, ``MARK_AFTER(n, v)`` reads the clock only once the float ``v`` is
+in a register, so a phase of loads ends when their data has arrived.
+Needs nvcc and a CUDA card.
 """
 
 import ctypes
@@ -45,6 +47,12 @@ def counters(phases, max_blocks):
         f"  unsigned long long cycles[{n}] = {{}};\n"
         "#define MARK(n) do { if (threadIdx.x == 0) { const long long t_ = clock64();"
         " cycles[n] += t_ - t_last; t_last = t_; } } while (0)\n"
+        # the clock read is predicated on a comparison of v, so it cannot
+        # issue before v has arrived
+        "#define MARK_AFTER(n, v) do { if (threadIdx.x == 0) { long long t_;"
+        ' asm volatile("{\\n .reg .pred p;\\n setp.eq.f32 p, %1, 0fFF7FFFFF;\\n'
+        ' @p mov.u64 %0, 0;\\n @!p mov.u64 %0, %%clock64;\\n}" : "=l"(t_) : "f"(v));'
+        " cycles[n] += t_ - t_last; t_last = t_; } } while (0)\n"
     )
     store = (
         f"  if (threadIdx.x == 0 && blockIdx.x < {max_blocks})"
@@ -53,17 +61,19 @@ def counters(phases, max_blocks):
     return declare, start, store
 
 
-def build_copy(name, src):
-    """Build the instrumented ``src`` into ``ops/_build/profile/`` and load
-    it; its entry points take the production kernel's arguments."""
+def build_copy(name, src, instrumented=True):
+    """Build ``src`` into ``ops/_build/profile/`` and load it; its entry
+    points take the production kernel's arguments.  An ``instrumented``
+    copy also gets the readers of its cycles."""
     out = build.BUILD_DIR / "profile"
     out.mkdir(parents=True, exist_ok=True)
     cu, so = out / f"{name}.cu", out / f"{name}.so"
-    cu.write_text(src + _READ)
+    cu.write_text(src + _READ if instrumented else src)
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.read_phase_cycles.argtypes = [ctypes.c_void_p]
-    lib.reset_phase_cycles.argtypes = []
+    if instrumented:
+        lib.read_phase_cycles.argtypes = [ctypes.c_void_p]
+        lib.reset_phase_cycles.argtypes = []
     return lib
 
 

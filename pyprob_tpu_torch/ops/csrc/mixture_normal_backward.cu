@@ -1,9 +1,9 @@
 // Mixture-of-Normals log-density, backward.
 //
-// Replaces the custom VJP of `pyprob_tpu/ops/kernels.py:
-// mixture_normal_log_prob_fused` (`_mn_bwd`, the VJP of
-// `_mixture_normal_ref`), which the IC training loss reaches through the
-// proposal head's mixture.  Per row b and component k, with
+// Replaces the custom VJP of `pyprob_tpu/ops/kernels.py:255`
+// (`_mn_bwd`, the VJP of `_mixture_normal_ref` behind
+// `mixture_normal_log_prob_fused`), which the IC training loss reaches
+// through the proposal head's mixture.  Per row b and component k, with
 //   z_k = (x - mean_k) / sd_k,
 //   t_k = -z_k^2/2 - log sd_k - log(2 pi)/2 + logit_k,
 //   r_k = exp(t_k - out)            (the component's responsibility),
@@ -18,23 +18,35 @@
 // -inf in a finite row gives 0.
 //
 // Bound on an H100: memory.  A row reads 12 + 12K bytes (x, out, g and
-// the three parameter arrays) and writes 12K (+4 for dx); at the serving
-// chunk of B = 2^18, K = 10 that is 67 MB, about 20 us at 3.35 TB/s, for
-// ~25 operations and 2 transcendentals per component.
+// the three parameter arrays) and writes 12K (+4 for dx); at B = 2^18,
+// K = 10 that is 67 MB, about 20 us at 3.35 TB/s, for ~25 operations and
+// 2 transcendentals per component.  At the rows a training step launches
+// it with (256 or 512, K = 10) the bound is under 0.04 us: there a launch
+// costs its latency, not its bytes.
 //
-// Design: one thread per row with the K terms recomputed from the saved
-// inputs and out (nothing of the forward is stored but out).  A block's
-// rows are one contiguous span of each [B, K] array, so the block first
-// copies its spans of means, stddevs and logits into shared memory with
-// coalesced loads, each thread then works on its own row there and
-// overwrites it in place with the three gradients, and the block copies
-// the spans back out with coalesced stores.  Every input byte is read once
-// and every output byte written once; a thread's own row, at a stride of
-// 4K bytes from its neighbour's, never touches device memory directly
-// (a first version that did, reading through L1 and storing row by row,
-// took 7x its bound at B = 2^18, K = 10: stores bypass L1, and each warp
-// store scattered 32 four-byte writes over 40 sectors).  IEEE expf/logf,
-// no fast math.
+// Design: one lane per component.  A row's K components lie on S = min(K,
+// 32) consecutive lanes of a warp, 32 / S rows a warp (three at K = 10, 30
+// of 32 lanes busy); lane j of a row takes components j, j + S, ..., so
+// any K >= 1 works.  Each lane reads its components straight from device
+// memory: a warp's lanes touch consecutive addresses of the row-major
+// [B, K] arrays, so the loads and stores are coalesced as they are, with
+// no staging in shared memory, and a lane issues all its loads before any
+// arithmetic uses them.  The row's scalars x, out and g are one address
+// for the row's lanes (a broadcast: read once per row).  Each component is
+// one short chain; nothing is serial over K below K = 33.  dx is a tree of
+// shuffles down the row's lanes in a fixed order (lane j adds lane j +
+// offset while that lane is the row's, offsets 16, 8, ..., 1), which
+// leaves the row's sum in its lane 0, which writes it: no atomics.  The
+// block halves from 256 threads until the grid covers the card's SMs, so
+// a 256-row launch at K = 10 runs 86 one-warp blocks on as many SMs,
+// where one thread a row made it one block on one SM, its rows staged
+// through shared memory in a loop of dependent loads.  Rows packed on K
+// lanes rather than groups of the next power of two >= K lanes (G = 16 at
+// K = 10), which leave 6 of 16 lanes idle: at 2^18 rows, where the launch
+// is bound by the issue rate of its arithmetic and not by its bytes, the
+// idle lanes cost time (PERF.md).  IEEE division, expf and logf, no fast
+// math: the same rounding per component as the plain version's
+// expressions.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,63 +56,59 @@ namespace {
 
 constexpr float kLogSqrt2Pi = 0.91893853320467274178f;
 constexpr int kMaxThreads = 256;
-constexpr int64_t kDefaultSmem = 48 * 1024;   // without opt-in
-constexpr int64_t kMaxSmem = 227 * 1024;      // a block's most on Hopper
 
-__global__ void mixture_normal_log_prob_backward_kernel(
+__global__ void __launch_bounds__(kMaxThreads) mixture_normal_log_prob_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ means,
     const float* __restrict__ stddevs, const float* __restrict__ logits,
     const float* __restrict__ out, const float* __restrict__ g,
     float* __restrict__ dx, float* __restrict__ dmeans,
     float* __restrict__ dstddevs, float* __restrict__ dlogits, int64_t B,
     int64_t K) {
-  extern __shared__ float tile[];  // [3][blockDim.x * K]: mean, sd, logit
-  const int64_t row0 = blockIdx.x * static_cast<int64_t>(blockDim.x);
-  const int64_t rows = B - row0 < blockDim.x ? B - row0 : blockDim.x;
-  const int64_t n = rows * K;
-  const int64_t span = static_cast<int64_t>(blockDim.x) * K;
-  const int64_t base = row0 * K;
-  float* mu = tile;
-  float* sd = tile + span;
-  float* lg = tile + 2 * span;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    mu[i] = means[base + i];
-    sd[i] = stddevs[base + i];
-    lg[i] = logits[base + i];
-  }
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    const int64_t row = row0 + threadIdx.x;
+  const int S = K < 32 ? static_cast<int>(K) : 32;  // lanes a row
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  const int seg = lane / S;  // the warp's row this lane works on
+  const int j = lane - seg * S;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int64_t row = warp * (32 / S) + seg;
+  const bool live = seg < 32 / S && row < B;
+  float sum_dmean = 0.0f;  // this lane's share of sum_k d mean_k
+  if (live) {
+    // ---- load: the row's scalars, then this lane's components
     const float xv = x[row];
     const float o = out[row];
     const float gv = g[row];
-    const int64_t r = threadIdx.x * K;
-    float sum_dmean = 0.0f;
-    for (int64_t k = r; k < r + K; ++k) {
-      const float sdk = sd[k];
-      const float z = (xv - mu[k]) / sdk;
-      const float t = -0.5f * z * z - logf(sdk) - kLogSqrt2Pi + lg[k];
+    for (int64_t k = row * K + j; k < (row + 1) * K; k += S) {
+      const float mk = means[k];
+      const float sdk = stddevs[k];
+      const float lk = logits[k];
+      // ---- compute
+      const float z = (xv - mk) / sdk;
+      const float t = -0.5f * z * z - logf(sdk) - kLogSqrt2Pi + lk;
       const float gr = gv * expf(t - o);
       const float dm = gr * z / sdk;
-      lg[k] = gr;
-      mu[k] = dm;
-      sd[k] = gr * (z * z - 1.0f) / sdk;
+      const float ds = gr * (z * z - 1.0f) / sdk;
       sum_dmean += dm;
+      // ---- store
+      dlogits[k] = gr;
+      dmeans[k] = dm;
+      dstddevs[k] = ds;
     }
-    if (dx != nullptr) dx[row] = -sum_dmean;
   }
-  __syncthreads();
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    dmeans[base + i] = mu[i];
-    dstddevs[base + i] = sd[i];
-    dlogits[base + i] = lg[i];
+  // ---- the row's sum down its lanes (every lane of the warp takes part)
+#pragma unroll
+  for (int offset = 16; offset > 0; offset /= 2) {
+    if (offset < S) {  // the same for the whole warp
+      const float other = __shfl_down_sync(0xffffffffu, sum_dmean, offset);
+      if (j + offset < S) sum_dmean += other;
+    }
   }
+  if (dx != nullptr && live && j == 0) dx[row] = -sum_dmean;
 }
 
 }  // namespace
 
-// Returns a cudaError_t; cudaErrorInvalidValue when even a block of 32 rows
-// cannot stage its spans (K > 590).
+// Returns a cudaError_t.
 extern "C" int pyprob_mixture_normal_log_prob_backward_f32(
     const float* x, const float* means, const float* stddevs,
     const float* logits, const float* out, const float* g, float* dx,
@@ -108,20 +116,19 @@ extern "C" int pyprob_mixture_normal_log_prob_backward_f32(
     int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t threads = kMaxThreads;
-  while (threads > 32 && 3 * threads * K * 4 > kDefaultSmem) threads -= 32;
-  const int64_t smem = 3 * threads * K * 4;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(mixture_normal_log_prob_backward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t blocks = (B + threads - 1) / threads;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               static_cast<int>(device));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows_per_warp = K < 32 ? 32 / K : 1;
+  const int64_t lanes = (B + rows_per_warp - 1) / rows_per_warp * 32;
+  int threads = kMaxThreads;
+  while (threads > 32 && (lanes + threads - 1) / threads < sms) threads /= 2;
+  const int64_t blocks = (lanes + threads - 1) / threads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   mixture_normal_log_prob_backward_kernel<<<
-      static_cast<unsigned>(blocks), static_cast<unsigned>(threads),
-      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned>(blocks), threads, 0,
+      static_cast<cudaStream_t>(stream)>>>(
       x, means, stddevs, logits, out, g, dx, dmeans, dstddevs, dlogits, B, K);
   return static_cast<int>(cudaGetLastError());
 }

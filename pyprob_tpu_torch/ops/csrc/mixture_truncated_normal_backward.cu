@@ -1,12 +1,13 @@
 // Mixture-of-truncated-Normals log-density, backward.
 //
-// Replaces the custom VJP of `pyprob_tpu/ops/kernels.py:
-// mixture_truncated_normal_log_prob_fused` (`_mt_bwd`: the VJP of
-// `_mixture_tnorm_ref` with a non-finite cotangent taken as 0 and every
-// non-finite gradient set to 0), which the IC training loss reaches through
-// the Uniform prior's proposal head.  Per row b and component k, with the
-// forward's alpha_k, beta_k, xi_k and terms t_k, phi the standard Normal
-// density, Z_k = Phi(beta_k) - Phi(alpha_k) unclipped,
+// Replaces the custom VJP of `pyprob_tpu/ops/kernels.py:275` (`_mt_bwd`:
+// the VJP of `_mixture_tnorm_ref` behind
+// `mixture_truncated_normal_log_prob_fused`, with a non-finite cotangent
+// taken as 0 and every non-finite gradient set to 0), which the IC
+// training loss reaches through the Uniform prior's proposal head.  Per
+// row b and component k, with the forward's alpha_k, beta_k, xi_k and
+// terms t_k, phi the standard Normal density, Z_k = Phi(beta_k) -
+// Phi(alpha_k) unclipped,
 //   r_k = g exp(t_k - out)      (g the cotangent of out[b], 0 if not finite
 //                                or if x lies outside [low, high]),
 //   c_k = 1 / (sd_k Z_k), or 0 where Z_k < 1e-12 (the clip's zero slope):
@@ -22,21 +23,36 @@
 // float32.
 //
 // Bound on an H100: memory.  A row reads 20 + 12K bytes (x, low, high,
-// out, g and the three parameter arrays) and writes 12K + 12; at the
-// serving chunk of B = 2^18, K = 10 that is 71.3 MB, about 21 us at
-// 3.35 TB/s, for ~80 operations per component (two erff, two logf, three
-// expf), about 3 us at the card's float32 rate.
+// out, g and the three parameter arrays) and writes 12K + 12; at B =
+// 2^18, K = 10 that is 71.3 MB, about 21 us at 3.35 TB/s, for ~80
+// operations per component (two erff, two logf, three expf), about 3 us
+// at the card's float32 rate.  At the rows a training step launches it
+// with (256, K = 10) the bound is 0.02 us: there a launch costs its
+// latency, not its bytes.
 //
-// Design: the mixture-of-Normals backward's.  One thread per row recomputes
-// its K terms from the saved inputs and out.  A block's rows are one
-// contiguous span of each [B, K] array, so the block copies its spans of
-// means, stddevs and logits into shared memory with coalesced loads, each
-// thread overwrites its own row there with the three gradients, and the
-// block copies the spans back out with coalesced stores: every input byte
-// is read once and every output byte written once, and a thread's row, at
-// a stride of 4K bytes from its neighbour's, never meets device memory
-// directly (that pattern took 7x its bound in the mixture-of-Normals
-// backward).  IEEE division, erff, expf and logf (no fast math).
+// Design: the mixture-of-Normals backward's.  One lane per component: a
+// row's K components lie on S = min(K, 32) consecutive lanes of a warp,
+// 32 / S rows a warp (three at K = 10, 30 of 32 lanes busy), and lane j
+// of a row takes components j, j + S, ....  Each lane reads its
+// components straight from device memory (a warp's lanes touch
+// consecutive addresses, so the loads and stores are coalesced as they
+// are, with no staging in shared memory) and issues all its loads before
+// any arithmetic uses them; x, low, high, out and g are one address for
+// the row's lanes (a broadcast: read once per row).  Each component is one
+// short chain (the cotangent's filter sits after the loads, so it does not
+// hold them back).  dx, dlow and dhigh are three trees of shuffles down
+// the row's lanes, interleaved, in a fixed order that leaves the row's
+// sums in its lane 0, which writes them: no atomics.  The block halves
+// from 256 threads until the grid covers the card's SMs, so a 256-row
+// launch at K = 10 runs 86 one-warp blocks on as many SMs, where one
+// thread a row made it one block on one SM, its K components a serial
+// chain.  At 2^18 rows the launch is bound by the issue rate of its
+// arithmetic (eight IEEE divisions, each a reciprocal, its refinement and
+// a check with a slow path, two erff, two logf, three expf), not by its
+// bytes; rows packed on K lanes, not on groups of the next power of two
+// >= K with 6 of 16 lanes idle at K = 10, keep every issued lane busy
+// (PERF.md).  IEEE division, erff, expf and logf (no fast math): the same
+// rounding per component as the plain version's expressions.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,8 +65,6 @@ constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 // 1/sqrt 2 as float(1) / float(sqrt 2): the plain version's product
 constexpr float kInvSqrt2 = 1.0f / 1.41421356237309504880f;
 constexpr int kMaxThreads = 256;
-constexpr int64_t kDefaultSmem = 48 * 1024;   // without opt-in
-constexpr int64_t kMaxSmem = 227 * 1024;      // a block's most on Hopper
 
 __device__ __forceinline__ float ndtr(float z) {
   return 0.5f * (1.0f + erff(z * kInvSqrt2));
@@ -60,7 +74,7 @@ __device__ __forceinline__ float finite_or_zero(float v) {
   return isfinite(v) ? v : 0.0f;
 }
 
-__global__ void mixture_truncated_normal_log_prob_backward_kernel(
+__global__ void __launch_bounds__(kMaxThreads) mixture_truncated_normal_log_prob_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ means,
     const float* __restrict__ stddevs, const float* __restrict__ logits,
     const float* __restrict__ low, const float* __restrict__ high,
@@ -69,40 +83,35 @@ __global__ void mixture_truncated_normal_log_prob_backward_kernel(
     float* __restrict__ dstddevs, float* __restrict__ dlogits,
     float* __restrict__ dlow, float* __restrict__ dhigh, int64_t B,
     int64_t K) {
-  extern __shared__ float tile[];  // [3][blockDim.x * K]: mean, sd, logit
-  const int64_t row0 = blockIdx.x * static_cast<int64_t>(blockDim.x);
-  const int64_t rows = B - row0 < blockDim.x ? B - row0 : blockDim.x;
-  const int64_t n = rows * K;
-  const int64_t span = static_cast<int64_t>(blockDim.x) * K;
-  const int64_t base = row0 * K;
-  float* mu = tile;
-  float* sd = tile + span;
-  float* lg = tile + 2 * span;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    mu[i] = means[base + i];
-    sd[i] = stddevs[base + i];
-    lg[i] = logits[base + i];
-  }
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    const int64_t row = row0 + threadIdx.x;
+  const int S = K < 32 ? static_cast<int>(K) : 32;  // lanes a row
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  const int seg = lane / S;  // the warp's row this lane works on
+  const int j = lane - seg * S;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int64_t row = warp * (32 / S) + seg;
+  const bool live = seg < 32 / S && row < B;
+  // this lane's shares of the three per-row sums
+  float sum_dx = 0.0f, sum_dlow = 0.0f, sum_dhigh = 0.0f;
+  if (live) {
+    // ---- load: the row's scalars, then this lane's components
     const float xv = x[row];
     const float lo = low[row];
     const float hi = high[row];
     const float o = out[row];
-    float gv = g[row];
-    if (!isfinite(gv) || !(xv >= lo && xv <= hi)) gv = 0.0f;
-    const int64_t r0 = threadIdx.x * K;
-    float sum_dx = 0.0f, sum_dlow = 0.0f, sum_dhigh = 0.0f;
-    for (int64_t k = r0; k < r0 + K; ++k) {
-      const float sdk = sd[k];
-      const float mk = mu[k];
+    const float graw = g[row];
+    for (int64_t k = row * K + j; k < (row + 1) * K; k += S) {
+      const float mk = means[k];
+      const float sdk = stddevs[k];
+      const float lk = logits[k];
+      // ---- compute
+      const float gv = isfinite(graw) && xv >= lo && xv <= hi ? graw : 0.0f;
       const float alpha = (lo - mk) / sdk;
       const float beta = (hi - mk) / sdk;
       const float zraw = ndtr(beta) - ndtr(alpha);
       const float z = zraw < 1e-12f ? 1e-12f : zraw;
       const float xi = (xv - mk) / sdk;
-      const float t = -0.5f * xi * xi - kLogSqrt2Pi - logf(sdk) - logf(z) + lg[k];
+      const float t = -0.5f * xi * xi - kLogSqrt2Pi - logf(sdk) - logf(z) + lk;
       const float r = gv * expf(t - o);
       const float pa = expf(-0.5f * alpha * alpha) * kInvSqrt2Pi;
       const float pb = expf(-0.5f * beta * beta) * kInvSqrt2Pi;
@@ -113,26 +122,36 @@ __global__ void mixture_truncated_normal_log_prob_backward_kernel(
       sum_dx += rs * xi;
       sum_dlow += r * pa / sz;
       sum_dhigh += r * pb / sz;
-      lg[k] = finite_or_zero(r);
-      mu[k] = finite_or_zero(dm);
-      sd[k] = finite_or_zero(ds);
+      // ---- store
+      dlogits[k] = finite_or_zero(r);
+      dmeans[k] = finite_or_zero(dm);
+      dstddevs[k] = finite_or_zero(ds);
     }
+  }
+  // ---- the row's sums down its lanes (every lane of the warp takes part)
+#pragma unroll
+  for (int offset = 16; offset > 0; offset /= 2) {
+    if (offset < S) {  // the same for the whole warp
+      const float other_dx = __shfl_down_sync(0xffffffffu, sum_dx, offset);
+      const float other_dlow = __shfl_down_sync(0xffffffffu, sum_dlow, offset);
+      const float other_dhigh = __shfl_down_sync(0xffffffffu, sum_dhigh, offset);
+      if (j + offset < S) {
+        sum_dx += other_dx;
+        sum_dlow += other_dlow;
+        sum_dhigh += other_dhigh;
+      }
+    }
+  }
+  if (live && j == 0) {
     if (dx != nullptr) dx[row] = finite_or_zero(-sum_dx);
     if (dlow != nullptr) dlow[row] = finite_or_zero(sum_dlow);
     if (dhigh != nullptr) dhigh[row] = finite_or_zero(-sum_dhigh);
-  }
-  __syncthreads();
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    dmeans[base + i] = mu[i];
-    dstddevs[base + i] = sd[i];
-    dlogits[base + i] = lg[i];
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t; cudaErrorInvalidValue when even a block of 32 rows
-// cannot stage its spans (K > 590).
+// Returns a cudaError_t.
 extern "C" int pyprob_mixture_truncated_normal_log_prob_backward_f32(
     const float* x, const float* means, const float* stddevs,
     const float* logits, const float* low, const float* high,
@@ -141,20 +160,19 @@ extern "C" int pyprob_mixture_truncated_normal_log_prob_backward_f32(
     int64_t K, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t threads = kMaxThreads;
-  while (threads > 32 && 3 * threads * K * 4 > kDefaultSmem) threads -= 32;
-  const int64_t smem = 3 * threads * K * 4;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(mixture_truncated_normal_log_prob_backward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t blocks = (B + threads - 1) / threads;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               static_cast<int>(device));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows_per_warp = K < 32 ? 32 / K : 1;
+  const int64_t lanes = (B + rows_per_warp - 1) / rows_per_warp * 32;
+  int threads = kMaxThreads;
+  while (threads > 32 && (lanes + threads - 1) / threads < sms) threads /= 2;
+  const int64_t blocks = (lanes + threads - 1) / threads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   mixture_truncated_normal_log_prob_backward_kernel<<<
-      static_cast<unsigned>(blocks), static_cast<unsigned>(threads),
-      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned>(blocks), threads, 0,
+      static_cast<cudaStream_t>(stream)>>>(
       x, means, stddevs, logits, low, high, out, g, dx, dmeans, dstddevs,
       dlogits, dlow, dhigh, B, K);
   return static_cast<int>(cudaGetLastError());

@@ -108,21 +108,43 @@ def test_mixture_backward_plain_matches_autograd_and_jax_vjp():
     )[0] is None
 
 
+# the rows a training step launches the backwards at, a ragged block, a
+# serving chunk plus a ragged tail; K from one lane a row to two
+# components a lane
+CARD_ROWS, CARD_COMPONENTS = (256, 512, 1000, 262_144 + 37), (1, 10, 17, 40)
+
+
+def _assert_grads_close(got, ref):
+    """Each gradient within 1e-5 + 1e-4 |ref|, NaN exactly where the
+    reference is NaN."""
+    for mine, r in zip(got, ref):
+        torch.testing.assert_close(mine, r, atol=1e-5, rtol=1e-4, equal_nan=True)
+
+
 @pytest.mark.cuda
 def test_mixture_backward_kernel_matches_plain_on_card():
     _need_card()
-    x, means, stddevs, logits, g = _backward_inputs(262_144 + 37, 10, seed=3)
-    t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in (x, means, stddevs, logits)]
-    before = TK.mixture_normal_log_prob_backward.launches
-    out = TK.mixture_normal_log_prob(*t_in)
-    out.backward(torch.from_numpy(g).cuda())
-    torch.cuda.synchronize()
-    assert TK.mixture_normal_log_prob_backward.launches == before + 1
-    ref = TK.mixture_normal_log_prob_backward_plain(
-        *[t.detach() for t in t_in], out.detach(), torch.from_numpy(g).cuda()
-    )
-    for t, r in zip(t_in, ref):
-        torch.testing.assert_close(t.grad, r, atol=1e-5, rtol=1e-4, equal_nan=True)
+    for B in CARD_ROWS:
+        for K in CARD_COMPONENTS:
+            x, means, stddevs, logits, g = _backward_inputs(B, K, seed=3)
+            g_card = torch.from_numpy(g).cuda()
+            t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in (x, means, stddevs, logits)]
+            before = TK.mixture_normal_log_prob_backward.launches
+            out = TK.mixture_normal_log_prob(*t_in)
+            out.backward(g_card)
+            torch.cuda.synchronize()
+            assert TK.mixture_normal_log_prob_backward.launches == before + 1
+            detached = [t.detach() for t in t_in] + [out.detach(), g_card]
+            ref = TK.mixture_normal_log_prob_backward_plain(*detached)
+            _assert_grads_close([t.grad for t in t_in], ref)
+            # the degenerate row is NaN; a -inf logit in a finite row takes 0
+            assert torch.isnan(t_in[0].grad[5])
+            if K > 1:
+                assert not t_in[3].grad[1:4, 0].any() and not t_in[1].grad[1:4, 0].any()
+            for need_x in (True, False):
+                got = TK.mixture_normal_log_prob_backward(*detached, need_x=need_x)
+                assert (got[0] is None) == (not need_x)
+                _assert_grads_close(got[int(not need_x):], ref[int(not need_x):])
 
 
 def _log_weights(n, seed, frac_neg_inf):
@@ -306,22 +328,174 @@ def test_tnorm_wrapper_rejects_bad_inputs():
         TK.mixture_truncated_normal_log_prob(x, means, stddevs.t().contiguous().t(), logits, low, high)
 
 
+def _lane_plan(B, K):
+    """The backward kernels' launch on an H100: S = min(K, 32) lanes a
+    row, 32 // S rows a warp, threads a block (256 halved while the grid
+    covers fewer than the 132 SMs, down to one warp) and blocks."""
+    S = min(K, 32)
+    lanes = -(-B // (32 // S)) * 32
+    threads = 256
+    while threads > 32 and -(-lanes // threads) < 132:
+        threads //= 2
+    return S, threads, -(-lanes // threads)
+
+
+def _lanes_mirror(B, K, component, n_sums):
+    """The backward kernels' index arithmetic in numpy: lane l of warp w
+    takes row w·(32 // S) + l // S and, as the row's lane j = l mod S,
+    components j, j + S, ...; ``component(rows, ks)`` gives the
+    per-component gradients and the lane's terms of the ``n_sums`` per-row
+    sums, which each lane adds in its order of components; the row's lanes
+    then sum down a tree of shuffles (offsets 16, 8, ..., 1 below S, lane j
+    adding lane j + offset while that lane is the row's), and the row's
+    lane 0 writes the sum.  Returns the [B, K] gradients and the
+    [n_sums, B] sums."""
+    S, threads, blocks = _lane_plan(B, K)
+    assert threads % 32 == 0
+    t = np.arange(blocks * threads)
+    warp, lane = t // 32, t % 32  # a block is whole warps
+    seg = lane // S
+    j = lane - seg * S
+    row = warp * (32 // S) + seg
+    live = (seg < 32 // S) & (row < B)
+    assert np.array_equal(np.unique(row[live]), np.arange(B))
+    grads, written = None, np.zeros((B, K), np.int64)
+    partial = np.zeros((n_sums, t.size), np.float32)
+    for m in range(-(-K // S)):
+        k = j + m * S
+        act = live & (k < K)
+        r, kk = row[act], k[act]
+        values, terms = component(r, kk)
+        if grads is None:
+            grads = [np.zeros((B, K), np.float32) for _ in values]
+        for out, v in zip(grads, values):
+            out[r, kk] = v
+        written[r, kk] += 1
+        partial[:, act] = partial[:, act] + np.stack(terms).astype(np.float32)
+    assert (written == 1).all()  # every component by exactly one lane
+    for offset in (16, 8, 4, 2, 1):
+        if offset < S:
+            # __shfl_down_sync: lane l reads lane l + offset, or its own
+            # value past the warp's end
+            source = np.where(lane + offset < 32, t + offset, t)
+            other = partial[:, source]
+            take = j + offset < S
+            assert (row[source][take] == row[take]).all()  # the row's own lanes
+            partial = np.where(take, partial + other, partial)
+    sums = np.zeros((n_sums, B), np.float32)
+    writer = live & (j == 0)
+    sums[:, row[writer]] = partial[:, writer]
+    return grads, sums
+
+
+def _mirror_inputs(kind, B, K, seed):
+    """Inputs of either backward with the special rows that fit in B rows:
+    a -inf logit (row 0 when K > 1), a degenerate row 3 (every logit
+    -inf); for the truncated mixture also x outside [low, high] (row 1),
+    a NaN and an inf cotangent (rows 2 and 4) and the 1e-12 clip (row 5)."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        x, means, stddevs, logits = _mixture_inputs(B, K, seed=seed)
+        bounds = ()
+    else:
+        x, means, stddevs, logits, low, high = _tnorm_inputs(max(B, 8), K, seed=seed)
+        x, means, stddevs, logits, low, high = (a[:B].copy() for a in (x, means, stddevs, logits, low, high))
+        x[1:2] = high[1:2] + 0.5
+        means[5:6], stddevs[5:6] = high[5:6, None] + 40.0, 1.0
+        bounds = (low, high)
+    if K > 1:
+        logits[0, -1] = -np.inf
+    logits[3:4] = -np.inf
+    g = rng.normal(size=B).astype(np.float32)
+    if kind == "tnorm":
+        g[2:3], g[4:5] = np.nan, np.inf
+    return [torch.from_numpy(a) for a in (x, means, stddevs, logits) + bounds], torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("kind", ["normal", "tnorm"])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("K", [1, 3, 10, 16, 17, 40])
+def test_backward_lane_mirror_matches_plain(kind, B, K):
+    """The CUDA backwards' lane mapping and shuffle order, mirrored in
+    numpy, against the plain closed forms: every gradient within 1e-5 +
+    1e-4 |ref|, NaN where the plain version is NaN (the degenerate row of
+    the Normal mixture), finite throughout for the truncated one."""
+    inputs, g = _mirror_inputs(kind, B, K, seed=B * 100 + K)
+    if kind == "normal":
+        out = TK.mixture_normal_log_prob_plain(*inputs)
+        plain = TK.mixture_normal_log_prob_backward_plain(*inputs, out, g)
+        (dmeans, dstddevs, dlogits) = plain[1], plain[2], plain[3]
+
+        def component(r, k):
+            # the per-component values as the kernel takes them, from the
+            # plain version's own [B, K] arithmetic
+            dm = dmeans.numpy()[r, k]
+            return (dm, dstddevs.numpy()[r, k], dlogits.numpy()[r, k]), (dm,)
+
+        grads, sums = _lanes_mirror(B, K, component, 1)
+        mirror = (-sums[0],) + tuple(grads)
+    else:
+        out = TK.mixture_truncated_normal_log_prob_plain(*inputs)
+        plain = TK.mixture_truncated_normal_log_prob_backward_plain(*inputs, out, g)
+        x, means, stddevs, logits, low, high = inputs
+        t, xi, alpha, beta, zraw, inside = TK._tnorm_terms(*inputs)
+        gz = torch.where(torch.isfinite(g) & inside, g, torch.zeros_like(g))
+        r_all = gz[:, None] * torch.exp(t - out[:, None])
+        pa = torch.exp(-0.5 * alpha * alpha) * TK._INV_SQRT_2PI
+        pb = torch.exp(-0.5 * beta * beta) * TK._INV_SQRT_2PI
+        sz = torch.where(zraw >= 1e-12, stddevs * zraw, torch.full_like(zraw, np.inf))
+        rs = r_all / stddevs
+        dm_all = rs * xi - r_all * (pa - pb) / sz
+        ds_all = rs * (xi * xi - 1.0) - r_all * (alpha * pa - beta * pb) / sz
+        terms = [a.numpy() for a in (rs * xi, r_all * pa / sz, r_all * pb / sz)]
+        elems = [np.where(np.isfinite(a), a, 0).astype(np.float32) for a in (dm_all.numpy(), ds_all.numpy(), r_all.numpy())]
+
+        def component(r, k):
+            return tuple(a[r, k] for a in elems), tuple(a[r, k] for a in terms)
+
+        grads, sums = _lanes_mirror(B, K, component, 3)
+        finite = [np.where(np.isfinite(a), a, 0).astype(np.float32) for a in (-sums[0], sums[1], -sums[2])]
+        mirror = (finite[0],) + tuple(grads) + tuple(finite[1:])
+        assert all(np.isfinite(a).all() for a in mirror)
+    for mine, ref in zip(mirror, plain):
+        ref = ref.numpy()
+        np.testing.assert_array_equal(np.isnan(mine), np.isnan(ref))
+        ok = ~np.isnan(ref)
+        assert (np.abs(mine[ok] - ref[ok]) <= 1e-5 + 1e-4 * np.abs(ref[ok])).all()
+    if kind == "normal" and B > 3:
+        assert np.isnan(mirror[0][3])  # the degenerate row's dx
+
+
 @pytest.mark.cuda
 def test_tnorm_kernels_match_plain_on_card():
     _need_card()
-    arrays = _tnorm_backward_inputs(262_144 + 37, 10, seed=5)
-    g = torch.from_numpy(arrays[-1]).cuda()
-    t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays[:-1]]
-    before = (TK.mixture_truncated_normal_log_prob.launches,
-              TK.mixture_truncated_normal_log_prob_backward.launches)
-    out = TK.mixture_truncated_normal_log_prob(*t_in)
-    out.backward(g)
-    torch.cuda.synchronize()
-    assert (TK.mixture_truncated_normal_log_prob.launches,
-            TK.mixture_truncated_normal_log_prob_backward.launches) == (before[0] + 1, before[1] + 1)
-    plain_in = [t.detach() for t in t_in]
-    ref = TK.mixture_truncated_normal_log_prob_plain(*plain_in)
-    torch.testing.assert_close(out.detach(), ref, atol=1e-5, rtol=1e-5)
-    grads = TK.mixture_truncated_normal_log_prob_backward_plain(*plain_in, ref, g)
-    for t, r in zip(t_in, grads):
-        torch.testing.assert_close(t.grad, r, atol=1e-5, rtol=1e-4)
+    for B in CARD_ROWS:
+        for K in CARD_COMPONENTS:
+            arrays = _tnorm_backward_inputs(B, K, seed=5)
+            g = torch.from_numpy(arrays[-1]).cuda()
+            t_in = [torch.from_numpy(a).cuda().requires_grad_(True) for a in arrays[:-1]]
+            before = (TK.mixture_truncated_normal_log_prob.launches,
+                      TK.mixture_truncated_normal_log_prob_backward.launches)
+            out = TK.mixture_truncated_normal_log_prob(*t_in)
+            out.backward(g)
+            torch.cuda.synchronize()
+            assert (TK.mixture_truncated_normal_log_prob.launches,
+                    TK.mixture_truncated_normal_log_prob_backward.launches) == (before[0] + 1, before[1] + 1)
+            plain_in = [t.detach() for t in t_in]
+            ref = TK.mixture_truncated_normal_log_prob_plain(*plain_in)
+            torch.testing.assert_close(out.detach(), ref, atol=1e-5, rtol=1e-5)
+            grads = TK.mixture_truncated_normal_log_prob_backward_plain(*plain_in, ref, g)
+            for t, r in zip(t_in, grads):
+                torch.testing.assert_close(t.grad, r, atol=1e-5, rtol=1e-4)
+            # rows outside the bounds, the degenerate row, non-finite g: 0
+            assert not any(t_in[i].grad[[2, 5, 7, 8, 9]].any() for i in (0, 1, 4, 5))
+            for need_x in (True, False):
+                for need_bounds in (True, False):
+                    got = TK.mixture_truncated_normal_log_prob_backward(
+                        *plain_in, ref, g, need_x=need_x, need_bounds=need_bounds
+                    )
+                    asked = (need_x, True, True, True, need_bounds, need_bounds)
+                    for mine, r, wanted in zip(got, grads, asked):
+                        assert (mine is None) == (not wanted)
+                        if wanted:
+                            torch.testing.assert_close(mine, r, atol=1e-5, rtol=1e-4)
