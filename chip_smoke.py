@@ -20,8 +20,12 @@ Phases, each printing one JSON line:
    Phi(beta) - Phi(alpha) is active, -inf logits and non-finite cotangents;
    the four mixture kernels also timed at the rows a training step
    launches them at (256 and 512; 256 for the truncated ones), the
-   backwards also checked at K = 17 (one row a warp); then the
-   launch floor: a trivial kernel timed back to back the same way;
+   backwards also checked at K = 17 (one row a warp); both forwards also
+   held against their plain versions at 256, 512, 1,000 and 2^18 rows and
+   at K = 17 and 40, with two +inf logits (+inf), a NaN logit, rows of
+   -inf logits and, for the truncated one, x outside [low, high], NaN x
+   and the 1e-12 clip; then the launch floor: a trivial kernel timed back
+   to back the same way;
 4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
    posterior N(7.25, sqrt(1/1.2));
 5. guided IS: 1,000,000 traces proposed by an untrained LSTM inference
@@ -404,6 +408,56 @@ def check_tnorm(rows, device, seed=0, components=MIXTURE_COMPONENTS):
     return inputs, out, g, fwd_err, bwd_err
 
 
+def set_special_rows(inputs):
+    """Rows 0-3 and 7 of either forward's inputs (and rows 4-6 of the
+    truncated mixture's six): two +inf logits (one at K = 1), a NaN logit,
+    every logit -inf, one -inf logit, and a NaN logit among -inf ones
+    (NaN), x inside [low, high] in those five rows; x above high, NaN x,
+    and every component far beyond high (the 1e-12 clip)."""
+    x, means, stddevs, logits = inputs[:4]
+    logits[0, :2] = math.inf
+    logits[1, -1] = math.nan
+    logits[2] = -math.inf
+    logits[3, 0] = -math.inf
+    logits[7] = -math.inf
+    logits[7, -1] = math.nan
+    if len(inputs) == 6:
+        low, high = inputs[4:]
+        x[:4] = (low[:4] + high[:4]) / 2
+        x[7] = (low[7] + high[7]) / 2
+        x[4] = high[4] + 0.5
+        x[5] = math.nan
+        means[6], stddevs[6] = high[6] + 40.0, 1.0
+
+
+def check_forwards(rows, components, device="cuda", seed=0):
+    """Both mixture forwards by their wrappers against their plain versions
+    at ``rows`` x ``components`` with the special rows: NaN, +inf and -inf
+    exactly where the plain version has them (two +inf logits give +inf),
+    finite values within 1e-5 (kernel 1) and 1e-5 + 1e-5 |ref| (kernel 2).
+    Returns the two max abs errors over the finite values."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    errs = []
+    for name, inputs, rtol in (
+        ("mixture_normal_log_prob", mixture_inputs(rows, components, device, seed), 0.0),
+        ("mixture_truncated_normal_log_prob", tnorm_inputs(rows, components, device, seed)[:6], 1e-5),
+    ):
+        set_special_rows(inputs)
+        out = getattr(K, name)(*inputs)
+        ref = getattr(K, name + "_plain")(*inputs)
+        where = f"{name} at B={rows}, K={components}"
+        for what in (torch.isnan, torch.isposinf, torch.isneginf):
+            check(bool((what(out) == what(ref)).all()), f"{where}: {what.__name__} pattern")
+        check(float(out[0]) == math.inf, f"{where}: two +inf logits give {float(out[0])}")
+        finite = torch.isfinite(ref)
+        excess = float(((out - ref).abs() - (1e-5 + rtol * ref.abs()))[finite].max())
+        check(excess <= 0, f"{where}: exceeds 1e-5 + {rtol}|ref| by {excess}")
+        errs.append(float((out - ref).abs()[finite].max()))
+    return errs
+
+
 def phase_kernels():
     import torch
     from pyprob_tpu_torch.ops import kernels as K
@@ -411,6 +465,12 @@ def phase_kernels():
     rows = []
 
     B, Kc = MIXTURE_ROWS, MIXTURE_COMPONENTS
+    # both forwards with the special rows: the training rows, a ragged
+    # block, a serving chunk; K = 17 (one row a warp) and 40 (two
+    # components on some lanes)
+    checked = [(n, Kc) for n in (256, 512, 1000, B)] + [(1000, 17), (256, 40)]
+    emit({"phase": "forward_checks", "max_abs_err": {
+        f"{n}x{k}": check_forwards(n, k, seed=n + k) for n, k in checked}})
     inputs = mixture_inputs(B, Kc, "cuda")
     out = K.mixture_normal_log_prob(*inputs)
     ref = K.mixture_normal_log_prob_plain(*inputs)

@@ -61,15 +61,17 @@ def counters(phases, max_blocks):
     return declare, start, store
 
 
-def build_copy(name, src, instrumented=True):
+def build_copy(name, src, instrumented=True, include=build.SOURCE_DIR):
     """Build ``src`` into ``ops/_build/profile/`` and load it; its entry
-    points take the production kernel's arguments.  An ``instrumented``
-    copy also gets the readers of its cycles."""
+    points take the production kernel's arguments, and it includes the
+    headers of the source directory ``include``.  An ``instrumented`` copy
+    also gets the readers of its cycles."""
     out = build.BUILD_DIR / "profile"
     out.mkdir(parents=True, exist_ok=True)
     cu, so = out / f"{name}.cu", out / f"{name}.so"
     cu.write_text(src + _READ if instrumented else src)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)], check=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(include), "-shared", "-o", str(so), str(cu)],
+                   check=True)
     lib = ctypes.CDLL(str(so))
     if instrumented:
         lib.read_phase_cycles.argtypes = [ctypes.c_void_p]
@@ -92,6 +94,15 @@ def block_cycles(lib, launch, phases, max_blocks):
         raise RuntimeError("reading the phase cycles failed")
     blocks = [cycles[b * n : (b + 1) * n] for b in range(max_blocks)]
     return [c for c in blocks if any(c)]
+
+
+def launcher(entry, args):
+    """A call of a built copy's C entry that raises on a launch error."""
+    def launch():
+        err = entry(*args)
+        if err != 0:
+            raise RuntimeError(f"launch failed with error {err}")
+    return launch
 
 
 def shares(blocks, phases):

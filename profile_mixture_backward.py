@@ -27,7 +27,7 @@ import subprocess
 import torch
 
 from chip_smoke import mixture_inputs, time_ms, tnorm_inputs
-from kernel_profile import block_cycles, build_copy, counters, insert, shares
+from kernel_profile import block_cycles, build_copy, counters, insert, launcher, shares
 from pyprob_tpu_torch.ops import build
 from pyprob_tpu_torch.ops import kernels as K
 
@@ -82,9 +82,9 @@ def instrumented_source(name, src):
     return insert(src, last_store, "  MARK(2);\n" + store, before=False)
 
 
-def load(tag, name, src, instrumented):
+def load(tag, name, src, instrumented, directory):
     lib = build_copy(f"{tag}_{name}{'_phases' if instrumented else ''}",
-                     instrumented_source(name, src) if instrumented else src, instrumented)
+                     instrumented_source(name, src) if instrumented else src, instrumented, directory)
     entry = getattr(lib, ENTRY[name])
     entry.restype, entry.argtypes = build._SIGNATURES[ENTRY[name]]
     return lib, entry
@@ -109,14 +109,6 @@ def arguments(name, B, Kc):
                                                  torch.cuda.current_stream().cuda_stream], ins + outs
 
 
-def launcher(entry, args):
-    def launch():
-        err = entry(*args)
-        if err != 0:
-            raise RuntimeError(f"launch failed with error {err}")
-    return launch
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="a directory holding an earlier tree's kernel sources")
@@ -131,7 +123,7 @@ def main():
         libs = {}
         for tag, directory in versions.items():
             src = open(f"{directory}/{file}").read()
-            libs[tag] = (load(tag, name, src, False), load(tag, name, src, True))
+            libs[tag] = (load(tag, name, src, False, directory), load(tag, name, src, True, directory))
         for shape in opts.shapes:
             B, Kc = map(int, shape.split("x"))
             args, keep = arguments(name, B, Kc)
@@ -148,7 +140,6 @@ def main():
                     "ms": ms[tag], "blocks": len(blocks), "block_kcycles": total / 1e3, "share": share,
                 }), flush=True)
             del keep
-
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ SOURCES = (
     "tile_chol.cu",
     "mvn_quad_logdet.cu",
 )
+HEADERS = ("mixture_lanes.cuh",)  # included by sources; part of the key
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -79,7 +80,7 @@ def nvcc_path():
 
 def _source_key():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((SOURCE_DIR / name).read_bytes())
     return h.hexdigest()[:16]

@@ -52,10 +52,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mixture_lanes.cuh"
+
 namespace {
 
 constexpr float kLogSqrt2Pi = 0.91893853320467274178f;
-constexpr int kMaxThreads = 256;
+using mixture_lanes::kMaxThreads;
 
 __global__ void __launch_bounds__(kMaxThreads) mixture_normal_log_prob_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ means,
@@ -120,10 +122,8 @@ extern "C" int pyprob_mixture_normal_log_prob_backward_f32(
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows_per_warp = K < 32 ? 32 / K : 1;
-  const int64_t lanes = (B + rows_per_warp - 1) / rows_per_warp * 32;
-  int threads = kMaxThreads;
-  while (threads > 32 && (lanes + threads - 1) / threads < sms) threads /= 2;
+  const int64_t lanes = mixture_lanes::lane_threads(B, K);
+  const int threads = mixture_lanes::block_threads(lanes, sms);
   const int64_t blocks = (lanes + threads - 1) / threads;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   mixture_normal_log_prob_backward_kernel<<<

@@ -63,11 +63,16 @@ def _raise_on_error(name, err):
 # ---------------------------------------------------------------------------
 
 
-def mixture_normal_log_prob_plain(x, means, stddevs, logits):
-    """Plain PyTorch version (``pyprob_tpu`` ``_mixture_normal_ref``)."""
+def _normal_terms(x, means, stddevs, logits):
+    """The [B, K] terms −z²/2 − log σ − log √(2π) + logit of the mixture."""
     z = (x[:, None] - means) / stddevs
     comp = -0.5 * z * z - torch.log(stddevs) - _LOG_SQRT_2PI
-    return torch.logsumexp(comp + logits, dim=-1)
+    return comp + logits
+
+
+def mixture_normal_log_prob_plain(x, means, stddevs, logits):
+    """Plain PyTorch version (``pyprob_tpu`` ``_mixture_normal_ref``)."""
+    return torch.logsumexp(_normal_terms(x, means, stddevs, logits), dim=-1)
 
 
 def mixture_normal_log_prob(x, means, stddevs, logits):

@@ -190,14 +190,22 @@ def _need_card():
 
 @pytest.mark.cuda
 def test_mixture_kernel_matches_plain_on_card():
+    """Both forwards against their plain versions at every card shape, with
+    the special rows of ``_forward_inputs``: NaN, +inf and -inf where the
+    plain version has them (two +inf logits give +inf), finite values
+    within 1e-5 (kernel 1) and 1e-5 + 1e-5 |ref| (kernel 2)."""
     _need_card()
-    inputs = [torch.from_numpy(a).cuda() for a in _mixture_inputs(262_144 + 37, 10)]
-    before = TK.mixture_normal_log_prob.launches
-    out = TK.mixture_normal_log_prob(*inputs)
-    torch.cuda.synchronize()
-    assert TK.mixture_normal_log_prob.launches == before + 1
-    ref = TK.mixture_normal_log_prob_plain(*inputs)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    for kind, (wrapper, plain, rtol) in FORWARDS.items():
+        for B in CARD_ROWS:
+            for K in CARD_COMPONENTS:
+                inputs = [torch.from_numpy(a).cuda() for a in _forward_inputs(kind, B, K, seed=B + K)]
+                before = wrapper.launches
+                out = wrapper(*inputs)
+                torch.cuda.synchronize()
+                assert wrapper.launches == before + 1
+                ref = plain(*inputs)
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=rtol, equal_nan=True)
+                assert out[0] == np.inf and torch.isnan(out[1]) and torch.isnan(out[7])
 
 
 @pytest.mark.cuda
@@ -499,3 +507,187 @@ def test_tnorm_kernels_match_plain_on_card():
                         assert (mine is None) == (not wanted)
                         if wanted:
                             torch.testing.assert_close(mine, r, atol=1e-5, rtol=1e-4)
+
+
+FORWARDS = {
+    "normal": (TK.mixture_normal_log_prob, TK.mixture_normal_log_prob_plain, 0.0),
+    "tnorm": (TK.mixture_truncated_normal_log_prob, TK.mixture_truncated_normal_log_prob_plain, 1e-5),
+}
+
+
+def _forward_inputs(kind, B, K, seed):
+    """Inputs of either forward (numpy) with the special rows that fit in B
+    rows: two +inf logits in row 0 (one at K = 1), a NaN logit in row 1,
+    every logit -inf in row 2, a -inf logit in row 3, a NaN logit among
+    -inf ones in row 7; for the truncated mixture x inside [low, high] in
+    those rows, above high in row 4, NaN in row 5, and the 1e-12 clip in
+    row 6."""
+    if kind == "normal":
+        arrays = list(_mixture_inputs(B, K, seed=seed))
+    else:
+        arrays = [a[:B].copy() for a in _tnorm_inputs(max(B, 8), K, seed=seed)]
+        x, means, stddevs, _, low, high = arrays
+        x[:4] = (low[:4] + high[:4]) / 2
+        x[7:8] = (low[7:8] + high[7:8]) / 2
+        x[4:5] = high[4:5] + 0.5
+        x[5:6] = np.nan
+        means[6:7], stddevs[6:7] = high[6:7, None] + 40.0, 1.0
+    logits = arrays[3]
+    logits[:1, :2] = np.inf
+    logits[1:2, -1] = np.nan
+    logits[2:3] = -np.inf
+    logits[3:4, 0] = -np.inf
+    logits[7:8] = -np.inf
+    logits[7:8, -1] = np.nan
+    return arrays
+
+
+def _fma32(a, b, c):
+    """fmaf in numpy: a·b + c for float32 arrays, rounded once to float32
+    (the product is exact in float64)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def _forward_lanes_mirror(terms, inside=None):
+    """The CUDA forwards' lane mapping (``mixture_lanes.cuh``) in numpy, in
+    float32: lane l of warp w takes row w·(32 // S) + l // S and, as the
+    row's lane j = l mod S, the [B, K] ``terms`` j, j + S, ..., one chunk
+    of S components at a time.  For each chunk: the max up to each lane's
+    term, a scan up the row's lanes (offsets 1, 2, ..., 16 below S, lane j
+    taking lane j − offset while j >= offset, NaN propagated) that starts
+    from the row's running max m; the max before the lane's term (lane j −
+    1's, or m on lane 0); the lane's exp, exp(q − t) where t > q (sent
+    negated), else exp(t − q), 0 for a −inf term; the row's lanes read the
+    chunk's exps from its lanes 0, 1, ... in order and fold them into s
+    (an fma s·e + 1 where the sign says t > q, else s + e); m becomes the
+    last lane's max.  The row's lane 0 writes m + log s, m where m is ±inf
+    or NaN, or −inf where ``inside`` is False.  Returns the [B] outputs and
+    each row's m."""
+    B, K = terms.shape
+    S, threads, blocks = _lane_plan(B, K)
+    t_ = np.arange(blocks * threads)
+    warp, lane = t_ // 32, t_ % 32  # a block is whole warps
+    seg = lane // S
+    j = lane - seg * S
+    row = warp * (32 // S) + seg
+    live = (seg < 32 // S) & (row < B)
+    assert np.array_equal(np.unique(row[live]), np.arange(B))
+    m = np.full(t_.size, -np.inf, np.float32)
+    s = np.zeros(t_.size, np.float32)
+    for c in range(0, K, S):
+        n = min(S, K - c)
+        have = live & (c + j < K)
+        t = np.where(have, terms[np.where(have, row, 0), np.where(have, c + j, 0)], -np.inf)
+        t = t.astype(np.float32)
+        v = np.where(j == 0, np.maximum(m, t), t)
+        for offset in (1, 2, 4, 8, 16):
+            if offset < S:
+                # __shfl_up_sync: lane l reads lane l - offset, or its own
+                # value below the warp's lane 0
+                source = np.where(lane >= offset, t_ - offset, t_)
+                take = j >= offset
+                assert (row[source][take & live] == row[take & live]).all()
+                v = np.where(take, np.maximum(v, v[source]), v)
+        q = np.where(j == 0, m, v[np.where(lane >= 1, t_ - 1, t_)])
+        up = t > q
+        e = np.exp(np.where(up, q - t, t - q))
+        e = np.where(t == -np.inf, np.float32(0), e)
+        sent = np.where(up, -e, e)
+        for i in range(n):
+            u = sent[warp * 32 + (lane - j + i) % 32]  # __shfl_sync wraps in the warp
+            s = np.where(np.signbit(u), _fma32(s, -u, 1.0), s + u)
+        m = v[warp * 32 + (lane - j + n - 1) % 32]
+    writer = live & (j == 0)
+    value = np.where(np.isfinite(m), m + np.log(s), m)
+    if inside is not None:
+        value = np.where(inside[np.where(live, row, 0)], value, -np.inf)
+    out, row_max = np.zeros(B, np.float32), np.zeros(B, np.float32)
+    out[row[writer]], row_max[row[writer]] = value[writer], m[writer]
+    return out, row_max
+
+
+def _forward_rows_mirror(terms, inside=None):
+    """The forwards' one-thread-a-row kernels (from ``kThreadRowsFrom``
+    rows on) in numpy, in float32: each row folds its terms in order into
+    a running max m and s = sum exp(term - m): where t > m, s·exp(m − t) +
+    1 (one fma) and m = t; else, unless t is -inf, s + exp(0) where t == m
+    (two +inf terms) and s + exp(t − m) otherwise; it writes (m, or 0 where
+    m is -inf) + log s, or -inf where ``inside`` is False."""
+    B, K = terms.shape
+    m = np.full(B, -np.inf, np.float32)
+    s = np.zeros(B, np.float32)
+    for k in range(K):
+        t = terms[:, k]
+        up = t > m
+        added = s + np.exp(np.where(t == m, np.float32(0), t - m))
+        s = np.where(up, _fma32(s, np.exp(m - t), 1.0), np.where(t != -np.inf, added, s))
+        m = np.where(up, t, m)
+    out = np.where(m == -np.inf, np.float32(0), m) + np.log(s)
+    return out if inside is None else np.where(inside, out, -np.inf).astype(np.float32)
+
+
+_JAX_FORWARDS = {"normal": jax.jit(JK._mixture_normal_ref), "tnorm": jax.jit(JK._mixture_tnorm_ref)}
+
+
+def _jax_forward(kind, arrays, rows=37, components=40):
+    """The JAX reference on ``arrays`` padded to [rows, components], so that
+    one compile serves every case: the added components have logit -inf,
+    so they add exp(-inf) = 0 to a row's sum and never set its max (their
+    terms are NaN only in a row whose x is NaN, which is NaN or outside
+    already); the added rows are dropped."""
+    B, K = arrays[1].shape
+    padded = []
+    for a in arrays:
+        p = np.full((rows, components) if a.ndim == 2 else (rows,), 1.0, np.float32)
+        p[(slice(B), slice(K))[: a.ndim]] = a
+        padded.append(p)
+    padded[3][:, K:] = -np.inf
+    return np.asarray(_JAX_FORWARDS[kind](*[jnp.asarray(a) for a in padded]))[:B]
+
+
+@pytest.mark.parametrize("mapping", ["lanes", "rows"])
+@pytest.mark.parametrize("kind", ["normal", "tnorm"])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("K", [1, 3, 10, 16, 17, 40])
+def test_forward_lane_mirror_matches_plain(kind, B, K, mapping):
+    """The CUDA forwards' two mappings, mirrored in numpy on the plain
+    version's own terms (the lanes with their scan and shuffle order; one
+    thread a row with its online fold), against the plain version and the
+    JAX reference: NaN, +inf and -inf exactly where they have them (two
+    +inf logits give +inf; a NaN logit NaN, also among -inf ones), finite
+    values within 1e-5 (kernel 1) and 1e-5 + 1e-5 |ref| (kernel 2); the
+    max the row's lanes end with is the row's max with NaN propagated; and
+    a finite row's output on the lanes is bit for bit that of one thread a
+    row."""
+    arrays = _forward_inputs(kind, B, K, seed=B * 100 + K)
+    inputs = [torch.from_numpy(a) for a in arrays]
+    _, plain, rtol = FORWARDS[kind]
+    if kind == "normal":
+        terms, inside = TK._normal_terms(*inputs), None
+    else:
+        terms, _, _, _, _, inside = TK._tnorm_terms(*inputs)
+        inside = inside.numpy()
+    terms = terms.numpy()
+    assert terms.dtype == np.float32
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        rows = _forward_rows_mirror(terms, inside)
+        if mapping == "lanes":
+            out, row_max = _forward_lanes_mirror(terms, inside)
+            np.testing.assert_array_equal(row_max, terms.max(axis=1))
+            # a finite row comes out of the lanes bit for bit as one thread
+            # a row folds it
+            finite = np.isfinite(out)
+            np.testing.assert_array_equal(out[finite], rows[finite])
+        else:
+            out = rows
+    assert out.dtype == np.float32
+    refs = (plain(*inputs).numpy(), _jax_forward(kind, arrays))
+    for ref in refs:
+        for pattern in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(pattern(out), pattern(ref))
+        finite = np.isfinite(ref)
+        assert (np.abs(out[finite] - ref[finite]) <= 1e-5 + rtol * np.abs(ref[finite])).all()
+    assert out[0] == np.inf  # two +inf terms: +inf, not exp(inf - inf) = NaN
+    if B > 7:
+        # a NaN term gives NaN, also among -inf ones
+        assert np.isnan(out[1]) and out[2] == -np.inf and np.isnan(out[7])
