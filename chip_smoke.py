@@ -24,8 +24,13 @@ Phases, each printing one JSON line:
    held against their plain versions at 256, 512, 1,000 and 2^18 rows and
    at K = 17 and 40, with two +inf logits (+inf), a NaN logit, rows of
    -inf logits and, for the truncated one, x outside [low, high], NaN x
-   and the 1e-12 clip; then the launch floor: a trivial kernel timed back
-   to back the same way;
+   and the 1e-12 clip; kernel 3 (log_weight_stats) on its special inputs
+   (a NaN among finite and among -inf weights, +inf alone and among finite
+   ones, every weight -inf) against the reference's values and the plain
+   version's, and at N in {1, 3, 4, 5, 4,097, 8,192, 32,768, 10^6 + 3},
+   aligned and as a [1:] view (an unaligned head), against float64 and
+   the plain version, two calls bit for bit equal; then the launch floor:
+   a trivial kernel timed back to back the same way;
 4. prior IS: 1,000,000 traces of GaussianUnknownMean against the analytic
    posterior N(7.25, sqrt(1/1.2));
 5. guided IS: 1,000,000 traces proposed by an untrained LSTM inference
@@ -88,7 +93,9 @@ Phases, each printing one JSON line:
     kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
     for three of them), against numpy float64.
 
-Then the main path's launches by phase, the ``{"kernels": [...]}`` line,
+Then the main path's launches by phase (kernel 3's also by N), kernel 3
+timed at every N the path launched it at with the sum over its launches of
+time minus bound, the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failed check
 raises and the script exits non-zero without that line.
@@ -108,6 +115,13 @@ POSTERIOR_MEAN, POSTERIOR_STDDEV = 7.25, math.sqrt(1.0 / 1.2)
 NUM_TRACES = 1_000_000
 MIXTURE_ROWS, MIXTURE_COMPONENTS = 1 << 18, 10  # one chunk of the path
 STATS_N = 1_000_000
+# kernel 3's checked sizes: the one 128-thread block with data in warp 0
+# only (1-5) and in several warps (256, 512 and 2,048, the training
+# phases' N); 2,054, the last N of that block as a [1:] view and the first
+# of the 512-thread grid aligned; grids of one, several and 123 blocks;
+# and 2^22 + 3, past the scratch's 264 blocks on an H100, where the
+# blocks stride over the tiles
+STATS_SIZES = (1, 3, 4, 5, 256, 512, 2048, 2054, 4097, 8192, 32768, STATS_N + 3, 2**22 + 3)
 TRAIN_ROWS = 512  # the lstm512 arm's batch, where the backward is checked too
 
 # bench.py's two arms and its training recipe (bench.py:46-48, 64-134)
@@ -281,6 +295,116 @@ def stats_inputs(n, device, seed=1):
     return lw, torch.tensor(lw, device=device)
 
 
+def stats_cost(n):
+    # n weights in, 3 floats out; ~6 operations a weight (max, sub, exp, adds)
+    return 4 * n + 12, 6 * n
+
+
+def special_stats_vectors():
+    """The special inputs of kernel 3 and the (m, s1, s2) the reference
+    (``_log_weight_stats_ref``) gives, with the port's one exception: every
+    weight -inf gives (-inf, 0, 0)."""
+    nan, inf = math.nan, math.inf
+    rng = np.random.default_rng(7)
+    among_finite = rng.normal(-20.0, 6.0, 20_000).astype(np.float32)
+    among_finite[13_001] = inf
+    among_neg_inf = np.full(20_000, -inf, np.float32)
+    among_neg_inf[17_777] = nan
+    return {
+        "zero_nan": (np.array([0.0, nan], np.float32), (nan, nan, nan)),
+        "nan": (np.array([nan], np.float32), (nan, nan, nan)),
+        "posinf": (np.array([inf], np.float32), (inf, nan, nan)),
+        "posinf_among_finite": (among_finite, (inf, nan, nan)),
+        "nan_among_neg_inf": (among_neg_inf, (nan, nan, nan)),
+        "all_neg_inf": (np.full(4097, -inf, np.float32), (-inf, 0.0, 0.0)),
+    }
+
+
+def same_bits_or_nan(got, want):
+    return all(a == b or (math.isnan(a) and math.isnan(b)) for a, b in zip(got, want))
+
+
+def check_stats_values(w_np, w, where):
+    """Kernel 3 on the weights ``w`` (``w_np`` on the host): m exact and
+    s1, s2 within rtol 1e-5 of float64 and of the plain version (every
+    weight -inf: (-inf, 0, 0)); on the card, two calls bit for bit equal,
+    one launch a call, counted by N.
+    Returns the kernel's and the plain version's (m, s1, s2) and the
+    larger relative error against float64."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    n = w.shape[0]
+    launches, at_n = K.log_weight_stats.launches, K.log_weight_stats.launch_sizes[n]
+    out = K.log_weight_stats_packed(w)
+    if w.is_cuda:  # the kernel's merge is deterministic; a CPU sum's split may follow the threads
+        again = K.log_weight_stats_packed(w)
+        check(torch.equal(out, again), f"{where}: two calls differ: {out} vs {again}")
+        check(K.log_weight_stats.launches == launches + 2 and K.log_weight_stats.launch_sizes[n] == at_n + 2,
+              f"{where}: not one launch a call, counted at N={n}")
+    m, s1, s2 = got = tuple(out.tolist())
+    pm, ps1, ps2 = plain = tuple(float(v) for v in K.log_weight_stats_plain(w))
+    w64 = w_np.astype(np.float64)
+    rm = w64.max()
+    if rm == -math.inf:  # the port's exception to exp(-inf - -inf)
+        check(got == plain == (-math.inf, 0.0, 0.0), f"{where}: every weight -inf gave {got}, plain {plain}")
+        return got, plain, 0.0
+    e = np.exp(w64 - rm)
+    rs1, rs2 = e.sum(), (e * e).sum()
+    check(m == rm and m == pm, f"{where}: max {m}, float64 {rm}, plain {pm}")
+    for value, want, what in ((s1, rs1, "s1"), (s2, rs2, "s2"), (s1, ps1, "s1 plain"), (s2, ps2, "s2 plain")):
+        check(abs(value - want) <= 1e-5 * abs(want), f"{where} {what}: {value} vs {want}")
+    return got, plain, max(abs(s1 - rs1) / rs1, abs(s2 - rs2) / rs2)
+
+
+def check_stats(device="cuda", sizes=STATS_SIZES):
+    """Kernel 3 by its wrapper: on the special inputs, the values the
+    reference gives (NaN for NaN) and the plain version's; at each of
+    ``sizes``, aligned and as a [1:] view (the unaligned head),
+    ``check_stats_values``.  Returns the largest relative error against
+    float64."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    for name, (lw_np, want) in special_stats_vectors().items():
+        lw = torch.tensor(lw_np, device=device)
+        got = tuple(float(v) for v in K.log_weight_stats(lw))
+        plain = tuple(float(v) for v in K.log_weight_stats_plain(lw))
+        check(same_bits_or_nan(got, want), f"log_weight_stats {name}: {got}, reference {want}")
+        check(same_bits_or_nan(got, plain), f"log_weight_stats {name}: {got}, plain {plain}")
+    worst = 0.0
+    for n in sizes:
+        lw_np, lw = stats_inputs(n + 1, device, seed=n)
+        for what, w_np, w in (("aligned", lw_np[:n], lw[:n]), ("[1:]", lw_np[1:], lw[1:])):
+            worst = max(worst, check_stats_values(w_np, w, f"log_weight_stats at N={n} ({what})")[2])
+    return worst
+
+
+def phase_stats_shapes(path):
+    """Kernel 3 at every N the main path launched it at (the union of
+    ``path``'s phases): its values held against the plain version and
+    float64 (``check_stats_values``), its time, the plain version's, its
+    bound, and Σ launches × (time − bound)."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    launches = {}
+    for counts in path.values():
+        for n, count in counts["log_weight_stats_by_n"].items():
+            launches[n] = launches.get(n, 0) + count
+    excess = 0.0
+    for n, count in sorted(launches.items()):
+        lw_np, lw = stats_inputs(n, "cuda", seed=n)
+        *_, rel_err = check_stats_values(lw_np, lw, f"log_weight_stats at the main path's N={n}")
+        ms, plain_ms = time_ms(lambda: K.log_weight_stats(lw)), time_ms(lambda: K.log_weight_stats_plain(lw))
+        bound_ms, bound_by = bound(*stats_cost(n))
+        excess += count * (ms - bound_ms)
+        emit({"phase": "kernel_shape", "name": "log_weight_stats", "shape": [n], "launches": count,
+              "ms": ms, "plain_ms": plain_ms, "ratio_to_plain": ms / plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "rel_err": rel_err})
+    emit({"phase": "log_weight_stats_excess", "launches_by_n": launches,
+          "sum_launches_x_ms_minus_bound": excess})
+
+
 def kernel_functions():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from pyprob_tpu_torch.ops import kernels as K, mvn_logpdf, tile_chol
@@ -293,12 +417,20 @@ def kernel_functions():
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in kernel_functions().items()}
+    """Each kernel's launches, and kernel 3's by N (``log_weight_stats_by_n``)."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    counts = {name: fn.launches for name, fn in kernel_functions().items()}
+    counts["log_weight_stats_by_n"] = dict(sorted(K.log_weight_stats.launch_sizes.items()))
+    return counts
 
 
 def reset_launch_counts():
+    from pyprob_tpu_torch.ops import kernels as K
+
     for fn in kernel_functions().values():
         fn.launches = 0
+    K.log_weight_stats.launch_sizes.clear()
 
 
 def check_mixture_backward(rows, device, degenerate=False, components=MIXTURE_COMPONENTS):
@@ -566,24 +698,17 @@ def phase_kernels():
         "library_ms": None, "shape": [B, Kc],
     })
 
+    sweep_err = check_stats("cuda")
     lw_np, lw = stats_inputs(STATS_N, "cuda")
-    m, s1, s2 = (float(v) for v in K.log_weight_stats(lw))
-    pm, ps1, ps2 = (float(v) for v in K.log_weight_stats_plain(lw))
-    w = lw_np.astype(np.float64)
-    rm = w.max()
-    e = np.exp(w - rm)
-    rs1, rs2 = e.sum(), (e * e).sum()
-    check(m == rm and m == pm, f"log_weight_stats: max {m} != {rm}")
-    for got, want, what in ((s1, rs1, "s1"), (s2, rs2, "s2"), (s1, ps1, "s1 plain"), (s2, ps2, "s2 plain")):
-        check(abs(got - want) <= 1e-5 * abs(want), f"log_weight_stats {what}: {got} vs {want}")
-    bound_ms, bound_by = bound(4 * STATS_N + 12, 6 * STATS_N)
+    (m, s1, s2), (pm, ps1, ps2), rel_err = check_stats_values(lw_np, lw, f"log_weight_stats at N={STATS_N}")
+    bound_ms, bound_by = bound(*stats_cost(STATS_N))
     rows.append({
         "name": "log_weight_stats", "route": "cuda",
         "source": "pyprob_tpu_torch/ops/csrc/log_weight_stats.cu",
         "replaces": "pyprob_tpu/ops/kernels.py:309",
         "max_abs_err": max(abs(m - pm), abs(s1 - ps1), abs(s2 - ps2)),
-        "max_rel_err_vs_float64": max(abs(s1 - rs1) / rs1, abs(s2 - rs2) / rs2),
-        "tolerance": "m exact, s1 and s2 rtol 1e-5 vs float64 and plain",
+        "max_rel_err_vs_float64": rel_err, "max_rel_err_vs_float64_all_sizes": max(rel_err, sweep_err),
+        "tolerance": "m exact, s1 and s2 rtol 1e-5 vs float64 and plain; special values as plain",
         "ms": time_ms(lambda: K.log_weight_stats(lw)),
         "plain_ms": time_ms(lambda: K.log_weight_stats_plain(lw)),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1300,7 +1425,7 @@ def phase_linalg_kernels():
     cov, diff, err = check_quad_logdet(8192, 256, "cuda")
     for name, c, d, e, replaces in (
         ("mvn_quad_logdet", cov, diff, err, "pyprob_tpu/ops/mvn_logpdf.py:254"),
-        ("mvn_quad_logdet_single", cov1, diff1, err1, "pyprob_tpu/ops/mvn_logpdf.py:302"),
+        ("mvn_quad_logdet_single", cov1, diff1, err1, "pyprob_tpu/ops/mvn_logpdf.py:303"),
     ):
         b = c.numel() // (c.shape[-1] ** 2)
         n = c.shape[-1]
@@ -1524,6 +1649,7 @@ def main():
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})
+    phase_stats_shapes(path)
     for row in rows:
         row["launches"] = sum(counts[row["name"]] for counts in path.values())
         check(row["launches"] >= 1, f"the main path never launched {row['name']}")

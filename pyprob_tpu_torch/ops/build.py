@@ -57,8 +57,8 @@ _SIGNATURES = {
     "pyprob_mixture_truncated_normal_log_prob_backward_f32": (
         ctypes.c_int, [_P] * 14 + [_I, _I, _I, _P],
     ),
-    "pyprob_log_weight_stats_blocks": (ctypes.c_int64, [_I]),
-    "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _P]),
+    "pyprob_log_weight_stats_capacity": (ctypes.c_int64, [_I]),
+    "pyprob_log_weight_stats_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "pyprob_tile_chol_inv_f32": (ctypes.c_int, [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P]),
     "pyprob_mvn_quad_logdet_plan": (ctypes.c_int, [_I, _I, _I, _P]),
     "pyprob_mvn_quad_logdet_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _P]),

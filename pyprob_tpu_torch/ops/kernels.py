@@ -28,6 +28,7 @@ The kernels are built at first launch (``ops.build``).
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -379,7 +380,24 @@ def log_weight_stats_plain(log_weights):
 
 def log_weight_stats(log_weights):
     """(max, Σ e^(w−max), Σ e^2(w−max)) of [N] float32 log-weights, as
-    three 0-d tensors on their device.  ESS = s1²/s2; log Z = max + log s1."""
+    three 0-d tensors on their device, views of ``log_weight_stats_packed``'s
+    [3] output.  ESS = s1²/s2; log Z = max + log s1."""
+    return log_weight_stats_packed(log_weights).unbind()
+
+
+def log_weight_stats_packed(log_weights):
+    """``log_weight_stats`` as one [3] tensor (m, s1, s2): one launch on the
+    card, and one copy where the host wants all three.
+
+    As ``_log_weight_stats_ref``: m is NaN where a weight is NaN, s1 and
+    s2 are NaN where m is NaN or +inf; every weight −inf gives (−inf, 0, 0).
+    The kernel merges its blocks in the same launch: the last block to
+    finish, found by a ticket counter, reads every block's triple from a
+    scratch buffer and resets the counter.  Scratch and counter are made
+    once and kept for each (device, stream): launches on one stream run in
+    order, but two streams sharing a counter could interleave their
+    tickets.  Launches on the card count in ``log_weight_stats.launches``
+    and, by N, in ``log_weight_stats.launch_sizes``."""
     if log_weights.dim() != 1:
         raise ValueError("log_weight_stats: expected a 1-D tensor of log-weights")
     n = log_weights.shape[0]
@@ -387,21 +405,39 @@ def log_weight_stats(log_weights):
     if n == 0:
         raise ValueError("log_weight_stats: no log-weights")
     if device.type == "cpu":
-        return log_weight_stats_plain(log_weights)
-    lib = build.library()
-    blocks = lib.pyprob_log_weight_stats_blocks(n)
-    partial = torch.empty((blocks, 3), dtype=torch.float32, device=device)
+        return torch.stack(log_weight_stats_plain(log_weights))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scratch, counter, capacity = _stats_scratch(device, stream)
     out = torch.empty((3,), dtype=torch.float32, device=device)
-    err = lib.pyprob_log_weight_stats_f32(
-        log_weights.data_ptr(), partial.data_ptr(), out.data_ptr(), n, blocks,
-        device.index, torch.cuda.current_stream(device).cuda_stream,
+    err = build.library().pyprob_log_weight_stats_f32(
+        log_weights.data_ptr(), scratch.data_ptr(), counter.data_ptr(), out.data_ptr(),
+        n, capacity, device.index, stream,
     )
     _raise_on_error("log_weight_stats", err)
     log_weight_stats.launches += 1
-    return out[0], out[1], out[2]
+    log_weight_stats.launch_sizes[n] += 1
+    return out
+
+
+_STATS_SCRATCH = {}  # (device index, stream) -> (scratch, counter, capacity)
+
+
+def _stats_scratch(device, stream):
+    key = (device.index, stream)
+    if key not in _STATS_SCRATCH:
+        capacity = build.library().pyprob_log_weight_stats_capacity(device.index)
+        if capacity < 1:
+            raise RuntimeError(f"log_weight_stats: no block capacity for {device}")
+        _STATS_SCRATCH[key] = (
+            torch.empty((3 * capacity,), dtype=torch.float32, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device),
+            capacity,
+        )
+    return _STATS_SCRATCH[key]
 
 
 log_weight_stats.launches = 0
+log_weight_stats.launch_sizes = collections.Counter()
 
 
 def reset_launch_counts():
@@ -410,3 +446,4 @@ def reset_launch_counts():
     mixture_truncated_normal_log_prob.launches = 0
     mixture_truncated_normal_log_prob_backward.launches = 0
     log_weight_stats.launches = 0
+    log_weight_stats.launch_sizes.clear()

@@ -753,7 +753,7 @@ def vectorized_traces(
     else:
         lw = torch.where(finite, lw, neg_inf)
     # ESS and log Z from the device-resident weights, one host fetch
-    m, s1, s2 = (float(v) for v in torch.stack(kernels.log_weight_stats(lw)).cpu())
+    m, s1, s2 = kernels.log_weight_stats_packed(lw).cpu().tolist()
     if m == -math.inf:
         ess, log_evidence = 0.0, -math.inf
     else:

@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 import pyprob_tpu  # noqa: F401
 import pyprob_tpu_torch
 from pyprob_tpu.ops import kernels as JK
@@ -183,6 +184,261 @@ def test_log_weight_stats_rejects_bad_inputs():
         TK.log_weight_stats(torch.zeros(0))
 
 
+# log_weight_stats.cu's launch: threads a block (the one block of a small
+# N), float4 loads a thread a tile, triples a lane in the last block's
+# merge, and the scratch's blocks on an H100 (2 an SM of 132)
+STATS_THREADS, STATS_SMALL_THREADS, STATS_VEC = 512, 128, 4
+STATS_MERGE_PER_LANE, STATS_CAPACITY = 9, 2 * 132
+
+
+def _special_stats_vectors():
+    """The special inputs of the statistics, by name, from ``chip_smoke``'s
+    table: a NaN among finite weights, alone and among 20,000 -inf ones
+    (three blocks on the card); +inf alone and among 20,000 finite ones;
+    every weight -inf."""
+    return {name: lw for name, (lw, _) in chip_smoke.special_stats_vectors().items()}
+
+
+def _tree_sum32(a):
+    """__shfl_down_sync sum tree over a last axis of 32 lanes: lane 0's sum
+    (at offset o, lane l < o adds lane l + o)."""
+    a = a.copy()
+    for off in (16, 8, 4, 2, 1):
+        a[..., :off] = a[..., :off] + a[..., off : 2 * off]
+    return a[..., 0]
+
+
+def _stats_result(m, s1, s2):
+    """The kernel's ``write_result``: the sums NaN where m is NaN or +inf,
+    0 where m is -inf."""
+    if not np.isfinite(m):
+        s1 = s2 = np.float32(0.0 if m == -np.inf else np.nan)
+    return m, s1, s2
+
+
+def _warp_merge_mirror(m, s1, s2):
+    """The kernel's ``warp_merge``: [P, 32] triples, P a lane, into the
+    warp's (M, a1, a2): M the max of every m (NaN propagated); where it is
+    finite, lane l folds its triples k = 0, 1, ... in order, r = exp(m − M),
+    a1 = fma(s1, r, a1), a2 = fma(s2, r·r, a2); then the lanes' trees."""
+    M = m.max()
+    a1 = np.zeros(32, np.float32)
+    a2 = np.zeros(32, np.float32)
+    if np.isfinite(M):
+        for k in range(m.shape[0]):
+            r = np.exp(m[k] - M)
+            a1, a2 = _fma32(s1[k], r, a1), _fma32(s2[k], r * r, a2)
+    return M, _tree_sum32(a1), _tree_sum32(a2)
+
+
+def _lanes(values, fill, per_lane=1):
+    """``values`` on lanes: [per_lane, 32], value i on lane i mod 32 of row
+    i // 32, ``fill`` past them."""
+    out = np.full(32 * per_lane, fill, np.float32)
+    out[: len(values)] = values
+    return out.reshape(per_lane, 32)
+
+
+def _stats_mirror(lw, align=0, capacity=STATS_CAPACITY):
+    """``log_weight_stats.cu`` in numpy, in float32, for [N] weights whose
+    first lies ``align`` floats past a 16-byte boundary.  The float4 body
+    starts at the first boundary; the head before it and the tail past it
+    go to threads 0, 1, ... of block 0 with its first tile.  A body of at
+    most STATS_SMALL_THREADS x STATS_VEC float4 is one block of
+    STATS_SMALL_THREADS threads; else the grid is one block of
+    STATS_THREADS a tile of STATS_THREADS x STATS_VEC float4, at most
+    ``capacity``, a block striding over the tiles past that.  A block's
+    tile of T threads: thread t loads float4 i = tile·4T + k·T + t; each
+    warp's max of its weights (NaN propagated) joins the warp's running
+    max m; where that is finite, each thread rescales its sums by
+    r = exp(m_old − m) (s2 by r·r), then adds its weights in order (its
+    head or tail weight, then float4 by float4): e = exp(w − m), s1 + e,
+    fma(e, e, s2).  Each warp's sums are a shuffle-down tree, and warp 0
+    merges the warps' triples (``_warp_merge_mirror``, one a lane).  A
+    grid of one block writes its result; else the last block's warp 0
+    merges the blocks' triples, lane l taking blocks l, l + 32, ...
+    (STATS_MERGE_PER_LANE at most).  Returns (m, s1, s2) as float32
+    scalars."""
+    lw = np.asarray(lw, np.float32)
+    n = lw.size
+    head = min((4 - align) % 4, n)
+    nv = (n - head) // 4
+    body = lw[head : head + 4 * nv].reshape(nv, 4)
+    extras = n - 4 * nv
+    threads = STATS_SMALL_THREADS if nv <= STATS_SMALL_THREADS * STATS_VEC else STATS_THREADS
+    tile_len = threads * STATS_VEC
+    tiles = -(-nv // tile_len)
+    grid = max(1, min(tiles, capacity, 32 * STATS_MERGE_PER_LANE))
+    t = np.arange(threads)
+    warp = t // 32
+    triples = []
+    for block in range(grid):
+        m = np.full(threads // 32, -np.inf, np.float32)  # a warp's running max
+        s1 = np.zeros(threads, np.float32)
+        s2 = np.zeros(threads, np.float32)
+        tile = block
+        while True:
+            vals = np.full((threads, 1 + 4 * STATS_VEC), -np.inf, np.float32)
+            if tile == 0:
+                mine = t < extras
+                vals[mine, 0] = lw[np.where(t < head, t, 4 * nv + t)[mine]]
+            for k in range(STATS_VEC):
+                i = tile * tile_len + k * threads + t
+                vals[i < nv, 1 + 4 * k : 5 + 4 * k] = body[i[i < nv]]
+            mt = np.maximum(m, vals.reshape(m.size, -1).max(axis=1))
+            live = np.isfinite(mt)[warp]
+            with np.errstate(invalid="ignore"):
+                r = np.exp(m - mt)[warp]
+                s1, s2 = np.where(live, s1 * r, s1), np.where(live, s2 * (r * r), s2)
+                for j in range(vals.shape[1]):
+                    e = np.exp(vals[:, j] - mt[warp])
+                    s1, s2 = np.where(live, s1 + e, s1), np.where(live, _fma32(e, e, s2), s2)
+            m = mt
+            tile += grid
+            if tile >= tiles:
+                break
+        w1, w2 = _tree_sum32(s1.reshape(-1, 32)), _tree_sum32(s2.reshape(-1, 32))
+        triples.append(_warp_merge_mirror(_lanes(m, -np.inf), _lanes(w1, 0.0), _lanes(w2, 0.0)))
+    if grid == 1:
+        return _stats_result(*triples[0])
+    bm, b1, b2 = zip(*triples)
+    P = STATS_MERGE_PER_LANE
+    return _stats_result(*_warp_merge_mirror(_lanes(bm, -np.inf, P), _lanes(b1, 0.0, P), _lanes(b2, 0.0, P)))
+
+
+def _parent_stats_mirror(lw):
+    """The parent's two-launch kernel for a few weights (N <= 2,048, one
+    block of 256 threads, thread i taking weight i): an online step a
+    weight (where w > m rescale, else add exp(w − m) unless w is -inf) and
+    a merge that returns the other triple where one's max is -inf and
+    takes fmaxf of the maxes, in its shuffle-down trees; the second launch
+    merges the one triple with the same trees."""
+    f = np.float32
+    empty = (f(-np.inf), f(0), f(0))
+
+    def merge(a, b):
+        if a[0] == -np.inf:
+            return b
+        if b[0] == -np.inf:
+            return a
+        m = np.fmax(a[0], b[0])
+        ra, rb = np.exp(a[0] - m), np.exp(b[0] - m)
+        return m, a[1] * ra + b[1] * rb, a[2] * ra * ra + b[2] * rb * rb
+
+    def warp_tree(v):
+        for off in (16, 8, 4, 2, 1):  # lanes past 31 - off read their own
+            v = [merge(v[i], v[i + off] if i + off < 32 else v[i]) for i in range(32)]
+        return v[0]
+
+    def block_merge(v):
+        warps = [warp_tree(v[w : w + 32]) for w in range(0, 256, 32)]
+        return warp_tree(warps + [empty] * 24)
+
+    threads = []
+    for i in range(256):
+        m, s1, s2 = empty
+        if i < len(lw):
+            w = f(lw[i])
+            if w > m:
+                r = np.exp(m - w)
+                m, s1, s2 = w, s1 * r + f(1), s2 * r * r + f(1)
+            elif w != -np.inf:
+                e = np.exp(w - m)
+                s1, s2 = s1 + e, s2 + e * e
+        threads.append((m, s1, s2))
+    return block_merge([block_merge(threads)] + [empty] * 255)
+
+
+def _same_stats(got, want):
+    """Equal max (NaN for NaN); sums NaN where want's are, else within
+    rtol 1e-5."""
+    (m, s1, s2), (wm, ws1, ws2) = got, want
+    if not (m == wm or (np.isnan(m) and np.isnan(wm))):
+        return False
+    for a, b in ((s1, ws1), (s2, ws2)):
+        if np.isnan(b) != np.isnan(a) or (not np.isnan(b) and abs(a - b) > 1e-5 * abs(b)):
+            return False
+    return True
+
+
+_JAX_STATS_REF = jax.jit(JK._log_weight_stats_ref)
+
+
+@pytest.mark.parametrize("name", list(_special_stats_vectors()))
+def test_log_weight_stats_mirror_special_values(pallas_interpret, name):
+    """The CUDA kernel's reduction, mirrored in numpy, on the special
+    inputs against ``_log_weight_stats_ref``, the Pallas kernel in
+    interpret mode and the plain version: NaN max and sums for any NaN,
+    (+inf, NaN, NaN) for any +inf, and (-inf, 0, 0) for every weight -inf
+    (the port's exception, where the reference's exp(-inf - -inf) is NaN:
+    ESS 0, as ``pyprob_tpu.util.effective_sample_size`` has it)."""
+    lw = _special_stats_vectors()[name]
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _stats_mirror(lw)
+        unaligned = _stats_mirror(lw, align=1, capacity=2)
+    plain = tuple(float(v) for v in TK.log_weight_stats(torch.from_numpy(lw)))
+    ref = tuple(float(v) for v in _JAX_STATS_REF(jnp.asarray(lw)))
+    pallas = tuple(float(v) for v in jax.jit(JK.log_weight_stats)(jnp.asarray(lw)))
+    if name == "all_neg_inf":
+        assert got == unaligned == plain == (-np.inf, 0.0, 0.0)
+        assert ref[0] == pallas[0] == -np.inf and np.isnan(ref[1]) and np.isnan(pallas[1])
+        return
+    for want in (ref, pallas, plain):
+        assert _same_stats(got, want) and _same_stats(unaligned, want)
+    if "nan" in name:
+        assert np.isnan(got).all()
+    else:
+        assert got[0] == np.inf and np.isnan(got[1]) and np.isnan(got[2])
+
+
+@pytest.mark.parametrize(
+    "n,align,capacity",
+    [(1, 0, STATS_CAPACITY), (31, 0, STATS_CAPACITY), (31, 1, STATS_CAPACITY),
+     (256, 0, STATS_CAPACITY), (512, 1, STATS_CAPACITY), (2048, 0, STATS_CAPACITY),
+     (2048, 1, STATS_CAPACITY), (2054, 0, STATS_CAPACITY), (2054, 1, STATS_CAPACITY),
+     (4097, 0, STATS_CAPACITY), (4097, 3, STATS_CAPACITY), (65_539, 0, STATS_CAPACITY),
+     (65_539, 1, 3)],
+)
+def test_log_weight_stats_mirror_finite(pallas_interpret, n, align, capacity):
+    """The mirror on random finite weights, at a pointer ``align`` floats
+    past a 16-byte boundary and with ``capacity`` blocks (3: blocks fold
+    several tiles): m exact and s1, s2 within rtol 1e-5 of float64, of
+    ``_log_weight_stats_ref``, of the Pallas kernel in interpret mode and
+    of the plain version."""
+    lw = _log_weights(n, seed=n + align, frac_neg_inf=0.0)
+    m, s1, s2 = _stats_mirror(lw, align, capacity)
+    w = lw.astype(np.float64)
+    e = np.exp(w - w.max())
+    refs = [
+        (w.max(), e.sum(), (e * e).sum()),
+        tuple(float(v) for v in _JAX_STATS_REF(jnp.asarray(lw))),
+        tuple(float(v) for v in jax.jit(JK.log_weight_stats)(jnp.asarray(lw))),
+        tuple(float(v) for v in TK.log_weight_stats(torch.from_numpy(lw))),
+    ]
+    for rm, rs1, rs2 in refs:
+        assert m == rm
+        np.testing.assert_allclose([s1, s2], [rs1, rs2], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["zero_nan", "nan", "posinf", "nan_among_neg_inf"])
+def test_log_weight_stats_parent_merge_differs(name):
+    """A mirror of the parent kernel's merge (an early return where a max
+    is -inf, fmaxf of the maxes) differs from ``_log_weight_stats_ref`` on
+    these inputs, which the new reduction's mirror matches: [0, NaN] gave
+    (0, 1, 1), [NaN] (-inf, 0, 0), [+inf] (+inf, 1, 1) and a NaN among
+    -inf weights (-inf, 0, 0)."""
+    lw = _special_stats_vectors()[name]
+    ref = tuple(float(v) for v in _JAX_STATS_REF(jnp.asarray(lw)))
+    with np.errstate(invalid="ignore", over="ignore"):
+        if lw.size <= 2048:
+            parent = _parent_stats_mirror(lw)
+        else:  # the weights in one thread's reach: only the NaN and a -inf
+            parent = _parent_stats_mirror(lw[17_776:17_778])
+        new = _stats_mirror(lw)
+    assert not _same_stats(parent, ref)
+    assert _same_stats(new, ref)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; no interpret mode)")
@@ -208,25 +464,34 @@ def test_mixture_kernel_matches_plain_on_card():
                 assert out[0] == np.inf and torch.isnan(out[1]) and torch.isnan(out[7])
 
 
+def test_log_weight_stats_smoke_check_on_cpu():
+    """``chip_smoke.check_stats``, the card's check of kernel 3, run on the
+    CPU (the plain version): the special inputs' values against the
+    reference's in its table, and every size of ``STATS_SIZES``, aligned
+    and as a [1:] view, against float64."""
+    assert chip_smoke.check_stats("cpu") <= 1e-5
+
+
 @pytest.mark.cuda
 def test_log_weight_stats_kernel_matches_plain_on_card():
+    """Kernel 3 on the card, by ``chip_smoke.check_stats``: on the special
+    inputs, the reference's values and the plain version's (NaN for NaN;
+    every weight -inf gives (-inf, 0, 0)); at every N of
+    ``chip_smoke.STATS_SIZES`` (the one 128-thread block at 1-5 and at the
+    training phases' 256, 512 and 2,048, the switch to the 512-thread grid
+    at 2,054, grids up to 123 blocks and, at 2^22 + 3, blocks striding over
+    the tiles), aligned and as a [1:] view, with 1 % of the weights -inf,
+    m exact and s1, s2 within rtol 1e-5 of the plain version and of
+    float64; two calls bit for bit equal, one launch each, counted by N.
+    The same ``check_stats_values`` on uniform weights: 10^6 + 3 with 1 %
+    -inf, N = 1, and every weight of 4,096 -inf ((-inf, 0, 0))."""
     _need_card()
+    assert chip_smoke.check_stats("cuda") <= 1e-5
     for n, frac in ((1_000_003, 0.01), (1, 0.0), (4096, 1.0)):
-        lw = _log_weights(n, seed=n, frac_neg_inf=frac)
+        lw = _log_weights(n + 1, seed=n, frac_neg_inf=frac)
         lw_card = torch.from_numpy(lw).cuda()
-        m, s1, s2 = (float(v) for v in TK.log_weight_stats(lw_card))
-        pm, ps1, ps2 = (float(v) for v in TK.log_weight_stats_plain(lw_card))
-        assert m == pm
-        np.testing.assert_allclose([s1, s2], [ps1, ps2], rtol=1e-5)
-        w = lw.astype(np.float64)
-        rm = w.max()
-        assert m == rm
-        if rm == -np.inf:
-            assert (s1, s2) == (0.0, 0.0)
-            continue
-        e = np.exp(w - rm)
-        np.testing.assert_allclose(s1, e.sum(), rtol=1e-5)
-        np.testing.assert_allclose(s2, (e * e).sum(), rtol=1e-5)
+        for what, w, w_card in (("aligned", lw[:n], lw_card[:n]), ("[1:]", lw[1:], lw_card[1:])):
+            chip_smoke.check_stats_values(w, w_card, f"N={n}, {frac} -inf ({what})")
 
 
 def _tnorm_inputs(B, K, seed=0):
