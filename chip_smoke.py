@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive pyprob_tpu_torch's training and guided importance-sampling paths on
-one NVIDIA GPU, for GaussianUnknownMean and for its Marsaglia variant.
+one NVIDIA GPU, for GaussianUnknownMean and for its Marsaglia variants (the
+rejection_sample one on the batched tier, and bench.py's while-loop one on
+the interpreter tier).
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -64,7 +66,35 @@ Phases, each printing one JSON line:
 14. Marsaglia defensive IS: the trained network with every attempt drawn
     from the defensive mixture 0.5 q + 0.5 prior (bounded weights), log Z
     within 0.15 of the analytic value: the retry weighting is exact;
-15. linalg kernels: the panel Cholesky's diagonal-tile kernel as the panel
+15. Marsaglia interpreter prior IS: 100,000 traces of the while-loop
+    GaussianUnknownMeanMarsaglia on the interpreter tier (vectorized=False),
+    mean and log Z within 0.15 of the analytic values;
+16. Marsaglia interpreter train: bench.py's recipe for that model
+    (bench.py:146-181: seed 123, 25,600 traces in one call, lstm128/
+    batch256/lr 0.004, 32-d observe embeddings, EMA 0.9) on the interpreter
+    tier through the gather-table loss: one launch of kernel 2 and one of
+    kernel 2b a step, the rows kernel 2 was given (min, median, max), the
+    trace types and addresses at the end;
+17. Marsaglia lockstep IS: that network, 1,000 warm-up and 12,000 timed
+    traces of lockstep IC (vectorized=False), mean and stddev within 0.5,
+    the median ESS fraction of three such servings >= the bench's guard
+    0.009 (the first serving's and the JAX package's lockstep test floor
+    0.004 printed), the rounds and rows a round; then one round
+    of up to 64 served sites (trace starts and steady sites of every
+    depth, rows out of worker order) against the sequential step row by
+    row: log q and log p of the drawn value, the head's proposal at four
+    other points and the carry written back within 1e-4 (1 + |ref|), the
+    other workers' carries untouched; then 2,000 traces with
+    lockstep=False, their ESS fraction printed;
+18. GUM lockstep IS: the lstm128 network of phase 8 served by lockstep at
+    12,000 traces, held to the GUM limits (kernel 1 at a round's rows), the
+    same row-by-row round check, and 2,000 sequential traces whose ESS
+    fraction lies within 10 % of lockstep's;
+19. interpreter kernel checks: kernels 2 and 2b against their plain
+    versions and timed at phase 16's min, median and max rows and at 651,
+    kernels 1 and 2 at a lockstep round's 1, 7, 33 and 64 rows, beside
+    their bounds and the launch floor;
+20. linalg kernels: the panel Cholesky's diagonal-tile kernel as the panel
     loop launches it (tiles read in place from [B, N, N] matrices, L
     written into the panel's rows of the full factor, zeros past the
     block) at B = 8,192 tiles of P = 64 (N = 256's first panel), B = 2,048
@@ -80,7 +110,7 @@ Phases, each printing one JSON line:
     and spills that ptxas reported;
     then the panel factorization against torch.linalg.cholesky on the
     same [8192, 256, 256] and [2048, 512, 512] batches (a yardstick line);
-16. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
+21. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
     learn lengthscale, noise 0.2) with y = synthesize(rng=3,
     lengthscale=1.0) at N = 256 x 8,192 and N = 512 x 2,048 traces (the
     sizes of tests/extra/chip_gp.py): posterior mean within 0.25 grid
@@ -88,12 +118,13 @@ Phases, each printing one JSON line:
     analytic value, N/64 diagonal-tile launches per chunk and no call to
     torch.linalg.cholesky; then N = 256 x 32,768 traces and the chunk size
     it settled on;
-17. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
+22. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
     [-2, 2] through the model on the card (panel path, diagonal-tile
     kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
     for three of them), against numpy float64.
 
-Then the main path's launches by phase (kernel 3's also by N), kernel 3
+Then the main path's launches by phase (kernel 3's also by N, the
+forwards' by rows), kernel 3
 timed at every N the path launched it at with the sum over its launches of
 time minus bound, the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
@@ -141,6 +172,7 @@ KERNEL_NAMES = (
     "mvn_quad_logdet_single",
 )
 TNORM_KERNELS = KERNEL_NAMES[2:4]
+FORWARD_KERNELS = (KERNEL_NAMES[0], KERNEL_NAMES[2])
 
 # GP regression: the repository's sizes (tests/extra/chip_gp.py:59-64) and
 # the analytic prior-IS ESS fraction E[w]^2 / E[w^2] at y = synthesize(rng=3,
@@ -164,6 +196,28 @@ MARSAGLIA = {
 }
 # analytic GUM evidence for observes {8, 9}: log N(8; 1, sqrt 7) + log N(9; 6, sqrt(24/7))
 LOG_EVIDENCE = -8.2395
+
+# bench.py's while-loop Marsaglia arm (bench.py:146-181): the seed set before
+# training (bench.py:155), 1,000 warm-up and 12,000 measured traces on the
+# interpreter tier; 0.004 is the JAX package's lockstep test floor
+# (tests/test_interpreter_lockstep.py:94).  The sequential loop's ESS
+# fraction is held within 10 % of lockstep's, relative, only for GUM (a
+# fraction near 0.9 that 2,000 traces estimate to about 1 %); Marsaglia's
+# heavy-tailed fractions move several-fold between serving draws of one
+# network, so its two are printed, and its guard holds the median of
+# "servings" servings.  The rounds are held to the sequential step row by
+# row.
+INTERPRETER = {
+    "seed": 123, "prior_traces": 100_000, "warm_up": 1000, "traces": 12_000,
+    "sequential_traces": 2000, "test_floor": 0.004, "relative_band": 0.1, "servings": 3,
+}
+# a lockstep round against the sequential step, each row's log-densities
+# and carry within tol * (1 + |reference|): float32 on the CPU; on the card
+# the round's [B]-row GEMMs and kernels 1 and 2 against the one-row step
+# and the plain mixture on the host
+LOCKSTEP_ROUND_TOL = {"cpu": 1e-5, "cuda": 1e-4}
+# the rows a lockstep round gives the forwards (a pool of 64 workers)
+ROUND_ROWS = (1, 7, 33, 64)
 
 PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
 
@@ -417,11 +471,14 @@ def kernel_functions():
 
 
 def launch_counts():
-    """Each kernel's launches, and kernel 3's by N (``log_weight_stats_by_n``)."""
+    """Each kernel's launches, kernel 3's by N (``log_weight_stats_by_n``)
+    and the two forwards' by rows (``..._by_rows``)."""
     from pyprob_tpu_torch.ops import kernels as K
 
     counts = {name: fn.launches for name, fn in kernel_functions().items()}
     counts["log_weight_stats_by_n"] = dict(sorted(K.log_weight_stats.launch_sizes.items()))
+    for name in FORWARD_KERNELS:
+        counts[name + "_by_rows"] = dict(sorted(getattr(K, name).launch_rows.items()))
     return counts
 
 
@@ -431,6 +488,8 @@ def reset_launch_counts():
     for fn in kernel_functions().values():
         fn.launches = 0
     K.log_weight_stats.launch_sizes.clear()
+    for name in FORWARD_KERNELS:
+        getattr(K, name).launch_rows.clear()
 
 
 def check_mixture_backward(rows, device, degenerate=False, components=MIXTURE_COMPONENTS):
@@ -734,6 +793,7 @@ def phase_launch_floor():
     add_ms = time_ms(lambda: one.add_(1.0))
     emit({"phase": "launch_floor", "ms": min(sleep_ms, add_ms), "sleep0_ms": sleep_ms,
           "add_one_element_ms": add_ms})
+    return min(sleep_ms, add_ms)
 
 
 def check_posterior(post, label):
@@ -1208,6 +1268,382 @@ def phase_marsaglia_defensive_is(device, model, num_traces):
     })
 
 
+def phase_marsaglia_interpreter_prior_is(device, num_traces=INTERPRETER["prior_traces"]):
+    """IS from the prior of the while-loop Marsaglia model on the interpreter
+    tier (one trace at a time on the host, ``vectorized=False``): log Z
+    within 0.15 of the analytic value shows its weights exact."""
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia
+
+    model = GaussianUnknownMeanMarsaglia()
+    t0 = time.perf_counter()
+    post = model.posterior_results(num_traces, observe=OBSERVE, vectorized=False)
+    seconds = time.perf_counter() - t0
+    mean, std = float(post.mean), float(post.stddev)
+    log_z = log_evidence(post, num_traces)
+    check(abs(mean - POSTERIOR_MEAN) <= 0.15, f"Marsaglia interpreter prior IS: mean {mean}")
+    check(abs(log_z - LOG_EVIDENCE) <= 0.15, f"Marsaglia interpreter prior IS: log Z {log_z}")
+    emit({
+        "phase": "marsaglia_interpreter_prior_is", "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std, "log_z": log_z,
+        "log_z_analytic": LOG_EVIDENCE, "ess_fraction": post.effective_sample_size / num_traces,
+    })
+
+
+def rows_summary(by_rows):
+    """min, median and max of the rows of the launches counted in ``by_rows``."""
+    rows = sorted(r for r, n in by_rows.items() for _ in range(n))
+    return {"launches": len(rows), "min": rows[0], "median": rows[len(rows) // 2], "max": rows[-1]}
+
+
+def phase_marsaglia_interpreter_train(device):
+    """bench.py's Marsaglia recipe on the while-loop model, as the bench runs
+    it: seed 123, one call of 25,600 traces (lstm128, batch 256, lr 0.004,
+    32-d observe embeddings, EMA 0.9).  The model runs on the interpreter
+    tier, so every batch is materialized and polymorphed, and the
+    gather-table loss scores every active (step, trace) cell of a batch
+    with one launch of kernel 2 and its gradient with one of kernel 2b."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia
+
+    pp.seed(INTERPRETER["seed"])
+    model = GaussianUnknownMeanMarsaglia()
+    kw = marsaglia_train_kwargs()
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    model.learn_inference_network(num_traces=MARSAGLIA["train_traces"], **kw)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    net = model._inference_network
+    steps = net._total_train_iterations
+    loss = net._history_train_loss[-1]
+    check(math.isfinite(loss), f"Marsaglia interpreter train: final loss {loss}")
+    check(net._gather_used, "Marsaglia interpreter train: the gather-table loss was not used")
+    addresses = len(net._params["proposal"])
+    attempts = max(int(a.rpartition("__")[2]) for a in net._params["proposal"])
+    rows = rows_summary(launches["mixture_truncated_normal_log_prob_by_rows"]) if device == "cuda" else None
+    if device == "cuda":
+        for name in TNORM_KERNELS:
+            check(launches[name] == steps,
+                  f"Marsaglia interpreter train: {name} launched {launches[name]} times in {steps} steps")
+    emit({
+        "phase": "marsaglia_interpreter_train", "lstm_dim": MARSAGLIA["lstm_dim"],
+        "batch_size": MARSAGLIA["batch_size"], "learning_rate": MARSAGLIA["learning_rate"],
+        "seed": INTERPRETER["seed"], "traces": net._total_train_traces, "optimizer_steps": steps,
+        "seconds": seconds, "traces_per_s": net._total_train_traces / seconds, "final_loss": loss,
+        "addresses": addresses, "trace_types": attempts, "kernel2_rows": rows,
+        "launches": launches,
+    })
+    return model, launches, rows
+
+
+def phase_interpreter_ic(device, model, label, warm_up, num_traces, lockstep=None):
+    """IC on the interpreter tier (``vectorized=False``) through the user's
+    entry point: a warm-up run, then a timed one with the launches counted;
+    lockstep by default.  Returns the posterior, seconds, launches, peak
+    device memory (GiB) and the lockstep rounds."""
+    import torch
+    import pyprob_tpu_torch as pp
+
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    kw = {} if lockstep is None else {"lockstep": lockstep}
+    if warm_up:
+        model.posterior_results(warm_up, observe=OBSERVE, vectorized=False, inference_engine=engine, **kw)
+    reset_launch_counts()
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    post = model.posterior_results(
+        num_traces, observe=OBSERVE, vectorized=False, inference_engine=engine, **kw
+    )
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    if peak_gib is not None:
+        check(peak_gib < 10.0, f"{label}: peak memory {peak_gib} GiB")
+    meta = post.metadata[0]
+    rounds = None
+    if "lockstep_round_rows" in meta:
+        rr = meta["lockstep_round_rows"]
+        rounds = {"workers": meta["lockstep_workers"], "rounds": len(rr),
+                  "rows_per_round_mean": sum(rr) / len(rr), "rows_per_round_max": max(rr)}
+    return post, seconds, launches, peak_gib, rounds
+
+
+def round_traces(traces, workers=64):
+    """Traces whose controlled sites fill at most ``workers`` rows of one
+    lockstep round: first one trace of each length met, longest first, so
+    the round holds trace starts and steady sites of every depth, then
+    more in order."""
+    by_length = {}
+    for t in traces:
+        by_length.setdefault(t.length_controlled, t)
+    chosen, rows = [], 0
+    for t in sorted(by_length.values(), key=lambda t: -t.length_controlled) + list(traces):
+        if t not in chosen and rows + t.length_controlled <= workers:
+            chosen.append(t)
+            rows += t.length_controlled
+    return chosen
+
+
+def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
+    """One lockstep round against the port's sequential ``_infer_step``,
+    row by row.  Every controlled site of ``traces`` (interpreter traces of
+    the network's model, at most ``workers`` sites in all) becomes one
+    parked request of a single round, on a worker column drawn at random,
+    the rows parked in a random order.  Every column of the carry buffers
+    holds a random LSTM state first: a steady site's is its carried state,
+    a trace start's is junk the round must ignore.  The round answers them
+    all; then for each row the sequential step, given the same carried
+    state and previous variable, is the reference.  Returns the max abs
+    error of the proposal's log-density at the drawn value (``log_q``) and
+    at four draws from the reference proposal (``head``: the head's
+    output), of the prior's at the drawn value (``log_p``), of the carry
+    written back (``carry``), each beside the largest |reference|
+    (``*_ref``), and of the columns the round must not touch
+    (``untouched``); ``buckets`` lists each bucket's (trace start?, worker
+    columns); ``rows`` each request's (variable, previous variable, carried
+    state or None)."""
+    import numpy as np
+    import torch
+    from pyprob_tpu_torch import interpreter_lockstep as L
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    sites = [(v, t.variables_controlled[k - 1] if k else None)
+             for t in traces for k, v in enumerate(t.variables_controlled)]
+    check(0 < len(sites) <= workers, f"lockstep round check: {len(sites)} sites for {workers} workers")
+    observed = {k: torch.as_tensor(v) for k, v in observe.items()}
+    coord = L.LockstepCoordinator(net, observed, workers)
+    for buf in (coord._hbuf, coord._cbuf):
+        buf.copy_(torch.randn(buf.shape, generator=gen, dtype=buf.dtype).mul_(0.5))
+    h0, c0 = coord._hbuf.clone(), coord._cbuf.clone()
+    cols = [int(c) for c in rng.permutation(workers)[: len(sites)]]
+    seeds = [int(s) for s in rng.choice(2**31, size=len(sites), replace=False)]
+    batch = [L._Request(col, L._WorkerNet(coord, col), v, prev, s)
+             for (v, prev), col, s in zip(sites, cols, seeds)]
+    batch = [batch[i] for i in rng.permutation(len(batch))]
+    buckets = []
+    answer_bucket = coord._answer_bucket
+
+    def recorded(head_group, prev_group, items):
+        buckets.append((prev_group is None, [r.idx for r in items]))
+        return answer_bucket(head_group, prev_group, items)
+
+    coord._answer_bucket = recorded
+    coord._answer(batch)
+    errs = dict.fromkeys(("log_q", "log_q_ref", "head", "head_ref", "log_p", "log_p_ref",
+                          "carry", "carry_ref"), 0.0)
+
+    def note(key, got, ref):
+        got, ref = torch.as_tensor(got, dtype=torch.float64), torch.as_tensor(ref, dtype=torch.float64)
+        errs[key] = max(errs[key], float((got - ref).abs().max()))
+        errs[key + "_ref"] = max(errs[key + "_ref"], float(ref.abs().max()))
+
+    rows = []
+    net._infer_init(observed)
+    with torch.no_grad():
+        for r in batch:
+            shim, col = r.out, r.idx
+            check(isinstance(shim, L._ProposalShim) and not r.proxy._fresh,
+                  f"lockstep round check: worker {col} was not answered")
+            carried = None
+            if r.prev_variable is not None:
+                carried = (h0[:, col : col + 1].clone(), c0[:, col : col + 1].clone())
+            rows.append((r.variable, r.prev_variable, carried))
+            net._infer_lstm_state = carried
+            ref = net._infer_step(r.variable, prev_variable=r.prev_variable)
+            check(ref is not r.variable.distribution, "lockstep round check: the network has no proposal for a site")
+            value = shim.sample()
+            log_p, log_q = shim.pair_of(value)
+            note("log_q", log_q, float(ref.log_prob(value.reshape(1), sum=True)))
+            note("log_p", log_p, float(r.variable.distribution.log_prob(value, sum=True)))
+            for _ in range(4):
+                probe = ref.sample(gen)
+                note("head", shim.log_prob(probe, sum=True), ref.log_prob(probe, sum=True))
+            h, c = coord.get_carry(col)
+            note("carry", torch.stack([h, c]).cpu(), torch.stack(list(net._infer_lstm_state)).cpu())
+    rest = sorted(set(range(workers)) - set(cols))
+    errs["untouched"] = float(max(
+        (coord._hbuf[:, rest] - h0[:, rest]).abs().max(), (coord._cbuf[:, rest] - c0[:, rest]).abs().max()
+    )) if rest else 0.0
+    errs["buckets"] = buckets
+    errs["rows"] = rows
+    return errs
+
+
+def check_lockstep_round(label, model, tol):
+    """``lockstep_round_vs_sequential`` on traces of ``model`` that its
+    network served by lockstep (256 traces, vectorized=False), each error
+    held to ``tol`` (1 + the largest |reference|) and the other columns
+    untouched; returns the printable errors."""
+    import pyprob_tpu_torch as pp
+
+    traces = model.posterior(
+        256, observe=OBSERVE, vectorized=False,
+        inference_engine=pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
+    ).get_values()
+    errs = lockstep_round_vs_sequential(model._inference_network, OBSERVE, round_traces(traces))
+    for key in ("log_q", "head", "log_p", "carry"):
+        check(errs[key] <= tol * (1 + errs[key + "_ref"]),
+              f"{label}: lockstep round vs sequential step, {key} off by {errs[key]}")
+    check(errs["untouched"] == 0.0, f"{label}: the lockstep round wrote columns it did not answer")
+    return {"rows": len(errs["rows"]), "buckets": [[start, len(c)] for start, c in errs["buckets"]],
+            "tolerance": tol, **{k: errs[k] for k in ("log_q", "head", "log_p", "carry")}}
+
+
+def phase_marsaglia_lockstep_is(device, model):
+    """bench.py's Marsaglia serving run: 1,000 warm-up and 12,000 timed
+    traces of lockstep IC on the interpreter tier, judged as
+    bench.py:228-236 judges the arm (mean within 0.5; the ESS fraction
+    against the guard 0.009), with the stddev within 0.5 as every IS phase.
+    One serving's ESS fraction moves several-fold between draws of the same
+    network, so the guard holds the median of INTERPRETER["servings"]
+    servings, each served as the first (1,000 warm-up, 12,000 traces), the
+    first being the timed one.  Then one round of served sites against the
+    sequential step, row by row (``check_lockstep_round``), and 2,000
+    traces from the same network with the sequential loop
+    (lockstep=False), its ESS fraction printed."""
+    import numpy as np
+
+    post, seconds, launches, peak_gib, rounds = phase_interpreter_ic(
+        device, model, "Marsaglia lockstep IS", INTERPRETER["warm_up"], INTERPRETER["traces"]
+    )
+    n = INTERPRETER["traces"]
+    mean, std = check_posterior(post, "Marsaglia lockstep IS")
+    ess_fraction = post.effective_sample_size / n
+    fractions = [ess_fraction]
+    for _ in range(INTERPRETER["servings"] - 1):
+        more, _, _, _, _ = phase_interpreter_ic(
+            device, model, "Marsaglia lockstep IS", INTERPRETER["warm_up"], n
+        )
+        fractions.append(more.effective_sample_size / n)
+    ess_median = float(np.median(fractions))
+    check(ess_median >= MARSAGLIA["guard"],
+          f"Marsaglia lockstep IS: median ESS fraction {ess_median} of {fractions} < the bench's guard")
+    if device == "cuda":
+        check(launches["mixture_truncated_normal_log_prob"] >= 1,
+              "Marsaglia lockstep IS did not launch mixture_truncated_normal_log_prob")
+    round_check = check_lockstep_round("Marsaglia lockstep IS", model, LOCKSTEP_ROUND_TOL[device])
+    seq, seq_seconds, _, _, _ = phase_interpreter_ic(
+        device, model, "Marsaglia sequential IS", 0, INTERPRETER["sequential_traces"], lockstep=False
+    )
+    emit({
+        "phase": "marsaglia_lockstep_is", "traces": n, "seconds": seconds,
+        "traces_per_s": n / seconds, "mean": mean, "stddev": std, "ess_fraction": ess_fraction,
+        "ess_fraction_servings": fractions, "ess_fraction_median": ess_median,
+        "bench_guard": MARSAGLIA["guard"], "jax_test_floor": INTERPRETER["test_floor"],
+        "jax_test_floor_met": ess_fraction >= INTERPRETER["test_floor"],
+        "log_z": log_evidence(post, n), "log_z_analytic": LOG_EVIDENCE, **(rounds or {}),
+        "peak_memory_gib": peak_gib, "round_vs_sequential": round_check,
+        "sequential": {"traces": INTERPRETER["sequential_traces"], "seconds": seq_seconds,
+                       "traces_per_s": INTERPRETER["sequential_traces"] / seq_seconds,
+                       "mean": float(seq.mean),
+                       "ess_fraction": seq.effective_sample_size / INTERPRETER["sequential_traces"]},
+        "launches": launches,
+    })
+    return launches
+
+
+def phase_gum_lockstep_is(device, model):
+    """The lstm128 GUM network the train phase trained, served on the
+    interpreter tier with lockstep at 12,000 traces: the path of kernel 1
+    at the rows of a round; held to the GUM limits (mean and stddev within
+    0.5, ESS fraction >= 0.5), one round of 64 served traces against the
+    sequential step row by row, and 2,000 traces with the sequential loop,
+    whose ESS fraction must lie within INTERPRETER["relative_band"] of the
+    lockstep run's, relative to it."""
+    n = INTERPRETER["traces"]
+    post, seconds, launches, peak_gib, rounds = phase_interpreter_ic(
+        device, model, "GUM lockstep IS", INTERPRETER["warm_up"], n
+    )
+    mean, std = check_posterior(post, "GUM lockstep IS")
+    ess_fraction = post.effective_sample_size / n
+    check(ess_fraction >= 0.5, f"GUM lockstep IS: ESS fraction {ess_fraction}")
+    if device == "cuda":
+        check(launches["mixture_normal_log_prob"] >= 1, "GUM lockstep IS did not launch mixture_normal_log_prob")
+    round_check = check_lockstep_round("GUM lockstep IS", model, LOCKSTEP_ROUND_TOL[device])
+    m = INTERPRETER["sequential_traces"]
+    seq, seq_seconds, _, _, _ = phase_interpreter_ic(device, model, "GUM sequential IS", 0, m, lockstep=False)
+    seq_fraction = seq.effective_sample_size / m
+    check(abs(seq_fraction / ess_fraction - 1) <= INTERPRETER["relative_band"],
+          f"GUM IS: sequential ESS fraction {seq_fraction} vs lockstep {ess_fraction}")
+    emit({
+        "phase": "gum_lockstep_is", "lstm_dim": 128, "traces": n, "seconds": seconds,
+        "traces_per_s": n / seconds, "mean": mean, "stddev": std, "ess_fraction": ess_fraction,
+        **(rounds or {}), "peak_memory_gib": peak_gib, "round_vs_sequential": round_check,
+        "sequential": {"traces": m, "seconds": seq_seconds, "traces_per_s": m / seq_seconds,
+                       "mean": float(seq.mean), "ess_fraction": seq_fraction},
+        "launches": launches,
+    })
+    return launches
+
+
+def check_round_forwards(rows, components=MIXTURE_COMPONENTS, seed=0):
+    """Kernels 1 and 2 forward against their plain versions at a lockstep
+    round's ``rows``: finite values within 1e-5 (kernel 1) and 1e-5 + 1e-5
+    |ref| (kernel 2), -inf/NaN where the plain version has them, with the
+    special rows from 8 rows on.  Returns each kernel's inputs and error."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    out = {}
+    for name, inputs, rtol in (
+        ("mixture_normal_log_prob", mixture_inputs(rows, components, "cuda", seed), 0.0),
+        ("mixture_truncated_normal_log_prob", tnorm_inputs(rows, components, "cuda", seed)[:6], 1e-5),
+    ):
+        if rows >= 8:
+            set_special_rows(inputs)
+        got = getattr(K, name)(*inputs)
+        ref = getattr(K, name + "_plain")(*inputs)
+        where = f"{name} at B={rows}"
+        for what in (torch.isnan, torch.isposinf, torch.isneginf):
+            check(bool((what(got) == what(ref)).all()), f"{where}: {what.__name__} pattern")
+        finite = torch.isfinite(ref)
+        err = float((got - ref).abs()[finite].max()) if bool(finite.any()) else 0.0
+        excess = float(((got - ref).abs() - (1e-5 + rtol * ref.abs()))[finite].max()) if bool(finite.any()) else 0.0
+        check(excess <= 0, f"{where}: exceeds 1e-5 + {rtol}|ref| by {excess}")
+        out[name] = (inputs, err)
+    return out
+
+
+def phase_interpreter_kernel_shapes(train_rows, floor_ms):
+    """Kernels 2 and 2b held against their plain versions and timed at the
+    rows the interpreter's gather loss gave kernel 2 (min, median, max) and
+    at an odd count near 650; kernels 1 and 2 at the rows of lockstep
+    rounds (1, 7, 33, 64); each beside its bound and the launch floor."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    Kc = MIXTURE_COMPONENTS
+    checked = sorted({train_rows["min"], train_rows["median"], train_rows["max"], 651})
+    for n in checked:
+        small, small_out, small_g, fwd_err, bwd_err = check_tnorm(n, "cuda", seed=n)
+        emit_shape(
+            "mixture_truncated_normal_log_prob", lambda: K.mixture_truncated_normal_log_prob(*small),
+            lambda: K.mixture_truncated_normal_log_prob_plain(*small), *tnorm_cost(n, Kc), [n, Kc],
+            fwd_err, iters=100, path="interpreter training", launch_floor_ms=floor_ms,
+        )
+        emit_shape(
+            "mixture_truncated_normal_log_prob_backward",
+            lambda: K.mixture_truncated_normal_log_prob_backward(*small, small_out, small_g),
+            lambda: K.mixture_truncated_normal_log_prob_backward_plain(*small, small_out, small_g),
+            *tnorm_backward_cost(n, Kc), [n, Kc], bwd_err, iters=100, path="interpreter training",
+            launch_floor_ms=floor_ms,
+        )
+    for n in ROUND_ROWS:
+        got = check_round_forwards(n, seed=n)
+        for name, cost in (("mixture_normal_log_prob", mixture_cost), ("mixture_truncated_normal_log_prob", tnorm_cost)):
+            inputs, err = got[name]
+            emit_shape(
+                name, lambda: getattr(K, name)(*inputs), lambda: getattr(K, name + "_plain")(*inputs),
+                *cost(n, Kc), [n, Kc], err, iters=100, path="lockstep round", launch_floor_ms=floor_ms,
+            )
+    emit({"phase": "interpreter_kernel_checks", "training_rows": checked, "round_rows": list(ROUND_ROWS)})
+
+
 def gp_model(N):
     """The GP of the JAX package's test and chip study at N points, with its
     data y = synthesize(rng=3, lengthscale=1.0)."""
@@ -1623,7 +2059,7 @@ def main():
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the port computes in full f32")
     phase_build()
     rows = phase_kernels() + phase_linalg_kernels()
-    phase_launch_floor()
+    floor_ms = phase_launch_floor()
     phase_prior_is("cuda", NUM_TRACES)
     model, launches = phase_guided_is("cuda", NUM_TRACES, lstm_dim=512)
     phase_card_vs_cpu(model, 4096)
@@ -1632,8 +2068,10 @@ def main():
     # the mixture kernels at the arm's batch rows, the serving phases at
     # chunks of up to 2^18
     path = {"guided_is": launches}
+    trained_arms = {}
     for arm in ARMS:
         trained, path[f"train_lstm{arm['lstm_dim']}"] = phase_train("cuda", arm)
+        trained_arms[arm["lstm_dim"]] = trained
         path[f"guided_is_trained_lstm{arm['lstm_dim']}"] = phase_guided_is_trained(
             "cuda", trained, arm, NUM_TRACES)
     prior_fraction, path["marsaglia_prior_is"] = phase_marsaglia_prior_is("cuda", NUM_TRACES)
@@ -1642,6 +2080,13 @@ def main():
     path["marsaglia_guided_is_trained"] = phase_marsaglia_guided_is_trained(
         "cuda", marsaglia, NUM_TRACES, prior_fraction)
     phase_marsaglia_defensive_is("cuda", marsaglia, NUM_TRACES)
+    # bench.py's while-loop Marsaglia arm on the interpreter tier, and GUM
+    # served by lockstep
+    phase_marsaglia_interpreter_prior_is("cuda")
+    interpreted, path["marsaglia_interpreter_train"], train_rows = phase_marsaglia_interpreter_train("cuda")
+    path["marsaglia_lockstep_is"] = phase_marsaglia_lockstep_is("cuda", interpreted)
+    path["gum_lockstep_is"] = phase_gum_lockstep_is("cuda", trained_arms[128])
+    phase_interpreter_kernel_shapes(train_rows, floor_ms)
     for N, num_traces in GP_RUNS:
         path[f"gp_is_{N}x{num_traces}"] = phase_gp_is("cuda", N, num_traces)
     path[f"gp_is_{GP_LARGE[0]}x{GP_LARGE[1]}"] = phase_gp_is("cuda", *GP_LARGE, warm_up=False)

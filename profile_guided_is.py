@@ -11,10 +11,16 @@ serves GaussianUnknownMeanMarsagliaRejection instead, with a network
 trained first by bench.py's Marsaglia recipe (lstm_dim 128, 25,600
 traces), and adds the retry rounds per chunk.  With ``gp`` it runs prior
 IS of GaussianProcessRegression at N = 256 over 8,192 traces (``gp 512``:
-N = 512 over 2,048), the sizes of chip_smoke.py's GP phase.  Needs one
-CUDA card; run from the repository root:
+N = 512 over 2,048), the sizes of chip_smoke.py's GP phase.  With
+``lockstep`` it runs bench.py's while-loop Marsaglia arm on the
+interpreter tier, as chip_smoke.py's interpreter phases do (seed 123,
+25,600 training traces, then 12,000 traces of lockstep guided IS after
+1,000 to warm up, once without the profiler), and adds the rounds and the
+wall time spent answering them (host packing, device step and copies)
+against the workers' own.
+Needs one CUDA card; run from the repository root:
 
-    python3 profile_guided_is.py [marsaglia | gp [256 | 512]]
+    python3 profile_guided_is.py [marsaglia | lockstep | gp [256 | 512]]
 """
 
 import json
@@ -26,9 +32,11 @@ from torch.profiler import ProfilerActivity, profile
 
 import pyprob_tpu_torch as pp
 from chip_smoke import (
-    GP_RUNS, MARSAGLIA, NUM_TRACES, OBSERVE, gp_model, guided_model, marsaglia_train_kwargs,
+    GP_RUNS, INTERPRETER, MARSAGLIA, NUM_TRACES, OBSERVE, gp_model, guided_model,
+    marsaglia_train_kwargs,
 )
-from pyprob_tpu_torch.models import GaussianUnknownMeanMarsagliaRejection
+from pyprob_tpu_torch import interpreter_lockstep
+from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia, GaussianUnknownMeanMarsagliaRejection
 
 LSTM_DIM = 512
 
@@ -69,8 +77,25 @@ def main():
     pp.set_verbosity(0)
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
     arm = sys.argv[1] if len(sys.argv) > 1 else "gum"
-    num_traces, observe = NUM_TRACES, OBSERVE
-    if arm == "marsaglia":
+    num_traces, observe, vectorized = NUM_TRACES, OBSERVE, True
+    answer_s = []  # wall seconds of each lockstep round's answer
+    if arm == "lockstep":
+        lstm_dim, num_traces, vectorized = MARSAGLIA["lstm_dim"], INTERPRETER["traces"], False
+        pp.seed(INTERPRETER["seed"])
+        model = GaussianUnknownMeanMarsaglia()
+        model.learn_inference_network(num_traces=MARSAGLIA["train_traces"], **marsaglia_train_kwargs())
+        model.posterior_results(
+            INTERPRETER["warm_up"], observe=observe, vectorized=False, inference_engine=engine
+        )
+        answer = interpreter_lockstep.LockstepCoordinator._answer
+
+        def timed_answer(self, batch):
+            t0 = time.perf_counter()
+            answer(self, batch)
+            answer_s.append(time.perf_counter() - t0)
+
+        interpreter_lockstep.LockstepCoordinator._answer = timed_answer
+    elif arm == "marsaglia":
         lstm_dim = MARSAGLIA["lstm_dim"]
         model = GaussianUnknownMeanMarsagliaRejection()
         model.learn_inference_network(num_traces=MARSAGLIA["train_traces"], **marsaglia_train_kwargs())
@@ -86,10 +111,18 @@ def main():
 
     def run():
         return model.posterior_results(
-            num_traces, observe=observe, vectorized=True, inference_engine=engine
+            num_traces, observe=observe, vectorized=vectorized, inference_engine=engine
         )
 
-    run()  # warm-up
+    unprofiled = None
+    if vectorized:
+        run()  # warm-up
+    else:
+        t0 = time.perf_counter()
+        run()
+        unprofiled = {"wall_ms": (time.perf_counter() - t0) * 1e3, "rounds": len(answer_s),
+                      "answer_ms": sum(answer_s) * 1e3}
+        answer_s.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -118,6 +151,9 @@ def main():
         "rejection_rounds_per_chunk": [
             r for meta in post.metadata for r in meta.get("rejection_rounds", [])
         ],
+        "lockstep_rounds": len(answer_s) or None,
+        "lockstep_answer_ms": sum(answer_s) * 1e3 if answer_s else None,
+        "unprofiled": unprofiled,
     }), flush=True)
 
 

@@ -7,7 +7,9 @@ the CPU.  So far it trains an LSTM inference network online
 (``Model.learn_inference_network``) and serves importance sampling, from
 the prior and guided by that network, on its batched tier, for models
 with fixed structure and for rejection loops written with
-``rejection_sample``, and prior IS of GP regression
+``rejection_sample``; on its interpreter tier (one trace at a time on the
+host, lockstep guided IS) for models that branch on sampled values,
+trained through the gather-table loss; and prior IS of GP regression
 (``models.GaussianProcessRegression``), whose MultivariateNormal factors
 one kernel matrix per particle by a panel Cholesky.  The mixture-of-Normals
 and mixture-of-truncated-Normals log-densities (forward and backward), the

@@ -9,20 +9,31 @@ target, so the string is stable across interpreter versions.
 The markers differ from the JAX package's: its internal marker
 ``"pyprob_tpu"`` is a prefix of this package's path, so this package skips
 frames under ``pyprob_tpu_torch`` and treats its built-in model families
-(``pyprob_tpu_torch/models``) as user code.
+(``pyprob_tpu_torch/models``) as user code.  Frames of ``torch`` (a
+decorated function) and of ``threading`` (a lockstep worker's thread) are
+skipped too, so a site gets the same address whether its trace runs
+sequentially or on a worker thread.
 """
 
 from __future__ import annotations
 
 import linecache
+import os
 import re
 import sys
+import threading
 from functools import lru_cache
+
+import torch
 
 _ASSIGN_RE = re.compile(r"^\s*([A-Za-z_][\w\.]*(?:\[[^\]]*\])?)\s*=[^=]")
 _RETURN_RE = re.compile(r"^\s*return\b")
 
-_INTERNAL_MARKERS = ("pyprob_tpu_torch",)
+_INTERNAL_MARKERS = (
+    "pyprob_tpu_torch",
+    os.path.dirname(torch.__file__) + os.sep,
+    threading.__file__,
+)
 _USER_MARKERS = ("pyprob_tpu_torch/models",)
 
 

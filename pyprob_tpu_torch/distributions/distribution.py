@@ -1,7 +1,9 @@
 """Distribution base class (counterpart of
 ``pyprob_tpu/distributions/distribution.py``).
 
-Parameters are float32 tensors on one device.  Sampling takes an explicit
+Parameters are float32 tensors on one device: that of a tensor argument,
+else ``util.param_device()`` (the CPU inside an interpreter-tier trace,
+else the entry points' device).  Sampling takes an explicit
 ``torch.Generator``; with none, the generator of the parameters' device
 that ``pyprob_tpu_torch.seed`` installs is used.  On the batched tier a
 distribution's parameters are scalars or ``[N]`` tensors over the particle
@@ -19,7 +21,16 @@ def _common_device(*values):
     for v in values:
         if isinstance(v, torch.Tensor):
             return v.device
-    return util.device()
+    return util.param_device()
+
+
+def _broadcast_shapes(*shapes):
+    """``torch.broadcast_shapes``, with a fast path for equal shapes (the
+    interpreter tier builds distributions of 0-d tensors at every site)."""
+    first = tuple(shapes[0])
+    if all(tuple(s) == first for s in shapes[1:]):
+        return first
+    return tuple(torch.broadcast_shapes(*shapes))
 
 
 class Distribution:

@@ -7,7 +7,7 @@ import math
 import torch
 
 from .. import util
-from .distribution import Distribution, _common_device
+from .distribution import Distribution, _broadcast_shapes, _common_device
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -22,7 +22,7 @@ class Normal(Distribution):
         self._finish_init()
 
     def _finish_init(self):
-        batch_shape = torch.broadcast_shapes(self._loc.shape, self._scale.shape)
+        batch_shape = _broadcast_shapes(self._loc.shape, self._scale.shape)
         super().__init__(
             name="Normal", address_suffix="Normal", batch_shape=batch_shape
         )

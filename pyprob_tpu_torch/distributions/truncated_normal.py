@@ -15,7 +15,7 @@ import math
 import torch
 
 from .. import util
-from .distribution import Distribution, _common_device
+from .distribution import Distribution, _broadcast_shapes, _common_device
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 _INV_SQRT_2 = 1.0 / math.sqrt(2.0)
@@ -42,7 +42,7 @@ class TruncatedNormal(Distribution):
         self._finish_init()
 
     def _finish_init(self):
-        batch_shape = torch.broadcast_shapes(
+        batch_shape = _broadcast_shapes(
             self._mean_non_truncated.shape,
             self._stddev_non_truncated.shape,
             self._low.shape,
@@ -100,7 +100,7 @@ class TruncatedNormal(Distribution):
         xi = (x - mu) / sigma
         lp = -0.5 * xi * xi - _LOG_SQRT_2PI - torch.log(sigma) - torch.log(z)
         inside = (x >= self._low) & (x <= self._high)
-        lp = torch.where(inside, lp, torch.tensor(-math.inf, device=lp.device))
+        lp = torch.where(inside, lp, -math.inf)
         return lp.sum() if sum else lp
 
     @property

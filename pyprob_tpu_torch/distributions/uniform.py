@@ -7,7 +7,7 @@ import math
 import torch
 
 from .. import util
-from .distribution import Distribution, _common_device
+from .distribution import Distribution, _broadcast_shapes, _common_device
 
 
 class Uniform(Distribution):
@@ -20,7 +20,7 @@ class Uniform(Distribution):
         self._finish_init()
 
     def _finish_init(self):
-        batch_shape = torch.broadcast_shapes(self._low.shape, self._high.shape)
+        batch_shape = _broadcast_shapes(self._low.shape, self._high.shape)
         super().__init__(
             name="Uniform", address_suffix="Uniform", batch_shape=batch_shape
         )
@@ -47,7 +47,7 @@ class Uniform(Distribution):
         value = util.to_tensor(value, self._low.device)
         inside = (value >= self._low) & (value <= self._high)
         lp = torch.where(
-            inside, -torch.log(self._high - self._low), torch.tensor(-math.inf, device=value.device)
+            inside, -torch.log(self._high - self._low), -math.inf
         )
         return lp.sum() if sum else lp
 

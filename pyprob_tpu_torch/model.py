@@ -3,21 +3,35 @@
 The user subclasses ``Model`` and implements ``forward`` calling
 ``pyprob_tpu_torch.sample`` / ``observe``.  The port runs the prior and
 importance sampling, from the prior (IS) or from an inference network
-(IC), on the batched tier (``pyprob_tpu_torch.vectorized``), and trains
-an LSTM inference network online (``learn_inference_network``).  The
-interpreter tier, MCMC and the other engines, the feedforward network and
-offline datasets come with later slices and raise ``NotImplementedError``.
+(IC), on two tiers: the batched tier (``pyprob_tpu_torch.vectorized``, N
+particles a ``forward`` call) and the interpreter tier (``state.py``, one
+trace at a time on the host).  ``vectorized=True`` asks for the first,
+``False`` for the second; ``None`` tries the batched tier and falls back
+to the interpreter for a model whose ``forward`` cannot run there (it
+branches on sampled values), remembering that per model class.  IC on the
+interpreter tier runs lockstep by default (``interpreter_lockstep.py``).
+It trains an LSTM inference network online (``learn_inference_network``).
+MCMC and the other engines, the feedforward network and offline datasets
+come with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from . import util
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from . import state, util
+from .distributions import Empirical
 from .util import (
     InferenceEngine,
     InferenceNetwork,
     LearningRateScheduler,
     Optimizer,
     PriorInflation,
+    TraceMode,
 )
 
 
@@ -25,13 +39,19 @@ def trace_result(trace):
     return trace.result
 
 
-def _batched_only(vectorized):
-    if vectorized is False:
-        from .vectorized import _INTERPRETER_LATER
+def trace_id(trace):
+    return trace
 
-        raise NotImplementedError(
-            f"vectorized=False asks for the interpreter tier, and {_INTERPRETER_LATER}"
-        )
+
+def empirical_of(values, log_weights):
+    """An Empirical of the kept traces' mapped values: one numpy array when
+    every value is a number or a tensor of one shape, else the list."""
+    numeric = (float, int, np.ndarray, np.generic, torch.Tensor)
+    if values and all(isinstance(v, numeric) for v in values):
+        arrays = [np.asarray(v) for v in values]
+        if len({a.shape for a in arrays}) == 1:
+            return Empirical.from_arrays(np.stack(arrays), log_weights)
+    return Empirical(values=values, log_weights=log_weights)
 
 
 class Model:
@@ -44,6 +64,89 @@ class Model:
 
     def forward(self):
         raise RuntimeError("Model instances must provide a forward method.")
+
+    # ------------------------------------------------------------------
+    # trace generation (interpreter tier)
+    # ------------------------------------------------------------------
+    def _trace_generator(
+        self,
+        trace_mode=TraceMode.PRIOR,
+        prior_inflation=PriorInflation.DISABLED,
+        inference_engine=InferenceEngine.IMPORTANCE_SAMPLING,
+        inference_network=None,
+        observe=None,
+        likelihood_importance=1.0,
+        *args,
+        **kwargs,
+    ):
+        state._init_traces(
+            func=self.forward,
+            trace_mode=trace_mode,
+            prior_inflation=prior_inflation,
+            inference_engine=inference_engine,
+            inference_network=inference_network,
+            observe=observe,
+            likelihood_importance=likelihood_importance,
+        )
+        while True:
+            state._begin_trace()
+            try:
+                result = self.forward(*args, **kwargs)
+            except BaseException:
+                state._abort_trace()
+                raise
+            yield state._end_trace(result)
+
+    def _traces(
+        self,
+        num_traces=10,
+        trace_mode=TraceMode.PRIOR,
+        prior_inflation=PriorInflation.DISABLED,
+        inference_engine=InferenceEngine.IMPORTANCE_SAMPLING,
+        inference_network=None,
+        map_func=None,
+        silent=False,
+        observe=None,
+        file_name=None,
+        likelihood_importance=1.0,
+        *args,
+        **kwargs,
+    ):
+        """``num_traces`` interpreter-tier traces, one after another, as an
+        Empirical of ``map_func(trace)`` (the trace itself by default);
+        traces with a NaN or infinite weight are discarded."""
+        if file_name is not None:
+            raise NotImplementedError("file-backed Empirical results come with the storage slice")
+        generator = self._trace_generator(
+            trace_mode=trace_mode,
+            prior_inflation=prior_inflation,
+            inference_engine=inference_engine,
+            inference_network=inference_network,
+            observe=observe,
+            likelihood_importance=likelihood_importance,
+            *args,
+            **kwargs,
+        )
+        map_func = map_func or trace_id
+        values, log_weights = [], []
+        time_start = time.time()
+        for _ in range(num_traces):
+            trace = next(generator)
+            log_weight = 1.0 if trace_mode == TraceMode.PRIOR else float(trace.log_importance_weight)
+            if not np.isfinite(log_weight):
+                warnings.warn("Encountered trace with nan/inf log_weight. Discarding trace.")
+                continue
+            values.append(map_func(trace))
+            log_weights.append(log_weight)
+        emp = empirical_of(values, log_weights)
+        if not silent and util.verbosity() > 1:
+            duration = time.time() - time_start
+            util.log_print(
+                f"[interpreter tier] {num_traces:,} traces in {duration:.3f}s "
+                f"({num_traces / max(duration, 1e-9):,.0f} traces/s), "
+                f"ESS {emp.effective_sample_size:,.1f}"
+            )
+        return emp
 
     # ------------------------------------------------------------------
     # prior
@@ -59,18 +162,37 @@ class Model:
         *args,
         **kwargs,
     ):
-        _batched_only(vectorized)
-        from .vectorized import vectorized_prior
+        if vectorized is not False:
+            from .vectorized import vectorized_prior
 
-        return vectorized_prior(
-            self,
+            prior = vectorized_prior(
+                self,
+                num_traces=num_traces,
+                prior_inflation=prior_inflation,
+                map_func=map_func,
+                file_name=file_name,
+                fallback=vectorized is None,
+                *args,
+                **kwargs,
+            )
+            if prior is not None:
+                return prior
+        prior = self._traces(
             num_traces=num_traces,
+            trace_mode=TraceMode.PRIOR,
             prior_inflation=prior_inflation,
             map_func=map_func,
             file_name=file_name,
+            likelihood_importance=likelihood_importance,
             *args,
             **kwargs,
         )
+        prior.rename(f"Prior, traces: {prior.length:,}")
+        prior.add_metadata(
+            op="prior", num_traces=num_traces, prior_inflation=str(prior_inflation),
+            likelihood_importance=likelihood_importance,
+        )
+        return prior
 
     def prior_results(
         self,
@@ -104,23 +226,82 @@ class Model:
         file_name=None,
         likelihood_importance=1.0,
         vectorized=None,
+        lockstep=None,
         *args,
         **kwargs,
     ):
-        _batched_only(vectorized)
-        from .vectorized import vectorized_posterior
+        """IS from the prior or from the inference network (IC).  On the
+        interpreter tier IC runs lockstep when ``num_traces >= 8``: a pool
+        of worker threads (64, or ``lockstep`` when it is an int) whose
+        proposal sites are answered a round at a time by one batched
+        network step on the card; ``lockstep=False`` runs the sequential
+        loop, one network step a site."""
+        if vectorized is not False:
+            from .vectorized import vectorized_posterior
 
-        return vectorized_posterior(
-            self,
-            num_traces=num_traces,
-            inference_engine=inference_engine,
-            map_func=map_func,
-            observe=observe,
-            file_name=file_name,
-            likelihood_importance=likelihood_importance,
-            *args,
-            **kwargs,
+            posterior = vectorized_posterior(
+                self,
+                num_traces=num_traces,
+                inference_engine=inference_engine,
+                map_func=map_func,
+                observe=observe,
+                file_name=file_name,
+                likelihood_importance=likelihood_importance,
+                fallback=vectorized is None,
+                *args,
+                **kwargs,
+            )
+            if posterior is not None:
+                return posterior
+        if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
+            network, label = None, "IS"
+        elif inference_engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK:
+            network, label = self._inference_network, "IC"
+            if network is None:
+                raise RuntimeError(
+                    "No inference network available. Use learn_inference_network "
+                    "or load_inference_network first."
+                )
+        else:
+            raise state._engines_later(inference_engine.name)
+        if network is not None and lockstep is not False and num_traces >= 8:
+            from .interpreter_lockstep import lockstep_interpreter_traces
+
+            posterior = lockstep_interpreter_traces(
+                self,
+                num_traces=num_traces,
+                inference_network=network,
+                observe=observe,
+                map_func=map_func,
+                file_name=file_name,
+                likelihood_importance=likelihood_importance,
+                num_workers=lockstep if isinstance(lockstep, int) and not isinstance(lockstep, bool) else None,
+                args=args,
+                kwargs=kwargs,
+            )
+        else:
+            posterior = self._traces(
+                num_traces=num_traces,
+                trace_mode=TraceMode.POSTERIOR,
+                inference_engine=inference_engine,
+                inference_network=network,
+                map_func=map_func,
+                observe=observe,
+                file_name=file_name,
+                likelihood_importance=likelihood_importance,
+                *args,
+                **kwargs,
+            )
+        posterior.rename(
+            f"Posterior, {label}, traces: {posterior.length:,}, "
+            f"ESS: {posterior.effective_sample_size:,.2f}"
         )
+        posterior.add_metadata(
+            op="posterior", num_traces=num_traces, inference_engine=str(inference_engine),
+            effective_sample_size=posterior.effective_sample_size,
+            likelihood_importance=likelihood_importance,
+        )
+        return posterior
 
     def posterior_results(
         self,

@@ -2,15 +2,17 @@
 
 * GaussianUnknownMean: the conjugate one-latent model with an analytic
   posterior, the main path's model.
-* GaussianUnknownMeanMarsagliaRejection: the same posterior with the prior
-  drawn by Marsaglia's polar method, a rejection loop written with the
+* GaussianUnknownMeanMarsaglia: the same posterior with the prior drawn by
+  Marsaglia's polar method in a plain ``while True:`` loop that branches
+  on ``float`` of the sampled values: each attempt's sites get new address
+  instances, and the model runs on the interpreter tier.
+* GaussianUnknownMeanMarsagliaRejection: the same loop written with the
   ``rejection_sample`` combinator, so the model runs on the batched tier.
 * GaussianProcessRegression: GP regression with the latent function
   marginalized out, one [N, N] kernel matrix and its Cholesky factor per
   particle.
 
-The other families, among them the plain while-loop Marsaglia model of the
-interpreter tier, come with later slices.
+The other families come with later slices.
 """
 
 from __future__ import annotations
@@ -53,6 +55,32 @@ class GaussianUnknownMean(Model):
         var = 1.0 / (1.0 / s2_prior + n / s2_lik)
         mean = var * (self.prior_mean / s2_prior + sum(observed_values) / s2_lik)
         return mean, math.sqrt(var)
+
+
+class GaussianUnknownMeanMarsaglia(Model):
+    def __init__(
+        self, prior_mean=1.0, prior_stddev=math.sqrt(5.0), likelihood_stddev=math.sqrt(2.0)
+    ):
+        super().__init__(name="Gaussian with unknown mean (Marsaglia)")
+        self.prior_mean = prior_mean
+        self.prior_stddev = prior_stddev
+        self.likelihood_stddev = likelihood_stddev
+
+    def marsaglia(self, mean, stddev):
+        uniform = Uniform(-1.0, 1.0)
+        while True:
+            x = sample(uniform)
+            y = sample(uniform)
+            s = float(x) ** 2 + float(y) ** 2
+            if s < 1:
+                return mean + stddev * (float(x) * math.sqrt(-2 * math.log(s) / s))
+
+    def forward(self):
+        mu = self.marsaglia(self.prior_mean, self.prior_stddev)
+        likelihood = Normal(mu, self.likelihood_stddev)
+        observe(likelihood, name="obs0")
+        observe(likelihood, name="obs1")
+        return mu
 
 
 class GaussianUnknownMeanMarsagliaRejection(Model):

@@ -7,8 +7,11 @@ dataset draws fresh traces from the model in
 ``PRIOR_FOR_INFERENCE_NETWORK`` mode on the batched tier: ``next_batch``
 materializes them (the first batch of a training call, which grows the
 network's per-address layers), ``next_device_batch`` leaves them on the
-device for the training hot loop.  The offline datasets and their
-samplers come with the offline-dataset slice.
+device for the training hot loop.  A model that cannot run on the batched
+tier (it branches on sampled values) draws its batches on the interpreter
+tier, one trace at a time, and ``next_device_batch`` returns None for it.
+The offline datasets and their samplers come with the offline-dataset
+slice.
 """
 
 from __future__ import annotations
@@ -79,9 +82,8 @@ def prune_trace(trace):
 
 class OnlineDataset:
     """Infinite dataset of fresh prior traces (observes receive sampled
-    values) drawn on the batched tier.  A model that branches on sampled
-    values raises there: the interpreter tier that would run it comes
-    with the interpreter slice."""
+    values), drawn on the batched tier when the model runs there, else on
+    the interpreter tier."""
 
     def __init__(self, model, prior_inflation=PriorInflation.DISABLED):
         self._model = model
@@ -91,7 +93,8 @@ class OnlineDataset:
         return self.next_batch(1)[0]
 
     def next_batch(self, batch_size):
-        """``batch_size`` pruned, materialized training traces."""
+        """``batch_size`` pruned, materialized training traces: one batched
+        run, or the interpreter loop for a model that cannot run batched."""
         from ..vectorized import vectorized_traces
 
         emp = vectorized_traces(
@@ -99,12 +102,28 @@ class OnlineDataset:
             batch_size,
             TraceMode.PRIOR_FOR_INFERENCE_NETWORK,
             prior_inflation=self._prior_inflation,
+            fallback=True,
         )
-        return [prune_trace(t) for t in emp.get_values()]
+        if emp is not None:
+            return [prune_trace(t) for t in emp.get_values()]
+        return self._model._traces(
+            num_traces=batch_size,
+            trace_mode=TraceMode.PRIOR_FOR_INFERENCE_NETWORK,
+            prior_inflation=self._prior_inflation,
+            map_func=prune_trace,
+            silent=True,
+        ).get_values()
 
     def next_device_batch(self, batch_size):
         """(outputs, sites) of one batched run, outputs on the device as
-        ``[B]`` tensors."""
-        from ..vectorized import run_training_batch
+        ``[B]`` tensors; None for a model that cannot run batched (its
+        class is marked, as ``vectorized_traces`` marks it)."""
+        from ..vectorized import _TraceabilityCache, run_training_batch
 
-        return run_training_batch(self._model, batch_size, self._prior_inflation)
+        if _TraceabilityCache.known_untraceable(self._model):
+            return None
+        try:
+            return run_training_batch(self._model, batch_size, self._prior_inflation)
+        except NotImplementedError:
+            _TraceabilityCache.mark(self._model, False)
+            return None

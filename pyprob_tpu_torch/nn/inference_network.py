@@ -14,14 +14,22 @@ serving never records an autograd graph.
 ``optimize`` ports the online, single-process path without validation.
 The loop is the JAX package's fused online loop at one step per
 dispatch: each step draws a device batch, packs it, takes loss/B and
-grads/B, updates and folds the EMA, with no ``lax.scan``.  Offline
+grads/B, updates and folds the EMA, with no ``lax.scan``.  A model that
+runs only on the interpreter tier trains on materialized batches instead,
+as the JAX package's generic loop does: each is polymorphed, and when it
+grows new layers the optimizer is recreated with fresh state.  Offline
 datasets, validation and keep-best selection, checkpoints, LARC and
 distributed training raise ``NotImplementedError`` naming their slice.
+
+Stepwise inference on the interpreter tier (``_infer_init``,
+``_infer_begin_trace`` and the subclass's ``_infer_step``) keeps its
+per-trace state per thread, and the observe embedding of a run once.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -55,6 +63,10 @@ class InferenceNetwork:
         self._ema_decay = None
         self._ema_steps = 0
         self._vps_cache = None
+        self._serving_memo = None  # (key, parameters) of _serving_params
+        # per-trace inference state, one per thread (lockstep workers)
+        self._infer_tls = threading.local()
+        self._infer_emb_cache = None
         # optimizer and schedule, latched by the first optimize() call
         self._optimizer = None  # a torch.optim optimizer over tensor_leaves(_params)
         self._optimizer_type = None
@@ -90,6 +102,7 @@ class InferenceNetwork:
         self._ema_params = map_tensors(self._ema_params, move)
         self._device = device
         self._vps_cache = None
+        self._serving_memo = None
         if self._optimizer is not None:
             self._create_optimizer(self._optimizer.state_dict())
         return self
@@ -216,12 +229,67 @@ class InferenceNetwork:
     # ------------------------------------------------------------------
     def _serving_params(self):
         """The parameters serving reads: the debiased Polyak/EMA average
-        ``ema/(1-d^t)`` when training kept one, else the raw parameters."""
+        ``ema/(1-d^t)`` when training kept one, else the raw parameters
+        (detached).  Memoized until training, ``to`` or a restore changes
+        them (or polymorph grows them): the interpreter tier asks once a
+        site."""
+        key = (
+            self._total_train_iterations, self._ema_steps, id(self._params), id(self._ema_params),
+            sum(len(v) for v in self._params.values() if isinstance(v, dict)),  # polymorph
+        )
+        if self._serving_memo is not None and self._serving_memo[0] == key:
+            return self._serving_memo[1]
         if self._ema_params is None or self._ema_steps == 0:
-            return map_tensors(self._params, torch.Tensor.detach)
-        scale = 1.0 / (1.0 - float(self._ema_decay) ** self._ema_steps)
-        with torch.no_grad():
-            return map_tensors(self._ema_params, lambda t: t * scale)
+            params = map_tensors(self._params, torch.Tensor.detach)
+        else:
+            scale = 1.0 / (1.0 - float(self._ema_decay) ** self._ema_steps)
+            with torch.no_grad():
+                params = map_tensors(self._ema_params, lambda t: t * scale)
+        self._serving_memo = (key, params)
+        return params
+
+    def _head_key(self, address):
+        """The key per-address layers are stored under: the full address
+        (tied address instances, which strip the instance, come with the
+        Markov/SMC slice)."""
+        return address
+
+    # ------------------------------------------------------------------
+    # stepwise inference, interpreter tier
+    # ------------------------------------------------------------------
+    @property
+    def _infer_observe_embedding(self):
+        return getattr(self._infer_tls, "observe_embedding", None)
+
+    @_infer_observe_embedding.setter
+    def _infer_observe_embedding(self, v):
+        self._infer_tls.observe_embedding = v
+
+    def _infer_init(self, observe=None):
+        """Set up stepwise inference for a run observing ``observe``: the
+        observe embedding ``[1, O]`` on the network's device, computed once
+        for an unchanged ``observe`` dict and network."""
+        key = (id(observe), self._total_train_iterations)
+        cached = self._infer_emb_cache
+        if cached is not None and cached[0] == key and cached[1] is observe:
+            emb = cached[2]
+        else:
+            params = self._serving_params()
+            obs = {
+                name: util.to_tensor(observe[name], self._device).reshape(1, -1)
+                for name in params["observe"].keys()
+            }
+            with torch.no_grad():
+                emb = self._embed_observe_pure(params, obs)
+            self._infer_emb_cache = (key, observe, emb)
+        self._infer_observe_embedding = emb
+        self._infer_begin_trace()
+
+    def _infer_begin_trace(self):
+        """Hook: reset the per-trace inference state."""
+
+    def _infer_step(self, variable, prev_variable=None, proposal_min_train_iterations=None):
+        raise NotImplementedError()
 
     def make_vectorized_proposal_step(self, observe):
         """A proposal step for the batched tier, or None if unsupported."""
@@ -306,6 +374,7 @@ class InferenceNetwork:
         if training:
             self._create_optimizer(self._optimizer.state_dict())
         self._vps_cache = None
+        self._serving_memo = None
 
     # ------------------------------------------------------------------
     # Polyak/EMA parameter averaging
@@ -421,6 +490,10 @@ class InferenceNetwork:
         for addr in addrs:
             self._head_train_iterations[addr] = self._head_train_iterations.get(addr, 0) + 1
 
+    def _batch_addresses(self, batch):
+        """The controlled addresses a batch trains, each once."""
+        return dict.fromkeys(a for addrs, _, _ in self._trace_types(batch) for a in addrs)
+
     @staticmethod
     def _trace_types(batch):
         """(addrs, dist_names, sub-batch or None) per trace type of a batch."""
@@ -438,22 +511,36 @@ class InferenceNetwork:
     def _loss_and_grad(self, batch):
         """Loss/B of a batch, with grads/B left in the leaves' ``.grad``
         (zeros for leaves no trace type reads, as the JAX package pads
-        them).  Returns the loss as a 0-d device tensor."""
+        them): the gather-table loss when the subclass serves the batch
+        with it, else one per-type loss per trace type.  Returns the loss
+        as a 0-d device tensor."""
         leaves = tensor_leaves(self._params)
         for p in leaves:
             p.grad = None
-        total = None
-        for addrs, dist_names, sub_batch in self._trace_types(batch):
-            packed = batch.packed if sub_batch is None else self._pack_sub_batch(sub_batch)
-            _, loss_fn = self._make_loss_for(addrs, dist_names)
-            loss = loss_fn(self._loss_params_subset(addrs, dist_names), packed)
-            total = loss if total is None else total + loss
-        loss = total / batch.size
+        loss = self._try_gather_loss(batch)
+        if loss is None:
+            loss = self._per_type_loss(batch)
         loss.backward()
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return loss.detach()
+
+    def _per_type_loss(self, batch):
+        """Loss/B of a batch as one per-type loss per trace type."""
+        total = None
+        for addrs, dist_names, sub_batch in self._trace_types(batch):
+            packed = batch.packed if sub_batch is None else self._pack_sub_batch(sub_batch)
+            _, loss_fn = self._make_loss_for(addrs, dist_names)
+            part = loss_fn(self._loss_params_subset(addrs, dist_names), packed)
+            total = part if total is None else total + part
+        return total / batch.size
+
+    def _try_gather_loss(self, batch):
+        """Subclass hook: the gather-table loss/B of a materialized batch of
+        mixed trace types (``gather_loss.py``), or None for the per-type
+        loss."""
+        return None
 
     def _create_optimizer(self, state_dict=None):
         """A fresh optimizer over the parameter leaves (made trainable
@@ -540,7 +627,11 @@ class InferenceNetwork:
 
     def _online_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss,
                          log_file, time_start, prev_total_train_seconds):
-        """The online loop, one optimizer step per device batch."""
+        """The online loop, one optimizer step per batch: device batches
+        for a model that runs on the batched tier, materialized ones for a
+        model that runs only on the interpreter tier.  A materialized batch
+        is polymorphed first, and when it grew new layers the optimizer is
+        recreated with fresh state, as the JAX package's loop does."""
         state = {"time_last_batch": time_start, "last_print": time_start - util._print_refresh_rate}
         # first batch: materialized, for polymorph and one step; a loaded
         # optimizer state survives unless the parameter structure changed
@@ -552,8 +643,7 @@ class InferenceNetwork:
         lr = self._current_learning_rate()
         if not (math.isnan(loss) or math.isinf(loss)):
             self._optimizer_step(lr)
-            for addrs, _, _ in self._trace_types(first):
-                self._bump_head_iterations(addrs)
+            self._bump_head_iterations(self._batch_addresses(first))
             self._total_train_iterations += 1
             self._total_train_traces += first.size
             self._ema_update_host()
@@ -561,19 +651,24 @@ class InferenceNetwork:
         trace_count = first.size
         while trace_count < num_traces:
             lr = self._current_learning_rate()
-            outputs, sites = dataset.next_device_batch(batch_size)
-            batch = self._packed_batch_from_outputs(outputs, sites, batch_size)
+            device_batch = dataset.next_device_batch(batch_size)
+            if device_batch is None:
+                batch = Batch(dataset.next_batch(batch_size))
+                if self._polymorph(batch):
+                    self._create_optimizer()
+            else:
+                batch = self._packed_batch_from_outputs(*device_batch, batch_size)
             loss_dev = self._loss_and_grad(batch)
             self._optimizer_step(lr)
             self._ema_update_host()
-            self._bump_head_iterations(batch.addrs)
+            self._bump_head_iterations(self._batch_addresses(batch))
             self._total_train_iterations += 1
-            trace_count += batch_size
-            self._total_train_traces += batch_size
+            trace_count += batch.size
+            self._total_train_traces += batch.size
             # the step's one host sync: the loss, read after the update
             # was enqueued
             ok = self._record_loss(
-                float(loss_dev), lr, batch_size, time_start, prev_total_train_seconds,
+                float(loss_dev), lr, batch.size, time_start, prev_total_train_seconds,
                 state, log_file,
             )
             if not ok and stop_with_bad_loss:

@@ -14,12 +14,19 @@ pre-block state and each lane continues from its accepted attempt's.
 The training loss (``_make_loss_for``) runs the same layers over a packed
 ``[B]`` batch, one ``lstm_step`` per controlled site, and is −Σ log q of
 the batch's values, its gradient reaching the heads through the mixture
-kernels' backward.
+kernels' backward.  A materialized batch of several trace types (a
+variable-structure model on the interpreter tier) takes the gather-table
+loss instead (``gather_loss.py``): one pass over the batch, the heads of
+every active (step, trace) cell scored by one mixture-kernel call.  On the
+interpreter tier ``_infer_step`` proposes one site of one trace: an LSTM
+step and a head at one row on the network's device, its output copied to
+the host once, the proposal returned with CPU parameters.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -41,8 +48,10 @@ from .layers import (
     mlp_init,
     mlp_to_numpy,
 )
+from . import gather_loss as gl
 from .proposals import (
     head_apply,
+    head_distribution,
     head_from_numpy,
     head_init,
     head_kind_for,
@@ -77,6 +86,16 @@ class InferenceNetworkLSTM(InferenceNetwork):
         self._address_embedding_dim = address_embedding_dim
         self._distribution_type_embedding_dim = distribution_type_embedding_dim
         self._proposal_mixture_components = proposal_mixture_components
+        self._gather_used = False
+        self._gather_reg = None  # (version, GatherRegistry)
+
+    @property
+    def _infer_lstm_state(self):
+        return getattr(self._infer_tls, "lstm_state", None)
+
+    @_infer_lstm_state.setter
+    def _infer_lstm_state(self, v):
+        self._infer_tls.lstm_state = v
 
     def _init_layers(self):
         self._lstm_input_dim = (
@@ -293,6 +312,98 @@ class InferenceNetworkLSTM(InferenceNetwork):
             return total
 
         return ("lstm", tuple(addrs)), loss_fn
+
+    # ------------------------------------------------------------------
+    # gather-table loss (gather_loss.py)
+    # ------------------------------------------------------------------
+    def _gather_registry(self):
+        version = gl.GatherRegistry.version_of(self._params)
+        if self._gather_reg is None or self._gather_reg[0] != version:
+            self._gather_reg = (version, gl.GatherRegistry(self._params))
+        return self._gather_reg[1]
+
+    def _prepare_gather(self, batch):
+        """(registry, packed, head group, sample-embedding group, addresses)
+        for a materialized batch the gather loss serves, else None.  A
+        batch of one trace type keeps the per-type loss until the gather
+        loss has served this network once."""
+        if not getattr(batch, "traces", None):
+            return None
+        if len(batch.sub_batches) <= 1 and not self._gather_used:
+            return None
+        reg = self._gather_registry()
+        prep = gl.pack_batch(self, reg, batch)
+        if prep is None:
+            return None
+        self._gather_used = True
+        return (reg,) + prep
+
+    def _try_gather_loss(self, batch):
+        prep = self._prepare_gather(batch)
+        if prep is None:
+            return None
+        reg, packed, head_gkey, semb_gkey, _ = prep
+        tables = gl.stack_tables(self._params, reg, head_gkey, semb_gkey)
+        return gl.make_gather_loss(self._embed_observe_pure)(tables, packed)
+
+    # ------------------------------------------------------------------
+    # stepwise inference, interpreter tier
+    # ------------------------------------------------------------------
+    def _infer_begin_trace(self):
+        self._infer_lstm_state = None
+
+    @torch.no_grad()
+    def _infer_step(self, variable, prev_variable=None, proposal_min_train_iterations=None):
+        """The proposal of ``variable``'s site given the previous controlled
+        variable of the trace (None at its first), with CPU parameters; the
+        prior itself where the network has no proposal for the site."""
+        address = self._head_key(variable.address)
+        distribution = variable.distribution
+        params = self._serving_params()
+        device = self._device
+        S, A, D = (
+            self._sample_embedding_dim,
+            self._address_embedding_dim,
+            self._distribution_type_embedding_dim,
+        )
+        if prev_variable is None:
+            self._infer_lstm_state = lstm_zero_state(params["lstm"], (1,), device)
+            prev_sample_emb = torch.zeros((1, S), dtype=util.dtype(), device=device)
+            prev_addr_emb = torch.zeros((A,), dtype=util.dtype(), device=device)
+            prev_dist_emb = torch.zeros((D,), dtype=util.dtype(), device=device)
+        else:
+            prev_address = self._head_key(prev_variable.address)
+            if prev_address not in params["address_embedding"]:
+                warnings.warn(f"Address of previous variable unknown by inference network: {prev_address}")
+                return distribution
+            prev_value = util.to_tensor(prev_variable.value, device).reshape(1, -1)
+            prev_sample_emb = mlp_apply(params["sample_embedding"][prev_address], prev_value)
+            prev_addr_emb = params["address_embedding"][prev_address]
+            prev_dist_emb = params["dist_type_embedding"][prev_variable.distribution.name]
+        if address not in params["address_embedding"]:
+            warnings.warn(f"Using prior. No proposal for address: {address}")
+            return distribution
+        if (
+            proposal_min_train_iterations is not None
+            and self._head_train_iterations.get(address, 0) < proposal_min_train_iterations
+        ):
+            warnings.warn(f"Using prior. Proposal not sufficiently trained for address: {address}")
+            return distribution
+        x = torch.cat(
+            [
+                self._infer_observe_embedding[0],
+                prev_sample_emb[0],
+                prev_dist_emb,
+                prev_addr_emb,
+                params["dist_type_embedding"][distribution.name],
+                params["address_embedding"][address],
+            ]
+        ).reshape(1, -1)
+        feats, self._infer_lstm_state = lstm_step(params["lstm"], x, self._infer_lstm_state)
+        head = params["proposal"][address]
+        out = mlp_apply(head["ff"], feats, activation=torch.relu, activation_last=None).cpu()
+        prior = {k: v.reshape(1, -1) for k, v in prior_param_arrays(distribution).items()}
+        return head_distribution(head["meta"], out, prior)
 
     # ------------------------------------------------------------------
     # batched guided inference

@@ -71,11 +71,18 @@ def _rows(prior_param, B):
 def head_apply(params, x, prior_params):
     """x: [B, H] features; prior_params: dict of scalars or [B] tensors.
     Returns a proposal distribution with batch shape (B,)."""
-    meta = params["meta"]
+    _check_kind(params["meta"]["kind"])
+    out = mlp_apply(params["ff"], x, activation=torch.relu, activation_last=None)
+    return head_distribution(params["meta"], out, prior_params)
+
+
+def head_distribution(meta, out, prior_params):
+    """The proposal of a head whose MLP gave ``out`` [B, 3K] (the gathered
+    heads of the gather loss and of lockstep rounds apply their MLPs
+    themselves)."""
     kind = meta["kind"]
     _check_kind(kind)
     K = meta["mixture_components"]
-    out = mlp_apply(params["ff"], x, activation=torch.relu, activation_last=None)
     B = out.shape[0]
     coeffs = torch.softmax(out[:, 2 * K :], dim=1)
     if kind == "normal_mixture":

@@ -22,8 +22,10 @@ Each wrapper takes the plain version for a tensor on the CPU, and for a
 CUDA tensor launches its kernel or raises: there is no fallback.  It
 checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream without synchronising,
-and counts its launches in a plain integer attribute (``.launches``).
-The kernels are built at first launch (``ops.build``).
+and counts its launches in a plain integer attribute (``.launches``); the
+two forwards also by row count (``.launch_rows``, a Counter) and kernel 3
+by N (``.launch_sizes``).  The kernels are built at first launch
+(``ops.build``).
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ def mixture_normal_log_prob(x, means, stddevs, logits):
 
 
 mixture_normal_log_prob.launches = 0
+mixture_normal_log_prob.launch_rows = collections.Counter()
 
 
 def _mixture_normal_forward_launch(x, means, stddevs, logits):
@@ -109,6 +112,7 @@ def _mixture_normal_forward_launch(x, means, stddevs, logits):
     )
     _raise_on_error("mixture_normal_log_prob", err)
     mixture_normal_log_prob.launches += 1
+    mixture_normal_log_prob.launch_rows[B] += 1
     return out
 
 
@@ -244,6 +248,7 @@ def mixture_truncated_normal_log_prob(x, means, stddevs, logits, low, high):
 
 
 mixture_truncated_normal_log_prob.launches = 0
+mixture_truncated_normal_log_prob.launch_rows = collections.Counter()
 
 
 def _mixture_tnorm_forward(x, means, stddevs, logits, low, high):
@@ -260,6 +265,7 @@ def _mixture_tnorm_forward(x, means, stddevs, logits, low, high):
     )
     _raise_on_error("mixture_truncated_normal_log_prob", err)
     mixture_truncated_normal_log_prob.launches += 1
+    mixture_truncated_normal_log_prob.launch_rows[B] += 1
     return out
 
 
@@ -442,8 +448,10 @@ log_weight_stats.launch_sizes = collections.Counter()
 
 def reset_launch_counts():
     mixture_normal_log_prob.launches = 0
+    mixture_normal_log_prob.launch_rows.clear()
     mixture_normal_log_prob_backward.launches = 0
     mixture_truncated_normal_log_prob.launches = 0
+    mixture_truncated_normal_log_prob.launch_rows.clear()
     mixture_truncated_normal_log_prob_backward.launches = 0
     log_weight_stats.launches = 0
     log_weight_stats.launch_sizes.clear()

@@ -1,12 +1,20 @@
 """Variable and Trace records (counterpart of ``pyprob_tpu/trace.py``).
 
-Materialized traces hold host values: numpy scalars or arrays for values
-and log-probs, and distributions whose parameters are CPU tensors.
+Materialized traces hold host values: numpy scalars or arrays (the batched
+tier) or 0-d CPU tensors (the interpreter tier) for values, floats or
+numpy scalars for log-probs, and distributions whose parameters are CPU
+tensors.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
+
+
+def _total(log_prob):
+    return log_prob if isinstance(log_prob, float) else np.sum(log_prob)
 
 
 class Variable:
@@ -99,12 +107,12 @@ class Trace:
         self.variables_observable = [v for v in self.variables if v.observable]
         self.variables_tagged = [v for v in self.variables if v.tagged]
         self.log_prob = sum(
-            np.sum(v.log_prob)
+            _total(v.log_prob)
             for v in self.variables
             if (v.control or v.observed) and v.log_prob is not None
         )
         self.log_prob_observed = sum(
-            np.sum(v.log_prob)
+            _total(v.log_prob)
             for v in self.variables_observed
             if v.log_prob is not None
         )
@@ -115,6 +123,26 @@ class Trace:
                 self.log_importance_weight = (
                     self.log_importance_weight + variable.log_importance_weight
                 )
+
+    def rollback(self, marker):
+        """Discard the variables added after ``marker`` (an earlier
+        ``len(trace.variables)``): a retried ``rejection_sample`` attempt
+        replaces the rejected one, so the block's addresses stay stable."""
+        if marker >= len(self.variables):
+            return
+        del self.variables[marker:]
+        self.variables_dict_address = {v.address: v for v in self.variables}
+        self.variables_dict_address_base = {v.address_base: v for v in self.variables}
+
+    def last_instance(self, address_base):
+        """The instance of the last variable recorded at ``address_base``
+        (0 if none): the interpreter numbers a repeated site from it."""
+        if address_base in self.variables_dict_address_base:
+            return self.variables_dict_address_base[address_base].instance
+        return 0
+
+    def address_counts(self, use_address_base=True):
+        return Counter(v.address_base if use_address_base else v.address for v in self.variables)
 
     def trace_hash(self, controlled_only=True):
         """Hash of the controlled-address sequence, used for rectangular

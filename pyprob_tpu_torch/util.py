@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import enum
 import random
+import threading
 import time
 
 import numpy as np
@@ -120,6 +121,20 @@ def device():
             "the CPU"
         )
     return torch.device(_device)
+
+
+# Per thread: True while the thread runs an interpreter-tier trace, whose
+# distributions keep their parameters on the host (``state._begin_trace``).
+_interpreter_thread = threading.local()
+
+
+def param_device():
+    """Where a distribution built from plain numbers puts its parameters:
+    the CPU while this thread runs an interpreter-tier trace (values are
+    drawn and scored on the host there), else ``device()``."""
+    if getattr(_interpreter_thread, "active", False):
+        return torch.device("cpu")
+    return device()
 
 
 def dtype():

@@ -5,8 +5,9 @@ Counterpart of ``pyprob_tpu/vectorized.py``.  The JAX package traces
 of particles with a handler installed in ``state`` that draws an explicit
 ``[N]`` tensor at every ``sample`` site and accumulates ``[N]`` log-weights
 on the device.  Data-dependent Python control flow on those tensors fails
-as it fails under ``vmap``, and such models raise (the interpreter tier
-that would run them is not ported yet).  Rejection loops written with
+as it fails under ``vmap``: such a model raises ``NotImplementedError``
+here, and with ``vectorized=None`` the entry points mark its class
+(``_TraceabilityCache``) and run it on the interpreter tier.  Rejection loops written with
 ``rejection_sample`` do run here: the block becomes a masked retry loop
 over the batch (``VectorizedHandler.rejection_sample``).  Results stay on
 the device until the end of a run; the ESS and log Z of a result come from
@@ -29,10 +30,8 @@ from .ops import kernels
 from .trace import Trace, Variable
 from .util import InferenceEngine, PriorInflation, TraceMode
 
-_INTERPRETER_LATER = (
-    "the interpreter tier (one trace at a time on the host) is not ported "
-    "yet; it comes with the interpreter slice"
-)
+_INTERPRETER_TIER = "vectorized=None or False runs it on the interpreter tier"
+_BRANCH_MESSAGES = ("ambiguous", "cannot be converted to Scalar", "only one element tensors")
 
 # Particles per forward call.  Bounds device memory: at lstm_dim 512 the
 # LSTM gates of one chunk are [2^18, 2048] float32, 2 GiB.
@@ -257,7 +256,7 @@ class VectorizedHandler:
 
     def tag(self, value, name=None, address=None):
         raise NotImplementedError(
-            "tag sites are not ported yet; they come with the interpreter slice"
+            f"tag sites do not run on the batched tier; {_INTERPRETER_TIER}"
         )
 
     def _ic_proposals(self):
@@ -505,16 +504,21 @@ def run_traced(
     prev = state._set_handler(handler)
     try:
         result = model.forward(*args, **(kwargs or {}))
-    except RuntimeError as e:
+    except (RuntimeError, ValueError, TypeError) as e:
+        # what torch raises where Python needs one value of an [N] tensor
+        # (``if x > 0``, ``float(x)``)
         msg = str(e)
-        if "ambiguous" in msg or "cannot be converted to Scalar" in msg:
+        if any(m in msg for m in _BRANCH_MESSAGES):
             raise NotImplementedError(
                 f"model {model.name!r} branches on sampled values, so it does "
-                f"not run on the batched tier, and {_INTERPRETER_LATER}"
+                f"not run on the batched tier; {_INTERPRETER_TIER}"
             ) from e
         raise
     finally:
         state._set_handler(prev)
+    if isinstance(result, (int, float)):
+        # the same for every particle (or one particle's own)
+        result = torch.tensor(float(result), dtype=util.dtype(), device=handler.device)
     if isinstance(result, torch.Tensor):
         result = result.expand(num_particles) if result.dim() == 0 else result
     outputs = {
@@ -621,6 +625,21 @@ def _run_batched(
     return outputs, dists, sites, rounds, sizes
 
 
+class _TraceabilityCache:
+    """Remembers per model class whether ``forward`` runs on the batched
+    tier; a class marked False goes straight to the interpreter tier."""
+
+    _cache = {}
+
+    @classmethod
+    def known_untraceable(cls, model):
+        return cls._cache.get(type(model)) is False
+
+    @classmethod
+    def mark(cls, model, ok):
+        cls._cache[type(model)] = ok
+
+
 def _concat(chunks):
     first = chunks[0]
     if isinstance(first, dict):
@@ -721,30 +740,48 @@ def vectorized_traces(
     proposal_step=None,
     args=(),
     kwargs=None,
+    fallback=False,
 ):
     """Batched counterpart of ``Model._traces``; returns an Empirical.
-    Runs without autograd: a served network records no graph."""
+    Runs without autograd: a served network records no graph.  With
+    ``fallback``, a model that cannot run here (``NotImplementedError``)
+    is marked untraceable for its class and None is returned, as is at
+    once for a class already marked: the caller runs the interpreter
+    tier."""
     if file_name is not None:
         raise NotImplementedError(
             "file-backed Empirical results come with the storage slice"
         )
+    if fallback and _TraceabilityCache.known_untraceable(model):
+        return None
     if observe is not None and any(v is None for v in observe.values()):
         raise RuntimeError(f"Observe has missing value(s): {observe}")
     t0 = time.time()
     results_only = getattr(map_func, "__name__", "") == "trace_result"
-    outputs, dists, sites, rounds, sizes = _run_batched(
-        model,
-        num_traces,
-        observe,
-        trace_mode,
-        inference_engine,
-        prior_inflation,
-        likelihood_importance,
-        proposal_step=proposal_step,
-        args=args,
-        kwargs=kwargs,
-        fetch=["result", "log_importance_weight"] if results_only else None,
-    )
+    try:
+        outputs, dists, sites, rounds, sizes = _run_batched(
+            model,
+            num_traces,
+            observe,
+            trace_mode,
+            inference_engine,
+            prior_inflation,
+            likelihood_importance,
+            proposal_step=proposal_step,
+            args=args,
+            kwargs=kwargs,
+            fetch=["result", "log_importance_weight"] if results_only else None,
+        )
+    except NotImplementedError as e:
+        if not fallback:
+            raise
+        util.log_print(
+            f"[pyprob_tpu_torch] model {model.name!r} does not run on the batched tier "
+            f"({e}); falling back to the interpreter tier."
+        )
+        _TraceabilityCache.mark(model, False)
+        return None
+    _TraceabilityCache.mark(model, True)
     lw = outputs["log_importance_weight"]
     finite = torch.isfinite(lw)
     neg_inf = torch.full_like(lw, -math.inf)
@@ -794,9 +831,12 @@ def vectorized_prior(
     prior_inflation=PriorInflation.DISABLED,
     map_func=None,
     file_name=None,
+    fallback=False,
     *args,
     **kwargs,
 ):
+    """Batched prior; None when ``fallback`` and the model cannot run on
+    this tier (``vectorized_traces``)."""
     emp = vectorized_traces(
         model,
         num_traces,
@@ -806,7 +846,10 @@ def vectorized_prior(
         file_name=file_name,
         args=args,
         kwargs=kwargs,
+        fallback=fallback,
     )
+    if emp is None:
+        return None
     emp.rename(f"Prior, traces: {emp.length:,}")
     emp.add_metadata(
         op="prior",
@@ -825,11 +868,15 @@ def vectorized_posterior(
     observe=None,
     file_name=None,
     likelihood_importance=1.0,
+    fallback=False,
     *args,
     **kwargs,
 ):
     """Batched posterior by importance sampling, from the prior (IS) or
-    from the model's inference network (IC)."""
+    from the model's inference network (IC); None when ``fallback`` and
+    the model cannot run on this tier (``vectorized_traces``)."""
+    if fallback and _TraceabilityCache.known_untraceable(model):
+        return None
     if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
         proposal_step, label = None, "IS"
     elif inference_engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK:
@@ -861,7 +908,10 @@ def vectorized_posterior(
         proposal_step=proposal_step,
         args=args,
         kwargs=kwargs,
+        fallback=fallback,
     )
+    if emp is None:
+        return None
     emp.rename(
         f"Posterior, {label} (batched), traces: {emp.length:,}, "
         f"ESS: {emp.effective_sample_size:,.2f}"

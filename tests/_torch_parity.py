@@ -1,11 +1,14 @@
 """Shared set-up of the parity tests between pyprob_tpu and pyprob_tpu_torch.
 
-The Gaussian-unknown-mean body and its Marsaglia variant (the prior drawn
-by the polar method inside ``rejection_sample``) are defined once here and
-both packages' models call them: an address embeds the source line of its
-``sample`` call and the function-name chain, so the two packages' sites
-get equal addresses and carried proposal heads land on the right address.
-The Marsaglia body takes its ``sqrt`` and ``log`` from the caller.
+The Gaussian-unknown-mean body and its Marsaglia variants (the prior drawn
+by the polar method inside ``rejection_sample``, and in a plain while loop
+that branches on ``float`` of the sampled values) are defined once here
+and both packages' models call them: an address embeds the source line of
+its ``sample`` call and the function-name chain, so the two packages'
+sites get equal addresses and carried proposal heads land on the right
+address.  The ``rejection_sample`` body takes its ``sqrt`` and ``log``
+from the caller.  ``port_trace`` rebuilds a JAX package trace in the
+port's records, so both packages' losses can run on the same traces.
 """
 
 import math
@@ -67,6 +70,60 @@ class JaxMarsaglia(pyprob_tpu.Model):
 class TorchMarsaglia(pyprob_tpu_torch.Model):
     def forward(self):
         return marsaglia_body(pyprob_tpu_torch, torch.sqrt, torch.log)
+
+
+def marsaglia_while_body(pp):
+    uniform = pp.distributions.Uniform(-1.0, 1.0)
+    while True:
+        x = pp.sample(uniform)
+        y = pp.sample(uniform)
+        s = float(x) ** 2 + float(y) ** 2
+        if s < 1:
+            break
+    mu = 1.0 + math.sqrt(5.0) * (float(x) * math.sqrt(-2.0 * math.log(s) / s))
+    likelihood = pp.distributions.Normal(mu, math.sqrt(2.0))
+    pp.observe(likelihood, name="obs0")
+    pp.observe(likelihood, name="obs1")
+    return mu
+
+
+class JaxMarsagliaWhile(pyprob_tpu.Model):
+    def forward(self):
+        return marsaglia_while_body(pyprob_tpu)
+
+
+class TorchMarsagliaWhile(pyprob_tpu_torch.Model):
+    def forward(self):
+        return marsaglia_while_body(pyprob_tpu_torch)
+
+
+def _port_distribution(d):
+    if d is None:
+        return None
+    D = pyprob_tpu_torch.distributions
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
+    if type(d).__name__ == "Uniform":
+        return D.Uniform(f(d.low), f(d.high))
+    if type(d).__name__ == "Normal":
+        return D.Normal(f(d.mean), f(d.stddev))
+    raise TypeError(type(d).__name__)
+
+
+def port_trace(jtrace):
+    """A JAX package trace (pruned or whole) as the port's ``Trace``: the
+    same addresses and values, Uniform and Normal distributions on the CPU."""
+    from pyprob_tpu_torch.trace import Trace, Variable
+
+    tr = Trace()
+    for v in jtrace.variables:
+        tr.add(Variable(
+            distribution=_port_distribution(v.distribution),
+            value=None if v.value is None else np.asarray(v.value, np.float32),
+            address_base=v.address_base, address=v.address, instance=v.instance,
+            control=v.control, name=v.name, observed=v.observed, tagged=v.tagged,
+        ))
+    tr.end(None, None)
+    return tr
 
 
 def unwrap_static(tree):

@@ -148,12 +148,12 @@ def test_sites_get_equal_addresses(models):
 
 def test_unsupported_paths_raise():
     model = GaussianUnknownMean()
-    with pytest.raises(NotImplementedError, match="interpreter tier"):
-        model.posterior_results(10, observe=OBSERVE, vectorized=False)
-    with pytest.raises(NotImplementedError, match="engines slice"):
-        model.posterior_results(
-            10, observe=OBSERVE, inference_engine=TEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS
-        )
+    for vectorized in (None, False):
+        with pytest.raises(NotImplementedError, match="engines slice"):
+            model.posterior_results(
+                10, observe=OBSERVE, inference_engine=TEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS,
+                vectorized=vectorized,
+            )
     with pytest.raises(RuntimeError, match="No inference network"):
         model.posterior_results(
             10, observe=OBSERVE,
@@ -165,8 +165,9 @@ def test_unsupported_paths_raise():
             x = pyprob_tpu_torch.sample(pyprob_tpu_torch.distributions.Normal(0.0, 1.0))
             return x if x > 0 else -x
 
+    # vectorized=None runs such a model on the interpreter tier instead
     with pytest.raises(NotImplementedError, match="branches on sampled values"):
-        Branching().prior_results(10)
+        Branching().prior_results(10, vectorized=True)
 
 
 def test_cuda_is_the_default_device():
