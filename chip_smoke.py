@@ -2,7 +2,8 @@
 """Drive pyprob_tpu_torch's training and guided importance-sampling paths on
 one NVIDIA GPU, for GaussianUnknownMean and for its Marsaglia variants (the
 rejection_sample one on the batched tier, and bench.py's while-loop one on
-the interpreter tier).
+the interpreter tier), with the LSTM and the feedforward inference
+networks, and saving and loading them.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -90,19 +91,46 @@ Phases, each printing one JSON line:
     12,000 traces, held to the GUM limits (kernel 1 at a round's rows), the
     same row-by-row round check, and 2,000 sequential traces whose ESS
     fraction lies within 10 % of lockstep's;
-19. interpreter kernel checks: kernels 2 and 2b against their plain
-    versions and timed at phase 16's min, median and max rows and at 651,
-    kernels 1 and 2 at a lockstep round's 1, 7, 33 and 64 rows, beside
-    their bounds and the launch floor;
-20. linalg kernels: the panel Cholesky's diagonal-tile kernel as the panel
+19. ff train: GUM's feedforward network (the default network) with the
+    JAX package's recipe (tests/test_inference.py:115-131: 16-d observe
+    embeddings, batch 256, lr 0.01, 51,200 traces), one launch each of
+    kernels 1 and 1b a step;
+20. ff guided IS trained: that network on the batched tier at 1,000,000
+    traces, mean and stddev within 0.5, ESS fraction >= 0.15 (the JAX
+    test's floor), peak device memory < 10 GiB;
+21. ff grad card vs CPU: one feedforward training step's loss and
+    gradients on both devices, for a GUM batch of 256 (kernels 1, 1b) and
+    for 256 while-loop Marsaglia traces of several trace types drawn on
+    the interpreter with prior inflation (kernels 2, 2b, a per-type loss
+    each);
+22. Marsaglia FF interpreter train and lockstep IS: the while-loop model's
+    feedforward network with tests/test_inference.py:191-213's recipe
+    (observe embeddings of 128 and depth 6, prior inflation, batch 256,
+    lr 0.002, 51,200 traces, seed 123), kernels 2 and 2b a site a trace
+    type a step (launches a step and their rows printed); served by
+    lockstep as phase 17 serves (mean and stddev within 0.5, the ESS
+    fraction printed beside the JAX floor 0.008), one round row by row
+    against the sequential step for it (kernel 2) and for phase 19's GUM
+    network (kernel 1), 2,000 sequential traces;
+23. save and load: phase 19's network and phase 8's lstm128 one saved,
+    loaded into a fresh model on the card, everything equal; a 1,000,000
+    serving from one seed equal to the bit; a segment of 12,800 continued
+    from both within 1e-6 (1 + |p|) (bit equality printed); a file cut
+    short raising RuntimeError;
+24. interpreter kernel checks: kernels 2 and 2b against their plain
+    versions and timed at phase 16's and phase 22's min, median and max
+    rows and at 651, kernels 1 and 2 at a lockstep round's 1, 7, 33 and
+    64 rows, beside their bounds and the launch floor;
+25. linalg kernels: the panel Cholesky's diagonal-tile kernel as the panel
     loop launches it (tiles read in place from [B, N, N] matrices, L
     written into the panel's rows of the full factor, zeros past the
     block) at B = 8,192 tiles of P = 64 (N = 256's first panel), B = 2,048
     (N = 512's), and the ragged last panels P = 8 (N = 200) and P = 2
     (N = 130), and through its contiguous entry at B = 8,192, P = 64;
     the fused MVN quad/log-det
-    kernel at (B, N) = (8,192, 256), (2,048, 512), (8,192, 200) and one
-    unbatched N = 256, each against its plain version on GP covariances,
+    kernel at (B, N) = (8,192, 256), (2,048, 512), (8,192, 200), (256,
+    256) (phase 27's shape) and one unbatched N = 256, each against its
+    plain version on GP covariances,
     with matrices that are not positive definite (the fused kernel's: one
     failing at the first column of its second panel) whose NaN must match;
     for kernels 5/6 also the ratio to the plain (library) route, the panel
@@ -110,7 +138,7 @@ Phases, each printing one JSON line:
     and spills that ptxas reported;
     then the panel factorization against torch.linalg.cholesky on the
     same [8192, 256, 256] and [2048, 512, 512] batches (a yardstick line);
-21. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
+26. GP IS: prior IS of GaussianProcessRegression(linspace(0, 4, N),
     learn lengthscale, noise 0.2) with y = synthesize(rng=3,
     lengthscale=1.0) at N = 256 x 8,192 and N = 512 x 2,048 traces (the
     sizes of tests/extra/chip_gp.py): posterior mean within 0.25 grid
@@ -118,7 +146,7 @@ Phases, each printing one JSON line:
     analytic value, N/64 diagonal-tile launches per chunk and no call to
     torch.linalg.cholesky; then N = 256 x 32,768 traces and the chunk size
     it settled on;
-22. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
+27. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
     [-2, 2] through the model on the card (panel path, diagonal-tile
     kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
     for three of them), against numpy float64.
@@ -218,6 +246,20 @@ INTERPRETER = {
 LOCKSTEP_ROUND_TOL = {"cpu": 1e-5, "cuda": 1e-4}
 # the rows a lockstep round gives the forwards (a pool of 64 workers)
 ROUND_ROWS = (1, 7, 33, 64)
+
+# the feedforward network: GUM with the JAX package's recipe
+# (tests/test_inference.py:115-131: 16-d observe embeddings, batch 256, lr
+# 0.01, 51,200 traces, ESS floor 0.15), served batched at 1M traces; and
+# the while-loop Marsaglia model with its recipe (tests/test_inference.py:
+# 191-213: observe embeddings of 128 and depth 6, prior inflation, batch
+# 256, lr 0.002, 51,200 traces; floor 0.008), seed 123 as bench.py's arm,
+# served by lockstep as INTERPRETER says
+FF_GUM = {"observe_dim": 16, "batch_size": 256, "learning_rate": 0.01, "train_traces": 51_200,
+          "ess_floor": 0.15}
+FF_MARSAGLIA = {"observe": {"dim": 128, "depth": 6}, "batch_size": 256, "learning_rate": 0.002,
+                "train_traces": 51_200, "seed": 123, "test_floor": 0.008}
+# save_load: the serving seed and the continued segment's
+SAVE_LOAD_SEEDS = (77, 78)
 
 PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
 
@@ -356,8 +398,8 @@ def stats_cost(n):
 
 def special_stats_vectors():
     """The special inputs of kernel 3 and the (m, s1, s2) the reference
-    (``_log_weight_stats_ref``) gives, with the port's one exception: every
-    weight -inf gives (-inf, 0, 0)."""
+    (``_log_weight_stats_ref``) gives: every weight -inf gives (-inf, NaN,
+    NaN), its exp(-inf - -inf)."""
     nan, inf = math.nan, math.inf
     rng = np.random.default_rng(7)
     among_finite = rng.normal(-20.0, 6.0, 20_000).astype(np.float32)
@@ -370,7 +412,7 @@ def special_stats_vectors():
         "posinf": (np.array([inf], np.float32), (inf, nan, nan)),
         "posinf_among_finite": (among_finite, (inf, nan, nan)),
         "nan_among_neg_inf": (among_neg_inf, (nan, nan, nan)),
-        "all_neg_inf": (np.full(4097, -inf, np.float32), (-inf, 0.0, 0.0)),
+        "all_neg_inf": (np.full(4097, -inf, np.float32), (-inf, nan, nan)),
     }
 
 
@@ -381,7 +423,7 @@ def same_bits_or_nan(got, want):
 def check_stats_values(w_np, w, where):
     """Kernel 3 on the weights ``w`` (``w_np`` on the host): m exact and
     s1, s2 within rtol 1e-5 of float64 and of the plain version (every
-    weight -inf: (-inf, 0, 0)); on the card, two calls bit for bit equal,
+    weight -inf: (-inf, NaN, NaN)); on the card, two calls bit for bit equal,
     one launch a call, counted by N.
     Returns the kernel's and the plain version's (m, s1, s2) and the
     larger relative error against float64."""
@@ -400,8 +442,10 @@ def check_stats_values(w_np, w, where):
     pm, ps1, ps2 = plain = tuple(float(v) for v in K.log_weight_stats_plain(w))
     w64 = w_np.astype(np.float64)
     rm = w64.max()
-    if rm == -math.inf:  # the port's exception to exp(-inf - -inf)
-        check(got == plain == (-math.inf, 0.0, 0.0), f"{where}: every weight -inf gave {got}, plain {plain}")
+    if rm == -math.inf:  # the reference's exp(-inf - -inf)
+        want = (-math.inf, math.nan, math.nan)
+        check(same_bits_or_nan(got, want) and same_bits_or_nan(plain, want),
+              f"{where}: every weight -inf gave {got}, plain {plain}")
         return got, plain, 0.0
     e = np.exp(w64 - rm)
     rs1, rs2 = e.sum(), (e * e).sum()
@@ -540,8 +584,9 @@ def tnorm_inputs(rows, components, device, seed=0):
     """Truncated-mixture inputs on [low, high] = [-1, 1] as the Uniform head
     gives them, with about 1 % of x outside the bounds, 0.5 % of rows whose
     components lie far beyond ``high`` (Phi(beta) - Phi(alpha) = 0: the
-    1e-12 clip), 1 % of -inf logits, one row of -inf logits only, and a
-    cotangent with 0.5 % NaN and 0.5 % +inf.  Returns the six inputs and g."""
+    1e-12 clip), 1 % of -inf logits, one row of -inf logits only (from two
+    rows on: a single row stays finite), and a cotangent with 0.5 % NaN and
+    0.5 % +inf.  Returns the six inputs and g."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -554,7 +599,8 @@ def tnorm_inputs(rows, components, device, seed=0):
     raw = rng.normal(size=(rows, components))
     logits = raw - np.log(np.exp(raw).sum(1, keepdims=True))
     logits[rng.random((rows, components)) < 0.01] = -np.inf
-    logits[min(5, rows - 1)] = -np.inf
+    if rows >= 2:
+        logits[min(5, rows - 1)] = -np.inf
     g = rng.normal(size=rows)
     g[rng.random(rows) < 0.005] = np.nan
     g[rng.random(rows) < 0.005] = np.inf
@@ -578,7 +624,7 @@ def check_tnorm(rows, device, seed=0, components=MIXTURE_COMPONENTS):
     for what in (torch.isnan, torch.isneginf, torch.isposinf):
         check(bool((what(out) == what(ref)).all()), f"truncated mixture at B={rows}: {what.__name__} pattern")
     finite = torch.isfinite(ref)
-    check(bool(finite.any() and (~finite).any()), f"truncated mixture at B={rows}: no -inf rows")
+    check(bool(finite.any() and ((~finite).any() or rows < 2)), f"truncated mixture at B={rows}: no -inf rows")
     excess = float(((out - ref).abs() - (1e-5 + 1e-5 * ref.abs()))[finite].max())
     check(excess <= 0, f"truncated mixture forward at B={rows}: exceeds 1e-5 + 1e-5|ref| by {excess}")
     fwd_err = float((out - ref).abs()[finite].max())
@@ -932,51 +978,64 @@ def phase_card_vs_cpu(model, n, devices=("cuda", "cpu")):
     emit({"phase": "card_vs_cpu", "n": n, "max_abs_err": err, "tolerance": "atol 1e-4"})
 
 
-def phase_grad_card_vs_cpu(lstm_dim, rows, devices=("cuda", "cpu"), marsaglia=False):
-    """The loss and every parameter gradient of one training step, from the
-    same weights and the same packed batch, on the card and on the CPU
-    (GaussianUnknownMean through kernel 1, or with ``marsaglia`` its
-    Marsaglia variant through the truncated mixture's kernels)."""
+def grads_on_devices(net, batch, devices, kernels, label):
+    """One training step's loss/B and every parameter gradient of ``net``
+    on each of ``devices`` from the same parameters and ``batch`` (a
+    materialized batch, or a PackedBatch moved to each device); on the
+    card, each of ``kernels`` launched.  Held within 1e-4 + 1e-3 |cpu|.
+    Returns the losses, the leaves and the largest error."""
     import pyprob_tpu_torch as pp
-    from pyprob_tpu_torch import vectorized
     from pyprob_tpu_torch.nn import PackedBatch
     from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
 
-    model = guided_model(lstm_dim, marsaglia)
-    net = model._inference_network
-    kernels = TNORM_KERNELS if marsaglia else KERNEL_NAMES[:2]
     for p in tensor_leaves(net._params):
         p.requires_grad_(True)
-    outputs, sites = vectorized.run_training_batch(model, rows)
-    batch = net._packed_batch_from_outputs(outputs, sites, rows)
     results = []
     for device in devices:
         pp.set_device(device)
         net.to(device)
-        packed = map_tensors(batch.packed, lambda t: t.to(device))
+        on = batch
+        if isinstance(batch, PackedBatch):
+            packed = map_tensors(batch.packed, lambda t: t.to(device))
+            on = PackedBatch(packed, batch.size, batch.addrs, batch.dist_names)
         reset_launch_counts()
-        loss = float(net._loss_and_grad(
-            PackedBatch(packed, rows, batch.addrs, batch.dist_names)
-        ))
+        loss = float(net._loss_and_grad(on))
         launches = launch_counts()
         results.append((loss, [p.grad.cpu().numpy() for p in tensor_leaves(net._params)]))
         if device == "cuda":
             for name in kernels:
-                check(launches[name] >= 1, f"training step on the card did not launch {name}")
+                check(launches[name] >= 1, f"{label} on the card did not launch {name}")
     pp.set_device(devices[0])
+    net.to(devices[0])
     (loss_a, grads_a), (loss_b, grads_b) = results
-    check(all(np.isfinite(g).all() for g in grads_a + grads_b), "grad card vs CPU: non-finite gradient")
+    check(all(np.isfinite(g).all() for g in grads_a + grads_b), f"{label}: non-finite gradient")
     err, worst = 0.0, 0.0
     for a, b in zip(grads_a, grads_b):
         err = max(err, float(np.abs(a - b).max()))
         worst = max(worst, float((np.abs(a - b) - (1e-4 + 1e-3 * np.abs(b))).max()))
     check(np.isfinite(loss_a) and abs(loss_a - loss_b) <= 1e-4 + 1e-3 * abs(loss_b),
-          f"grad card vs CPU: loss {loss_a} vs {loss_b}")
-    check(worst <= 0, f"grad card vs CPU: a gradient exceeds 1e-4 + 1e-3|cpu| by {worst}")
+          f"{label}: loss {loss_a} vs {loss_b}")
+    check(worst <= 0, f"{label}: a gradient exceeds 1e-4 + 1e-3|cpu| by {worst}")
+    return [loss_a, loss_b], len(grads_a), err
+
+
+def phase_grad_card_vs_cpu(lstm_dim, rows, devices=("cuda", "cpu"), marsaglia=False):
+    """The loss and every parameter gradient of one training step, from the
+    same weights and the same packed batch, on the card and on the CPU
+    (GaussianUnknownMean through kernel 1, or with ``marsaglia`` its
+    Marsaglia variant through the truncated mixture's kernels)."""
+    from pyprob_tpu_torch import vectorized
+
+    model = guided_model(lstm_dim, marsaglia)
+    net = model._inference_network
+    kernels = TNORM_KERNELS if marsaglia else KERNEL_NAMES[:2]
+    outputs, sites = vectorized.run_training_batch(model, rows)
+    batch = net._packed_batch_from_outputs(outputs, sites, rows)
+    phase = "marsaglia_grad_card_vs_cpu" if marsaglia else "grad_card_vs_cpu"
+    loss, leaves, err = grads_on_devices(net, batch, devices, kernels, phase)
     emit({
-        "phase": "marsaglia_grad_card_vs_cpu" if marsaglia else "grad_card_vs_cpu",
-        "lstm_dim": lstm_dim, "rows": rows,
-        "loss": [loss_a, loss_b], "leaves": len(grads_a), "max_abs_err": err,
+        "phase": phase, "lstm_dim": lstm_dim, "rows": rows,
+        "loss": loss, "leaves": leaves, "max_abs_err": err,
         "tolerance": "atol 1e-4 + rtol 1e-3 per gradient",
     })
 
@@ -1035,11 +1094,11 @@ def phase_train(device, arm, train_traces=TRAIN_TRACES, segments=TRAIN_SEGMENTS)
     return model, launches
 
 
-def phase_guided_is_trained(device, model, arm, num_traces):
-    """Guided IS with the trained network, judged as bench.py judges it."""
+def serve_batched(device, model, num_traces, label):
+    """Batched guided IS of ``model``'s network: a warm-up run, then a timed
+    one with its launches and peak device memory (< 10 GiB) counted."""
     import torch
     import pyprob_tpu_torch as pp
-    from pyprob_tpu_torch.nn.layers import tensor_leaves
 
     engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
     run = lambda: model.posterior_results(  # noqa: E731
@@ -1055,19 +1114,28 @@ def phase_guided_is_trained(device, model, arm, num_traces):
     sync(device)
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    mean, std = check_posterior(post, f"guided IS trained lstm{arm['lstm_dim']}")
-    ess_fraction = post.effective_sample_size / num_traces
-    check(ess_fraction >= 0.5, f"guided IS trained lstm{arm['lstm_dim']}: ESS fraction {ess_fraction}")
-    served = tensor_leaves(model._inference_network._serving_params())
-    check(not any(t.requires_grad for t in served), "serving parameters require grad")
     peak_gib = None
     if device == "cuda":
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        # a recorded autograd graph over the 2^18-row chunks would hold
-        # several GiB more than the untrained run's 7.23 GiB
-        check(peak_gib < 10.0, f"guided IS trained: peak memory {peak_gib} GiB")
+        check(peak_gib < 10.0, f"{label}: peak memory {peak_gib} GiB")
         for name in ("mixture_normal_log_prob", "log_weight_stats"):
-            check(launches[name] >= 1, f"guided IS trained did not launch {name}")
+            check(launches[name] >= 1, f"{label} did not launch {name}")
+    return post, seconds, launches, peak_gib
+
+
+def phase_guided_is_trained(device, model, arm, num_traces):
+    """Guided IS with the trained network, judged as bench.py judges it."""
+    from pyprob_tpu_torch.nn.layers import tensor_leaves
+
+    label = f"guided IS trained lstm{arm['lstm_dim']}"
+    # a recorded autograd graph over the 2^18-row chunks would hold several
+    # GiB more than the untrained run's 7.23 GiB: serve_batched's 10 GiB
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, label)
+    mean, std = check_posterior(post, label)
+    ess_fraction = post.effective_sample_size / num_traces
+    check(ess_fraction >= 0.5, f"{label}: ESS fraction {ess_fraction}")
+    served = tensor_leaves(model._inference_network._serving_params())
+    check(not any(t.requires_grad for t in served), "serving parameters require grad")
     emit({
         "phase": "guided_is_trained", "lstm_dim": arm["lstm_dim"], "traces": num_traces,
         "seconds": seconds, "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
@@ -1394,9 +1462,10 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
     row by row.  Every controlled site of ``traces`` (interpreter traces of
     the network's model, at most ``workers`` sites in all) becomes one
     parked request of a single round, on a worker column drawn at random,
-    the rows parked in a random order.  Every column of the carry buffers
-    holds a random LSTM state first: a steady site's is its carried state,
-    a trace start's is junk the round must ignore.  The round answers them
+    the rows parked in a random order.  For an LSTM network every column
+    of the carry buffers holds a random LSTM state first: a steady site's
+    is its carried state, a trace start's is junk the round must ignore (a
+    feedforward network has no carry, and its carry errors are 0).  The round answers them
     all; then for each row the sequential step, given the same carried
     state and previous variable, is the reference.  Returns the max abs
     error of the proposal's log-density at the drawn value (``log_q``) and
@@ -1418,9 +1487,11 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
     check(0 < len(sites) <= workers, f"lockstep round check: {len(sites)} sites for {workers} workers")
     observed = {k: torch.as_tensor(v) for k, v in observe.items()}
     coord = L.LockstepCoordinator(net, observed, workers)
-    for buf in (coord._hbuf, coord._cbuf):
-        buf.copy_(torch.randn(buf.shape, generator=gen, dtype=buf.dtype).mul_(0.5))
-    h0, c0 = coord._hbuf.clone(), coord._cbuf.clone()
+    has_carry = coord._hbuf is not None
+    if has_carry:
+        for buf in (coord._hbuf, coord._cbuf):
+            buf.copy_(torch.randn(buf.shape, generator=gen, dtype=buf.dtype).mul_(0.5))
+        h0, c0 = coord._hbuf.clone(), coord._cbuf.clone()
     cols = [int(c) for c in rng.permutation(workers)[: len(sites)]]
     seeds = [int(s) for s in rng.choice(2**31, size=len(sites), replace=False)]
     batch = [L._Request(col, L._WorkerNet(coord, col), v, prev, s)
@@ -1451,7 +1522,7 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
             check(isinstance(shim, L._ProposalShim) and not r.proxy._fresh,
                   f"lockstep round check: worker {col} was not answered")
             carried = None
-            if r.prev_variable is not None:
+            if has_carry and r.prev_variable is not None:
                 carried = (h0[:, col : col + 1].clone(), c0[:, col : col + 1].clone())
             rows.append((r.variable, r.prev_variable, carried))
             net._infer_lstm_state = carried
@@ -1464,12 +1535,13 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
             for _ in range(4):
                 probe = ref.sample(gen)
                 note("head", shim.log_prob(probe, sum=True), ref.log_prob(probe, sum=True))
-            h, c = coord.get_carry(col)
-            note("carry", torch.stack([h, c]).cpu(), torch.stack(list(net._infer_lstm_state)).cpu())
+            if has_carry:
+                h, c = coord.get_carry(col)
+                note("carry", torch.stack([h, c]).cpu(), torch.stack(list(net._infer_lstm_state)).cpu())
     rest = sorted(set(range(workers)) - set(cols))
     errs["untouched"] = float(max(
         (coord._hbuf[:, rest] - h0[:, rest]).abs().max(), (coord._cbuf[:, rest] - c0[:, rest]).abs().max()
-    )) if rest else 0.0
+    )) if rest and has_carry else 0.0
     errs["buckets"] = buckets
     errs["rows"] = rows
     return errs
@@ -1582,6 +1654,272 @@ def phase_gum_lockstep_is(device, model):
     return launches
 
 
+def ff_train_kwargs():
+    import pyprob_tpu_torch as pp
+
+    dim = FF_GUM["observe_dim"]
+    return dict(
+        observe_embeddings={"obs0": {"dim": dim}, "obs1": {"dim": dim}},
+        inference_network=pp.InferenceNetwork.FEEDFORWARD,
+        batch_size=FF_GUM["batch_size"],
+        learning_rate_init=FF_GUM["learning_rate"],
+        proposal_mixture_components=MIXTURE_COMPONENTS,
+    )
+
+
+def phase_ff_train(device, train_traces=FF_GUM["train_traces"]):
+    """GUM's feedforward network trained with the JAX package's recipe in
+    one call: one launch of kernel 1 and one of kernel 1b a step, at the
+    batch's rows."""
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+    from pyprob_tpu_torch.nn import InferenceNetworkFeedForward
+
+    model = GaussianUnknownMean()
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    model.learn_inference_network(num_traces=train_traces, **ff_train_kwargs())
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    net = model._inference_network
+    check(type(net) is InferenceNetworkFeedForward, f"ff train: trained a {type(net).__name__}")
+    steps = net._total_train_iterations
+    loss = net._history_train_loss[-1]
+    check(math.isfinite(loss), f"ff train: final loss {loss}")
+    if device == "cuda":
+        for name in KERNEL_NAMES[:2]:
+            check(launches[name] >= steps, f"ff train: {name} launched {launches[name]} < {steps} steps")
+    emit({
+        "phase": "ff_train", "batch_size": FF_GUM["batch_size"], "learning_rate": FF_GUM["learning_rate"],
+        "traces": net._total_train_traces, "optimizer_steps": steps, "seconds": seconds,
+        "traces_per_s": net._total_train_traces / seconds, "final_loss": loss, "launches": launches,
+    })
+    return model, launches
+
+
+def phase_ff_guided_is_trained(device, model, num_traces):
+    """The feedforward GUM network served on the batched tier, held to the
+    GUM limits and the JAX package's ESS floor 0.15."""
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, "ff guided IS trained")
+    mean, std = check_posterior(post, "ff guided IS trained")
+    ess_fraction = post.effective_sample_size / num_traces
+    check(ess_fraction >= FF_GUM["ess_floor"], f"ff guided IS trained: ESS fraction {ess_fraction}")
+    emit({
+        "phase": "ff_guided_is_trained", "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "ess_fraction": ess_fraction, "jax_test_floor": FF_GUM["ess_floor"],
+        "peak_memory_gib": peak_gib, "launches": launches,
+    })
+    return launches
+
+
+def phase_ff_grad_card_vs_cpu(devices=("cuda", "cpu")):
+    """One feedforward training step on the card and on the CPU from the
+    same parameters and batch: GUM's packed batch of 256 (kernels 1 and
+    1b), and 256 traces of the while-loop Marsaglia model drawn on the
+    interpreter tier with prior inflation, several trace types, each its
+    own per-type loss (kernels 2 and 2b), at the recipes' widths."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch import vectorized
+    from pyprob_tpu_torch.models import GaussianUnknownMean, GaussianUnknownMeanMarsaglia
+    from pyprob_tpu_torch.nn import Batch, InferenceNetworkFeedForward, OnlineDataset
+
+    out = {}
+    gum = GaussianUnknownMean()
+    net = InferenceNetworkFeedForward(
+        model=gum, observe_embeddings=ff_train_kwargs()["observe_embeddings"],
+        proposal_mixture_components=MIXTURE_COMPONENTS,
+    )
+    net._pre_generate_layers(gum.prior(num_traces=8))
+    rows = FF_GUM["batch_size"]
+    outputs, sites = vectorized.run_training_batch(gum, rows)
+    batch = net._packed_batch_from_outputs(outputs, sites, rows)
+    loss, leaves, err = grads_on_devices(net, batch, devices, KERNEL_NAMES[:2], "ff grad card vs CPU (GUM)")
+    out["gum"] = {"rows": rows, "loss": loss, "leaves": leaves, "max_abs_err": err}
+    marsaglia = GaussianUnknownMeanMarsaglia()
+    obs = FF_MARSAGLIA["observe"]
+    net = InferenceNetworkFeedForward(
+        model=marsaglia, observe_embeddings={"obs0": dict(obs), "obs1": dict(obs)},
+        proposal_mixture_components=MIXTURE_COMPONENTS,
+    )
+    traces = OnlineDataset(marsaglia, prior_inflation=pp.PriorInflation.ENABLED).next_batch(
+        FF_MARSAGLIA["batch_size"])
+    net._pre_generate_layers(traces)
+    batch = Batch(traces)
+    loss, leaves, err = grads_on_devices(net, batch, devices, TNORM_KERNELS, "ff grad card vs CPU (Marsaglia)")
+    out["marsaglia"] = {"rows": len(traces), "trace_types": len(batch.sub_batches), "loss": loss,
+                        "leaves": leaves, "max_abs_err": err}
+    emit({"phase": "ff_grad_card_vs_cpu", **out, "tolerance": "atol 1e-4 + rtol 1e-3 per gradient"})
+
+
+def phase_marsaglia_ff_interpreter_train(device, train_traces=FF_MARSAGLIA["train_traces"]):
+    """The while-loop Marsaglia model's feedforward network trained with the
+    JAX package's recipe on the interpreter tier: every batch materialized
+    and polymorphed, one per-type loss a trace type, so one launch of kernel
+    2 and one of kernel 2b a site a trace type a step."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia
+
+    pp.seed(FF_MARSAGLIA["seed"])
+    model = GaussianUnknownMeanMarsaglia()
+    obs = FF_MARSAGLIA["observe"]
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    model.learn_inference_network(
+        num_traces=train_traces,
+        observe_embeddings={"obs0": dict(obs), "obs1": dict(obs)},
+        inference_network=pp.InferenceNetwork.FEEDFORWARD,
+        prior_inflation=pp.PriorInflation.ENABLED,
+        batch_size=FF_MARSAGLIA["batch_size"],
+        learning_rate_init=FF_MARSAGLIA["learning_rate"],
+        proposal_mixture_components=MIXTURE_COMPONENTS,
+    )
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    net = model._inference_network
+    steps = net._total_train_iterations
+    loss = net._history_train_loss[-1]
+    check(math.isfinite(loss), f"Marsaglia FF interpreter train: final loss {loss}")
+    rows = None
+    if device == "cuda":
+        for name in TNORM_KERNELS:
+            check(launches[name] >= steps,
+                  f"Marsaglia FF interpreter train: {name} launched {launches[name]} times in {steps} steps")
+        rows = rows_summary(launches["mixture_truncated_normal_log_prob_by_rows"])
+    emit({
+        "phase": "marsaglia_ff_interpreter_train", "observe": obs,
+        "batch_size": FF_MARSAGLIA["batch_size"], "learning_rate": FF_MARSAGLIA["learning_rate"],
+        "seed": FF_MARSAGLIA["seed"], "traces": net._total_train_traces, "optimizer_steps": steps,
+        "seconds": seconds, "traces_per_s": net._total_train_traces / seconds, "final_loss": loss,
+        "addresses": len(net._params["proposal"]),
+        "kernel2_per_step": launches[TNORM_KERNELS[0]] / steps,
+        "kernel2b_per_step": launches[TNORM_KERNELS[1]] / steps,
+        "kernel2_rows": rows, "launches": launches,
+    })
+    return model, launches, rows
+
+
+def phase_marsaglia_ff_lockstep_is(device, model, gum_model):
+    """The Marsaglia feedforward network served as bench.py's arm serves:
+    1,000 warm-up and 12,000 timed traces of lockstep IC (mean and stddev
+    within 0.5; the ESS fraction printed beside the JAX package's floor
+    0.008, one trained network being a lottery), one round of served sites
+    against the sequential step row by row for it (kernel 2) and for the
+    GUM feedforward network (kernel 1), and 2,000 sequential traces."""
+    n = INTERPRETER["traces"]
+    post, seconds, launches, peak_gib, rounds = phase_interpreter_ic(
+        device, model, "Marsaglia FF lockstep IS", INTERPRETER["warm_up"], n
+    )
+    mean, std = check_posterior(post, "Marsaglia FF lockstep IS")
+    ess_fraction = post.effective_sample_size / n
+    if device == "cuda":
+        check(launches["mixture_truncated_normal_log_prob"] >= 1,
+              "Marsaglia FF lockstep IS did not launch mixture_truncated_normal_log_prob")
+    tol = LOCKSTEP_ROUND_TOL[device]
+    round_check = check_lockstep_round("Marsaglia FF lockstep IS", model, tol)
+    gum_round_check = check_lockstep_round("GUM FF lockstep", gum_model, tol)
+    m = INTERPRETER["sequential_traces"]
+    seq, seq_seconds, _, _, _ = phase_interpreter_ic(
+        device, model, "Marsaglia FF sequential IS", 0, m, lockstep=False
+    )
+    emit({
+        "phase": "marsaglia_ff_lockstep_is", "traces": n, "seconds": seconds,
+        "traces_per_s": n / seconds, "mean": mean, "stddev": std, "ess_fraction": ess_fraction,
+        "jax_test_floor": FF_MARSAGLIA["test_floor"],
+        "jax_test_floor_met": ess_fraction >= FF_MARSAGLIA["test_floor"],
+        "log_z": log_evidence(post, n), "log_z_analytic": LOG_EVIDENCE, **(rounds or {}),
+        "peak_memory_gib": peak_gib, "round_vs_sequential": round_check,
+        "gum_round_vs_sequential": gum_round_check,
+        "sequential": {"traces": m, "seconds": seq_seconds, "traces_per_s": m / seq_seconds,
+                       "mean": float(seq.mean), "ess_fraction": seq.effective_sample_size / m},
+        "launches": launches,
+    })
+    return launches
+
+
+def check_networks_equal(a, b, label):
+    """Parameters, EMA, optimizer state and counters of two networks equal,
+    bit for bit."""
+    import torch
+    from pyprob_tpu_torch.nn.layers import tensor_leaves
+
+    for x, y in zip(tensor_leaves(a._params) + tensor_leaves(a._ema_params),
+                    tensor_leaves(b._params) + tensor_leaves(b._ema_params)):
+        check(torch.equal(x, y), f"{label}: a parameter or EMA leaf differs after loading")
+    sa, sb = a._optimizer.state_dict(), b._optimizer.state_dict()
+    check(sa["param_groups"] == sb["param_groups"] and sa["state"].keys() == sb["state"].keys(),
+          f"{label}: the optimizer's groups differ after loading")
+    for k, state in sa["state"].items():
+        for key, v in state.items():
+            check(torch.equal(v.cpu(), sb["state"][k][key].cpu()), f"{label}: optimizer state {k}.{key} differs")
+    for key in ("_total_train_traces", "_total_train_iterations", "_ema_steps", "_head_train_iterations",
+                "_head_meta", "_history_train_loss", "_learning_rate_init"):
+        check(getattr(a, key) == getattr(b, key), f"{label}: {key} differs after loading")
+
+
+def phase_save_load(device, networks, num_traces=NUM_TRACES, train_traces=TRAIN_TRACES):
+    """Each of ``networks`` ({label: (model, train kwargs)}) saved and loaded
+    into a fresh model on the card: everything equal; a 1M serving with one
+    seed giving the same ESS fraction and mean as the original's, to the
+    bit; one segment of 12,800 traces continued from both with one seed,
+    parameters within 1e-6 (1 + |p|) (bit-equality printed); a file cut
+    short raising RuntimeError.  Continuing changes the networks, so this
+    runs after every phase that serves them."""
+    import tempfile
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.nn import InferenceNetwork
+    from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
+
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    serve_seed, train_seed = SAVE_LOAD_SEEDS
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (model, kw) in networks.items():
+            path = f"{tmp}/{label}.network"
+            t0 = time.perf_counter()
+            model.save_inference_network(path)
+            save_s = time.perf_counter() - t0
+            loaded = type(model)()
+            t0 = time.perf_counter()
+            loaded.load_inference_network(path)
+            load_s = time.perf_counter() - t0
+            net, copy = model._inference_network, loaded._inference_network
+            check(type(copy) is type(net) and copy.device.type == device, f"save_load {label}: loaded {copy}")
+            check_networks_equal(net, copy, f"save_load {label}")
+            served = []
+            for m in (model, loaded):
+                pp.seed(serve_seed)
+                post = m.posterior_results(num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine)
+                served.append((float(post.mean), post.effective_sample_size / num_traces))
+            check(served[0] == served[1], f"save_load {label}: served {served[0]} vs loaded {served[1]}")
+            for m in (model, loaded):
+                pp.seed(train_seed)
+                m.learn_inference_network(num_traces=train_traces, **kw)
+            worst, bit_equal = 0.0, True
+            for x, y in zip(tensor_leaves(map_tensors(net._params, torch.Tensor.detach)),
+                            tensor_leaves(map_tensors(copy._params, torch.Tensor.detach))):
+                bit_equal = bit_equal and bool(torch.equal(x, y))
+                worst = max(worst, float(((x - y).abs() - 1e-6 * (1 + x.abs())).max()))
+            check(worst <= 0, f"save_load {label}: continued parameters differ by {worst} past 1e-6 (1 + |p|)")
+            data = open(path, "rb").read()
+            with open(f"{tmp}/short.network", "wb") as f:
+                f.write(data[: len(data) // 2])
+            try:
+                InferenceNetwork._load(f"{tmp}/short.network")
+                check(False, f"save_load {label}: a file cut short loaded")
+            except RuntimeError:
+                pass
+            out[label] = {"bytes": len(data), "save_seconds": save_s, "load_seconds": load_s,
+                          "served_mean_ess_fraction": served[0], "continued_bit_equal": bit_equal,
+                          "continued_traces": net._total_train_traces}
+    emit({"phase": "save_load", **out,
+          "tolerance": "served bit-equal; continued within 1e-6 (1 + |p|)"})
+
+
 def check_round_forwards(rows, components=MIXTURE_COMPONENTS, seed=0):
     """Kernels 1 and 2 forward against their plain versions at a lockstep
     round's ``rows``: finite values within 1e-5 (kernel 1) and 1e-5 + 1e-5
@@ -1610,15 +1948,19 @@ def check_round_forwards(rows, components=MIXTURE_COMPONENTS, seed=0):
     return out
 
 
-def phase_interpreter_kernel_shapes(train_rows, floor_ms):
+def phase_interpreter_kernel_shapes(train_rows, floor_ms, ff_rows=None):
     """Kernels 2 and 2b held against their plain versions and timed at the
-    rows the interpreter's gather loss gave kernel 2 (min, median, max) and
-    at an odd count near 650; kernels 1 and 2 at the rows of lockstep
+    rows the interpreter's gather loss gave kernel 2 (min, median, max), at
+    those the feedforward network's per-type losses gave it (``ff_rows``)
+    and at an odd count near 650; kernels 1 and 2 at the rows of lockstep
     rounds (1, 7, 33, 64); each beside its bound and the launch floor."""
     from pyprob_tpu_torch.ops import kernels as K
 
     Kc = MIXTURE_COMPONENTS
-    checked = sorted({train_rows["min"], train_rows["median"], train_rows["max"], 651})
+    checked = {train_rows["min"], train_rows["median"], train_rows["max"], 651}
+    if ff_rows is not None:
+        checked |= {ff_rows["min"], ff_rows["median"], ff_rows["max"]}
+    checked = sorted(checked)
     for n in checked:
         small, small_out, small_g, fwd_err, bwd_err = check_tnorm(n, "cuda", seed=n)
         emit_shape(
@@ -1849,7 +2191,9 @@ def phase_linalg_kernels():
         tile_bytes(B, P), ops, [B, P, P], err, entry="chol_inv_tile",
     )
     del tiles, out_rows, contiguous
-    for b, n in ((2048, 512), (8192, 200)):
+    # (256, 256): the one shape the main path launches kernel 5 at
+    # (gp_card_vs_cpu's 256 log-lengthscales)
+    for b, n in ((2048, 512), (8192, 200), (256, 256)):
         c, d, e = check_quad_logdet(b, n, "cuda")
         emit_shape(
             "mvn_quad_logdet", lambda: mvn_logpdf.mvn_quad_logdet(c, d),
@@ -2086,7 +2430,18 @@ def main():
     interpreted, path["marsaglia_interpreter_train"], train_rows = phase_marsaglia_interpreter_train("cuda")
     path["marsaglia_lockstep_is"] = phase_marsaglia_lockstep_is("cuda", interpreted)
     path["gum_lockstep_is"] = phase_gum_lockstep_is("cuda", trained_arms[128])
-    phase_interpreter_kernel_shapes(train_rows, floor_ms)
+    # the feedforward network on both tiers and in lockstep, then saving
+    # and loading (which continues the networks: after their last serving)
+    ff_gum, path["ff_train"] = phase_ff_train("cuda")
+    path["ff_guided_is_trained"] = phase_ff_guided_is_trained("cuda", ff_gum, NUM_TRACES)
+    phase_ff_grad_card_vs_cpu()
+    ff_marsaglia, path["marsaglia_ff_interpreter_train"], ff_rows = phase_marsaglia_ff_interpreter_train("cuda")
+    path["marsaglia_ff_lockstep_is"] = phase_marsaglia_ff_lockstep_is("cuda", ff_marsaglia, ff_gum)
+    phase_save_load("cuda", {
+        "ff_gum": (ff_gum, ff_train_kwargs()),
+        "lstm128": (trained_arms[128], train_kwargs(ARMS[0], TRAIN_SEGMENTS)),
+    })
+    phase_interpreter_kernel_shapes(train_rows, floor_ms, ff_rows)
     for N, num_traces in GP_RUNS:
         path[f"gp_is_{N}x{num_traces}"] = phase_gp_is("cuda", N, num_traces)
     path[f"gp_is_{GP_LARGE[0]}x{GP_LARGE[1]}"] = phase_gp_is("cuda", *GP_LARGE, warm_up=False)

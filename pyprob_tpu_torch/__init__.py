@@ -3,9 +3,11 @@ universal probabilistic programming framework.
 
 Models are ordinary Python programs calling ``sample`` / ``observe``.  This
 port runs on an NVIDIA GPU (``cuda``) unless ``set_device('cpu')`` asks for
-the CPU.  So far it trains an LSTM inference network online
-(``Model.learn_inference_network``) and serves importance sampling, from
-the prior and guided by that network, on its batched tier, for models
+the CPU.  So far it trains a feedforward or an LSTM inference network
+online (``Model.learn_inference_network``), saves and loads it
+(``Model.save_inference_network``, ``load_inference_network``), and
+serves importance sampling, from the prior and guided by that network, on
+its batched tier, for models
 with fixed structure and for rejection loops written with
 ``rejection_sample``; on its interpreter tier (one trace at a time on the
 host, lockstep guided IS) for models that branch on sampled values,

@@ -10,13 +10,16 @@ last worker to park answers the round inline, for every parked request,
 with one batched network step on the card (the workers' LSTM carries are
 columns of shared ``[depth, K, H]`` buffers on the card, the per-address
 parameters stacked into tables and gathered per row, as the gather loss
-does).  The workers run one at a time, passing a baton: a worker that
-parks wakes the next answered one.  Python runs one thread at a time
-anyway, and every torch call releases the GIL, so workers running
-together would hand it over at each of their host draws; one at a time,
-a site costs one thread switch.  So no two workers touch the carry
-buffers at once, and they need no lock.  The win is one device step and
-one host round trip a round instead of one a site.
+does).  A feedforward network has no carry: a round applies each
+bucket's heads, gathered per row, to the observe embedding, as the JAX
+package's feedforward branch does.  The workers run one at a time,
+passing a baton: a worker that parks wakes the next answered one.
+Python runs one thread at a time anyway, and every torch call releases
+the GIL, so workers running together would hand it over at each of
+their host draws; one at a time, a site costs one thread switch.  So no
+two workers touch the carry buffers at once, and they need no lock.  The
+win is one device step and one host round trip a round instead of one a
+site.
 
 A round's device step samples each row's value from its proposal (with a
 generator seeded from the round's request seeds, the rows in seed order),
@@ -32,10 +35,11 @@ Every trace has its own CPU generator, seeded per ticket from the global
 seed, and each request's seed comes from it, so one seed gives the same
 posterior however the threads are scheduled.  Everything else is the
 interpreter tier's own ``state.sample``: the statistics match the
-sequential loop's.  The JAX package's feedforward branch (a proposal
-cache: its network is not ported) and its concurrent groups of workers
-are not ported; nor is its fixed pad of a round's rows, an XLA compile
-workaround.
+sequential loop's.  (The JAX package's module docstring speaks of a
+per-(site, prior) proposal cache for feedforward networks; its code
+answers their sites in rounds, and so does this port.)  Its concurrent
+groups of workers are not ported; nor is its fixed pad of a round's
+rows, an XLA compile workaround.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ class _WorkerNet:
     ``inference_network``: ``_infer_step`` parks on the coordinator, and
     the recurrent state is the worker's column of the coordinator's carry
     buffers (``_infer_lstm_state`` copies it out and writes it back, so
-    ``rejection_sample``'s snapshot and restore work as they are)."""
+    ``rejection_sample``'s snapshot and restore work as they are; None for
+    a feedforward network)."""
 
     def __init__(self, coordinator, idx):
         self._coordinator = coordinator
@@ -170,25 +175,32 @@ class LockstepCoordinator:
         self._requests = []  # parked, waiting for the round's answer
         self._resume = []  # answered, waiting for the baton (popped from the end)
         self._error = None
-        depth, H = network._lstm_depth, network._lstm_dim
+        self._is_lstm = network._network_type == "InferenceNetworkLSTM"
+        self._hbuf = self._cbuf = None  # the LSTM's carries, [depth, workers, H]
         with torch.no_grad():
             self._emb = network._embed_observe_pure(params, obs)  # [1, O]
-            self._hbuf = torch.zeros((depth, num_workers, H), dtype=util.dtype(), device=device)
-            self._cbuf = torch.zeros_like(self._hbuf)
-            reg = self._registry = GatherRegistry(params)
-            self._heads = {k: stack_group(params["proposal"], a) for k, a in reg.head_groups.items()}
-            self._sembs = {k: stack_group(params["sample_embedding"], a) for k, a in reg.semb_groups.items()}
-            self._aemb = torch.stack([params["address_embedding"][a] for a in reg.a_addrs])
-            self._demb = torch.stack([params["dist_type_embedding"][n] for n in reg.d_names])
+            head_groups, self._head_of = GatherRegistry._grouped(params["proposal"])
+            self._heads = {k: stack_group(params["proposal"], a) for k, a in head_groups.items()}
+            if self._is_lstm:
+                depth, H = network._lstm_depth, network._lstm_dim
+                self._hbuf = torch.zeros((depth, num_workers, H), dtype=util.dtype(), device=device)
+                self._cbuf = torch.zeros_like(self._hbuf)
+                reg = self._registry = GatherRegistry(params)
+                self._sembs = {k: stack_group(params["sample_embedding"], a) for k, a in reg.semb_groups.items()}
+                self._aemb = torch.stack([params["address_embedding"][a] for a in reg.a_addrs])
+                self._demb = torch.stack([params["dist_type_embedding"][n] for n in reg.d_names])
         self._generator = torch.Generator(device=device)
         self.round_rows = []  # rows answered by each round
 
     def get_carry(self, idx):
+        if not self._is_lstm:
+            return None
         return self._hbuf[:, idx : idx + 1].clone(), self._cbuf[:, idx : idx + 1].clone()
 
     def set_carry(self, idx, v):
-        self._hbuf[:, idx : idx + 1] = v[0]
-        self._cbuf[:, idx : idx + 1] = v[1]
+        if self._is_lstm:
+            self._hbuf[:, idx : idx + 1] = v[0]
+            self._cbuf[:, idx : idx + 1] = v[1]
 
     # -- worker side ---------------------------------------------------
     # One worker runs at a time: a worker that parks (or finishes) hands the
@@ -215,13 +227,13 @@ class LockstepCoordinator:
     def infer_step(self, idx, proxy, variable, prev_variable):
         net, params = self._net, self._params
         # the sequential tier's early outs, so the statistics match it
-        if prev_variable is not None:
+        addr_key = net._head_key(variable.address)
+        if self._is_lstm and prev_variable is not None:
             prev_key = net._head_key(prev_variable.address)
             if prev_key not in params["address_embedding"]:
                 warnings.warn(f"Address of previous variable unknown by inference network: {prev_key}")
                 return variable.distribution
-        addr_key = net._head_key(variable.address)
-        if addr_key not in params["address_embedding"]:
+        if addr_key not in params["address_embedding" if self._is_lstm else "proposal"]:
             if prev_variable is None:
                 proxy._infer_lstm_state = None
             warnings.warn(f"Using prior. No proposal for address: {addr_key}")
@@ -305,16 +317,17 @@ class LockstepCoordinator:
     def _answer(self, batch):
         """Bucket the round's requests by structure (head group, previous
         site's sample-embedding group or trace start, prior signature) and
-        answer each bucket with one batched step."""
-        net, reg = self._net, self._registry
+        answer each bucket with one batched step.  A feedforward network's
+        buckets have no previous site."""
+        net = self._net
         self.round_rows.append(len(batch))
         buckets = {}
         for r in batch:
             dist = r.variable.distribution
-            prev = r.prev_variable
+            prev = r.prev_variable if self._is_lstm else None
             key = (
-                reg.head_of[net._head_key(r.variable.address)][0],
-                None if prev is None else reg.semb_of[net._head_key(prev.address)][0],
+                self._head_of[net._head_key(r.variable.address)][0],
+                None if prev is None else self._registry.semb_of[net._head_key(prev.address)][0],
                 type(dist), tuple(sorted(prior_param_arrays(dist))),
             )
             buckets.setdefault(key, []).append(r)
@@ -322,18 +335,19 @@ class LockstepCoordinator:
             self._answer_bucket(head_group, prev_group, sorted(items, key=lambda r: r.seed))
 
     def _answer_bucket(self, head_group, prev_group, items):
-        net, reg, device = self._net, self._registry, self._device
+        net, device = self._net, self._device
         head_key = net._head_key
         B = len(items)
         steady = prev_group is not None
         dist0 = items[0].variable.distribution
+        reg = self._registry if self._is_lstm else None
         # one float pack carries every index, the prior's parameters (its
         # leaves) and the previous values: one copy to the card
         rows = []
         for r in items:
             ak = head_key(r.variable.address)
             dist = r.variable.distribution
-            row = [reg.head_of[ak][1], reg.a_of[ak], reg.d_of[dist.name], r.idx]
+            row = [self._head_of[ak][1], reg.a_of[ak] if reg else 0, reg.d_of[dist.name] if reg else 0, r.idx]
             if steady:
                 prev = r.prev_variable
                 pk = head_key(prev.address)
@@ -352,27 +366,11 @@ class LockstepCoordinator:
             leaves.append(pack[:, ofs : ofs + leaf.numel()].reshape((B,) + tuple(leaf.shape)))
             ofs += leaf.numel()
         prior_dist = type(dist0)._rebuild(leaves)  # the B priors, batched
-        widx = idx[:, 3]
         heads = self._heads[head_group]
-        if steady:
-            prev_sample_emb = gathered_mlp(self._sembs[prev_group], idx[:, 4], pack[:, ofs:])
-            prev_a, prev_d = self._aemb[idx[:, 5]], self._demb[idx[:, 6]]
+        if self._is_lstm:
+            feats = self._lstm_rows(idx, pack[:, ofs:], prev_group)
         else:
-            S = net._sample_embedding_dim
-            prev_sample_emb = torch.zeros((B, S), dtype=util.dtype(), device=device)
-            prev_a = torch.zeros((B, self._aemb.shape[1]), dtype=util.dtype(), device=device)
-            prev_d = torch.zeros((B, self._demb.shape[1]), dtype=util.dtype(), device=device)
-        x = torch.cat(
-            [self._emb.expand(B, -1), prev_sample_emb, prev_d, prev_a, self._demb[idx[:, 2]], self._aemb[idx[:, 1]]],
-            dim=1,
-        )
-        if steady:
-            carry = (self._hbuf[:, widx], self._cbuf[:, widx])
-        else:
-            carry = (torch.zeros_like(self._hbuf[:, :B]), torch.zeros_like(self._cbuf[:, :B]))
-        feats, (h, c) = lstm_step(self._params["lstm"], x, carry)
-        self._hbuf[:, widx] = h
-        self._cbuf[:, widx] = c
+            feats = self._emb.expand(B, -1)
         out = gathered_mlp(heads["ff"], idx[:, 0], feats, activation_last=None)
         proposal = head_distribution(heads["meta"], out, prior_param_arrays(prior_dist))
         seeds = [r.seed for r in items]
@@ -388,6 +386,33 @@ class LockstepCoordinator:
                 value = value.reshape(dist.batch_shape)
             r.out = _ProposalShim(value, scores[row][0], scores[row][1], host, row, dist, heads["meta"])
             r.proxy._fresh = False
+
+    def _lstm_rows(self, idx, prev_values, prev_group):
+        """The LSTM step of a bucket's rows: its input from the observe
+        embedding and the rows' embeddings, its carry the rows' worker
+        columns (zero at a trace start), which it writes back.  Returns the
+        features the heads read, [B, H]."""
+        net, device = self._net, self._device
+        B = idx.shape[0]
+        widx = idx[:, 3]
+        if prev_group is not None:
+            prev_sample_emb = gathered_mlp(self._sembs[prev_group], idx[:, 4], prev_values)
+            prev_a, prev_d = self._aemb[idx[:, 5]], self._demb[idx[:, 6]]
+            carry = (self._hbuf[:, widx], self._cbuf[:, widx])
+        else:
+            S = net._sample_embedding_dim
+            prev_sample_emb = torch.zeros((B, S), dtype=util.dtype(), device=device)
+            prev_a = torch.zeros((B, self._aemb.shape[1]), dtype=util.dtype(), device=device)
+            prev_d = torch.zeros((B, self._demb.shape[1]), dtype=util.dtype(), device=device)
+            carry = (torch.zeros_like(self._hbuf[:, :B]), torch.zeros_like(self._cbuf[:, :B]))
+        x = torch.cat(
+            [self._emb.expand(B, -1), prev_sample_emb, prev_d, prev_a, self._demb[idx[:, 2]], self._aemb[idx[:, 1]]],
+            dim=1,
+        )
+        feats, (h, c) = lstm_step(self._params["lstm"], x, carry)
+        self._hbuf[:, widx] = h
+        self._cbuf[:, widx] = c
+        return feats
 
 
 def lockstep_interpreter_traces(

@@ -10,9 +10,11 @@ trace at a time on the host).  ``vectorized=True`` asks for the first,
 to the interpreter for a model whose ``forward`` cannot run there (it
 branches on sampled values), remembering that per model class.  IC on the
 interpreter tier runs lockstep by default (``interpreter_lockstep.py``).
-It trains an LSTM inference network online (``learn_inference_network``).
-MCMC and the other engines, the feedforward network and offline datasets
-come with later slices and raise ``NotImplementedError``.
+It trains a feedforward (the default) or an LSTM inference network online
+(``learn_inference_network``), and keeps it in a file
+(``save_inference_network``, ``load_inference_network``).  MCMC and the
+other engines and offline datasets come with later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -371,11 +373,11 @@ class Model:
         its prior (a new network on the first call, continued after).
         ``ema_decay``: Polyak/EMA parameter averaging per optimizer step;
         proposals are served from the debiased average.  This port trains
-        the LSTM network from an online dataset; the feedforward network,
-        offline datasets and validation, tied address instances and
-        keep-best selection raise ``NotImplementedError`` naming their
-        slice."""
-        from .nn import InferenceNetworkLSTM, OnlineDataset
+        the feedforward (the default) and the LSTM network from an online
+        dataset, saving it as ``save_file_name_prefix`` asks; offline
+        datasets and validation, tied address instances and keep-best
+        selection raise ``NotImplementedError`` naming their slice."""
+        from .nn import InferenceNetworkFeedForward, InferenceNetworkLSTM, OnlineDataset
 
         if dataset_dir is not None or dataset_valid_dir is not None:
             raise NotImplementedError(
@@ -390,20 +392,21 @@ class Model:
         if self._inference_network is None:
             util.log_print("Creating new inference network...")
             if inference_network == InferenceNetwork.FEEDFORWARD:
-                raise NotImplementedError(
-                    "InferenceNetwork.FEEDFORWARD comes with the slice that "
-                    "ports inference_network_feedforward.py; use "
-                    "inference_network=InferenceNetwork.LSTM"
+                self._inference_network = InferenceNetworkFeedForward(
+                    model=self,
+                    observe_embeddings=observe_embeddings,
+                    proposal_mixture_components=proposal_mixture_components,
                 )
-            if inference_network != InferenceNetwork.LSTM:
+            elif inference_network == InferenceNetwork.LSTM:
+                self._inference_network = InferenceNetworkLSTM(
+                    model=self,
+                    observe_embeddings=observe_embeddings,
+                    lstm_dim=lstm_dim,
+                    lstm_depth=lstm_depth,
+                    proposal_mixture_components=proposal_mixture_components,
+                )
+            else:
                 raise ValueError(f"Unknown inference_network: {inference_network}")
-            self._inference_network = InferenceNetworkLSTM(
-                model=self,
-                observe_embeddings=observe_embeddings,
-                lstm_dim=lstm_dim,
-                lstm_depth=lstm_depth,
-                proposal_mixture_components=proposal_mixture_components,
-            )
         else:
             util.log_print("Continuing to train existing inference network...")
         self._inference_network.optimize(
@@ -430,3 +433,20 @@ class Model:
             keep_best_every=keep_best_every,
             keep_best_metric=keep_best_metric,
         )
+
+    def save_inference_network(self, file_name):
+        """Write the model's inference network, with its optimizer's state
+        and counters, to ``file_name`` (a gzip tar holding one pickle of
+        numpy arrays and plain Python data)."""
+        if self._inference_network is None:
+            raise RuntimeError("The model has no trained inference network.")
+        self._inference_network._save(file_name)
+
+    def load_inference_network(self, file_name):
+        """Make the network saved in ``file_name`` this model's, on the
+        port's device; training continues it where it stopped.  Raises
+        RuntimeError for a file it cannot read."""
+        from .nn import InferenceNetwork as InferenceNetworkBase
+
+        self._inference_network = InferenceNetworkBase._load(file_name)
+        self._inference_network._model = self

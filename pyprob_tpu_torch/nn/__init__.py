@@ -8,6 +8,7 @@ from .layers import (
 from .proposals import head_apply, head_init, head_kind_for, prior_param_arrays
 from .dataset import Batch, OnlineDataset, PackedBatch, prune_trace
 from .inference_network import InferenceNetwork
+from .inference_network_feedforward import InferenceNetworkFeedForward
 from .inference_network_lstm import InferenceNetworkLSTM
 
 __all__ = [
@@ -25,5 +26,6 @@ __all__ = [
     "PackedBatch",
     "prune_trace",
     "InferenceNetwork",
+    "InferenceNetworkFeedForward",
     "InferenceNetworkLSTM",
 ]

@@ -18,8 +18,17 @@ grads/B, updates and folds the EMA, with no ``lax.scan``.  A model that
 runs only on the interpreter tier trains on materialized batches instead,
 as the JAX package's generic loop does: each is polymorphed, and when it
 grows new layers the optimizer is recreated with fresh state.  Offline
-datasets, validation and keep-best selection, checkpoints, LARC and
-distributed training raise ``NotImplementedError`` naming their slice.
+datasets, validation and keep-best selection, LARC and distributed
+training raise ``NotImplementedError`` naming their slice.
+
+``_save`` and ``_load`` keep a network in a file as the JAX package does
+(a gzip tar holding one pickle, ``class_name`` picking the class), with
+``save_file_name_prefix`` and ``save_every_sec`` saving during training
+under the JAX package's file names.  The pickle holds only numpy arrays,
+Python scalars, strings, lists and dicts (enum members by name, the
+optimizer's state as numpy), so it loads on a machine without a card.
+The two packages' files are not interchangeable: the JAX package's
+pickles optax state, and the parameter layouts differ.
 
 Stepwise inference on the interpreter tier (``_infer_init``,
 ``_infer_begin_trace`` and the subclass's ``_infer_step``) keeps its
@@ -29,8 +38,15 @@ per-trace state per thread, and the observe embedding of a run once.
 from __future__ import annotations
 
 import math
+import os
+import pickle
+import shutil
+import tarfile
+import tempfile
 import threading
 import time
+import uuid
+import warnings
 
 import numpy as np
 import torch
@@ -39,6 +55,12 @@ from .. import util
 from ..util import LearningRateScheduler, ObserveEmbedding, Optimizer
 from .dataset import Batch, OnlineDataset, PackedBatch
 from .layers import map_tensors, mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy, tensor_leaves
+
+
+# the pickle's member in a saved network's tar (the JAX package's is
+# "pyprob_tpu_inference_network")
+_CHECKPOINT_MEMBER = "pyprob_tpu_torch_inference_network"
+_JAX_CHECKPOINT_MEMBER = "pyprob_tpu_inference_network"
 
 
 def _not_ported(what, slice_name):
@@ -85,6 +107,8 @@ class InferenceNetwork:
         self._loss_previous = float("inf")
         self._history_train_loss = []
         self._history_train_loss_trace = []
+        self._modified = None
+        self._updates = 0
 
     @property
     def device(self):
@@ -182,6 +206,20 @@ class InferenceNetwork:
                 )
             pieces.append(mlp_apply(layer["p"], x))
         return mlp_apply(params["observe_final"], torch.cat(pieces, dim=1))
+
+    def _set_meta_from_numpy(self, meta):
+        """The observe and head metadata of a network carried from the JAX
+        package (``from_numpy``); its layers count as initialized."""
+        self._observe_meta = {}
+        for name, m in meta["observe_meta"].items():
+            m = dict(m)
+            # the JAX package's enum member, or its name
+            m["embedding"] = ObserveEmbedding[getattr(m["embedding"], "name", m["embedding"])]
+            self._observe_meta[name] = m
+        self._observe_embedding_dim = meta["observe_embedding_dim"]
+        self._head_meta = {a: dict(m) for a, m in meta["head_meta"].items()}
+        self._head_train_iterations = {a: 0 for a in self._head_meta}
+        self._layers_initialized = True
 
     def _observe_params_from_numpy(self, params):
         """``observe`` and ``observe_final`` of the port's tree from the JAX
@@ -288,6 +326,16 @@ class InferenceNetwork:
     def _infer_begin_trace(self):
         """Hook: reset the per-trace inference state."""
 
+    @property
+    def _infer_lstm_state(self):
+        """The recurrent state the interpreter snapshots around a
+        ``rejection_sample`` block: None for a network without one."""
+        return None
+
+    @_infer_lstm_state.setter
+    def _infer_lstm_state(self, v):
+        pass
+
     def _infer_step(self, variable, prev_variable=None, proposal_min_train_iterations=None):
         raise NotImplementedError()
 
@@ -315,7 +363,26 @@ class InferenceNetwork:
         raise NotImplementedError()
 
     def _pack_sub_batch(self, sub_batch):
-        raise NotImplementedError()
+        """One trace type's materialized traces as the loss's packed dict."""
+        from .proposals import prior_param_arrays
+
+        device = self._device
+
+        def rows(arrays):
+            return torch.tensor(np.stack(arrays), dtype=util.dtype(), device=device)
+
+        steps = []
+        for t in range(sub_batch[0].length_controlled):
+            variables = [tr.variables_controlled[t] for tr in sub_batch]
+            prior = {}
+            for v in variables:
+                for k, val in prior_param_arrays(v.distribution).items():
+                    prior.setdefault(k, []).append(np.asarray(val, np.float32).reshape(-1))
+            steps.append({
+                "values": rows([np.asarray(v.value, np.float32) for v in variables]),
+                "prior": {k: rows(vals) for k, vals in prior.items()},
+            })
+        return {"obs": self._pack_observes(sub_batch), "steps": steps}
 
     def _make_loss_for(self, addrs, dist_names):
         """Return (static_key, loss_fn(params, packed) -> summed loss)."""
@@ -325,9 +392,10 @@ class InferenceNetwork:
         """The sub-tree of ``self._params`` a trace type's loss reads."""
         return self._params
 
-    def _pre_generate_layers(self, dataset, batch_size=64):
+    def _pre_generate_layers(self, dataset, batch_size=64, save_file_name_prefix=None):
         """Grow the layers from example traces (a list of traces, or an
-        Empirical of them)."""
+        Empirical of them); with ``save_file_name_prefix``, save the
+        network after each batch that grew it."""
         traces = dataset.get_values() if hasattr(dataset, "get_values") else list(dataset)
         if not self._layers_initialized:
             self._init_layers_observe_embedding(
@@ -337,7 +405,9 @@ class InferenceNetwork:
             self._layers_initialized = True
         self._layers_pre_generated = True
         for begin in range(0, len(traces), batch_size):
-            self._polymorph(Batch(traces[begin : begin + batch_size]))
+            changed = self._polymorph(Batch(traces[begin : begin + batch_size]))
+            if changed and save_file_name_prefix is not None:
+                self._save(f"{save_file_name_prefix}_00000000_pre_generated.network")
         self._vps_cache = None
         util.log_print("Layer pre-generation complete")
 
@@ -375,6 +445,148 @@ class InferenceNetwork:
             self._create_optimizer(self._optimizer.state_dict())
         self._vps_cache = None
         self._serving_memo = None
+
+    # ------------------------------------------------------------------
+    # saving and loading
+    # ------------------------------------------------------------------
+    def _subclass_state(self):
+        return {}
+
+    def _load_subclass_state(self, state):
+        pass
+
+    def _state_dict(self):
+        """Everything ``_load`` needs, as plain data: parameters, the EMA
+        average and the optimizer's state as numpy arrays, enum members by
+        name."""
+
+        def host(tree):
+            return map_tensors(tree, lambda t: t.detach().to("cpu", copy=True).numpy())
+
+        def named(v):
+            return getattr(v, "name", v)
+
+        def embeddings_named(meta):  # {observe name: {key: value}}
+            if not isinstance(meta, dict):
+                return meta  # a list of observe names
+            return {k: {a: named(b) for a, b in m.items()} for k, m in meta.items()}
+
+        return {
+            "pyprob_tpu_torch_version": util.__version__,
+            "torch_version": str(torch.__version__),
+            "network_type": self._network_type,
+            "class_name": type(self).__name__,
+            "params": host(self._params),
+            "optimizer_state": None if self._optimizer is None else host(self._optimizer.state_dict()),
+            "ema_params": host(self._ema_params),
+            "ema_decay": self._ema_decay,
+            "ema_steps": self._ema_steps,
+            "observe_meta": embeddings_named(self._observe_meta),
+            "observe_embedding_dim": self._observe_embedding_dim,
+            "observe_embeddings_spec": embeddings_named(self._observe_embeddings_spec),
+            "layers_initialized": self._layers_initialized,
+            "layers_pre_generated": self._layers_pre_generated,
+            "head_train_iterations": dict(self._head_train_iterations),
+            "optimizer_type": named(self._optimizer_type),
+            "momentum": self._momentum,
+            "weight_decay": self._weight_decay,
+            "learning_rate_scheduler_type": named(self._learning_rate_scheduler_type),
+            "learning_rate_init": self._learning_rate_init,
+            "learning_rate_end": self._learning_rate_end,
+            "total_train_seconds": self._total_train_seconds,
+            "total_train_traces": self._total_train_traces,
+            "total_train_traces_end": self._total_train_traces_end,
+            "total_train_iterations": self._total_train_iterations,
+            "loss_init": self._loss_init,
+            "loss_min": self._loss_min,
+            "loss_max": self._loss_max,
+            "loss_previous": self._loss_previous,
+            "history_train_loss": list(self._history_train_loss),
+            "history_train_loss_trace": list(self._history_train_loss_trace),
+            "modified": self._modified,
+            "updates": self._updates,
+            "subclass_state": self._subclass_state(),
+        }
+
+    def _save(self, file_name):
+        """Write the network to ``file_name``: a gzip tar holding one
+        pickle of ``_state_dict``."""
+        self._modified = util.get_time_stamp()
+        self._updates += 1
+        data = self._state_dict()
+        tmp_dir = tempfile.mkdtemp(suffix=str(uuid.uuid4()))
+        try:
+            tmp_file = os.path.join(tmp_dir, _CHECKPOINT_MEMBER)
+            with open(tmp_file, "wb") as f:
+                pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+            with tarfile.open(file_name, "w:gz", compresslevel=2) as tar:
+                tar.add(tmp_file, arcname=_CHECKPOINT_MEMBER)
+        finally:
+            shutil.rmtree(tmp_dir)
+
+    @staticmethod
+    def _load(file_name, device=None):
+        """The network saved in ``file_name``, on ``device`` (default: the
+        port's device), with its optimizer's state; raises RuntimeError
+        for a file it cannot read (cut short, or the JAX package's)."""
+        from .inference_network_feedforward import InferenceNetworkFeedForward
+        from .inference_network_lstm import InferenceNetworkLSTM
+
+        try:
+            with tarfile.open(file_name, "r:gz") as tar:
+                names = tar.getnames()
+                if _CHECKPOINT_MEMBER not in names and _JAX_CHECKPOINT_MEMBER in names:
+                    raise ValueError("it is a pyprob_tpu (JAX package) network, whose optax state this port cannot read")
+                data = pickle.load(tar.extractfile(_CHECKPOINT_MEMBER))
+        except Exception as e:
+            raise RuntimeError(f"Cannot load inference network: {e}") from e
+        if data["pyprob_tpu_torch_version"] != util.__version__:
+            warnings.warn(
+                f"Different pyprob_tpu_torch versions (loaded network: "
+                f"{data['pyprob_tpu_torch_version']}, current: {util.__version__})"
+            )
+        cls = {
+            "InferenceNetworkFeedForward": InferenceNetworkFeedForward,
+            "InferenceNetworkLSTM": InferenceNetworkLSTM,
+        }[data["class_name"]]
+
+        def embeddings(meta):  # the inverse of _state_dict's embeddings_named
+            if not isinstance(meta, dict):
+                return meta
+            return {
+                k: {a: ObserveEmbedding[b] if a == "embedding" else b for a, b in m.items()}
+                for k, m in meta.items()
+            }
+
+        net = cls(model=None, observe_embeddings=embeddings(data["observe_embeddings_spec"]), device=device)
+
+        def to_dev(tree):
+            return _map_arrays(tree, lambda a: torch.tensor(a, device=net._device))
+
+        net._params = to_dev(data["params"])
+        net._ema_params = to_dev(data["ema_params"])
+        net._ema_decay = data["ema_decay"]
+        net._ema_steps = data["ema_steps"]
+        net._observe_meta = embeddings(data["observe_meta"])
+        net._observe_embedding_dim = data["observe_embedding_dim"]
+        net._layers_initialized = data["layers_initialized"]
+        net._layers_pre_generated = data["layers_pre_generated"]
+        net._head_train_iterations = data["head_train_iterations"]
+        net._optimizer_type = None if data["optimizer_type"] is None else Optimizer[data["optimizer_type"]]
+        net._momentum = data["momentum"]
+        net._weight_decay = data["weight_decay"]
+        sched = data["learning_rate_scheduler_type"]
+        net._learning_rate_scheduler_type = None if sched is None else LearningRateScheduler[sched]
+        for key in (
+            "learning_rate_init", "learning_rate_end", "total_train_seconds", "total_train_traces",
+            "total_train_traces_end", "total_train_iterations", "loss_init", "loss_min", "loss_max",
+            "loss_previous", "history_train_loss", "history_train_loss_trace", "modified", "updates",
+        ):
+            setattr(net, "_" + key, data[key])
+        net._load_subclass_state(data["subclass_state"])
+        if net._optimizer_type is not None and data["optimizer_state"] is not None:
+            net._create_optimizer(_map_arrays(data["optimizer_state"], torch.from_numpy))
+        return net
 
     # ------------------------------------------------------------------
     # Polyak/EMA parameter averaging
@@ -626,12 +838,18 @@ class InferenceNetwork:
         return not bad
 
     def _online_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss,
-                         log_file, time_start, prev_total_train_seconds):
+                         log_file, time_start, prev_total_train_seconds,
+                         save_file_name_prefix=None, save_every_sec=None):
         """The online loop, one optimizer step per batch: device batches
         for a model that runs on the batched tier, materialized ones for a
         model that runs only on the interpreter tier.  A materialized batch
         is polymorphed first, and when it grew new layers the optimizer is
-        recreated with fresh state, as the JAX package's loop does."""
+        recreated with fresh state, as the JAX package's loop does.  With
+        ``save_file_name_prefix`` the network is saved when more than
+        ``save_every_sec`` seconds passed since the last save: first after
+        ``save_every_sec`` on the batched tier (the JAX package's fused
+        loop), at the loop's first step on the interpreter tier (its
+        generic loop)."""
         state = {"time_last_batch": time_start, "last_print": time_start - util._print_refresh_rate}
         # first batch: materialized, for polymorph and one step; a loaded
         # optimizer state survives unless the parameter structure changed
@@ -649,6 +867,7 @@ class InferenceNetwork:
             self._ema_update_host()
         self._ema_sync_structure()  # polymorph may have grown the params
         trace_count = first.size
+        last_save = None
         while trace_count < num_traces:
             lr = self._current_learning_rate()
             device_batch = dataset.next_device_batch(batch_size)
@@ -671,8 +890,18 @@ class InferenceNetwork:
                 float(loss_dev), lr, batch.size, time_start, prev_total_train_seconds,
                 state, log_file,
             )
+            if save_file_name_prefix is not None and save_every_sec is not None:
+                if last_save is None:
+                    last_save = time_start - (save_every_sec if device_batch is None else 0)
+                now = time.time()
+                if now - last_save > save_every_sec:
+                    last_save = now
+                    self._save(self._save_file_name(save_file_name_prefix))
             if not ok and stop_with_bad_loss:
                 return
+
+    def _save_file_name(self, prefix):
+        return f"{prefix}_{util.get_time_stamp()}_traces_{self._total_train_traces}.network"
 
     def optimize(
         self,
@@ -707,7 +936,9 @@ class InferenceNetwork:
         optimizer step and serve proposals from it, debiased.  The
         learning-rate settings, the optimizer and ``num_traces_end`` are
         latched by the first call; later calls continue the schedule on
-        the cumulative trace count."""
+        the cumulative trace count.  ``save_file_name_prefix``: save the
+        network every ``save_every_sec`` seconds and at the end, as
+        ``{prefix}_{time stamp}_traces_{trained traces}.network``."""
         if not isinstance(dataset, OnlineDataset):
             raise _not_ported("training from an offline dataset", "offline-dataset slice")
         if distributed_backend is not None:
@@ -716,8 +947,6 @@ class InferenceNetwork:
             raise _not_ported("validation (dataset_valid)", "offline-dataset slice")
         if keep_best:
             raise _not_ported("keep_best checkpoint selection", "offline-dataset slice")
-        if save_file_name_prefix is not None:
-            raise _not_ported("saving networks (save_file_name_prefix)", "save/load slice")
         if optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC):
             raise _not_ported(f"{optimizer_type.name} (optimizer_larc.py)", "LARC slice")
         if not self._layers_initialized:
@@ -751,11 +980,13 @@ class InferenceNetwork:
         try:
             self._online_optimize(
                 dataset, num_traces, batch_size, stop_with_bad_loss, log_file,
-                time.time(), self._total_train_seconds,
+                time.time(), self._total_train_seconds, save_file_name_prefix, save_every_sec,
             )
         finally:
             if log_file is not None:
                 log_file.close()
+        if save_file_name_prefix is not None:
+            self._save(self._save_file_name(save_file_name_prefix))
 
 
 def _map_arrays(tree, fn):

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from .. import util
-from ..util import ObserveEmbedding
 from ..vectorized import _draw, _select
 from .inference_network import InferenceNetwork
 from .layers import (
@@ -88,6 +87,23 @@ class InferenceNetworkLSTM(InferenceNetwork):
         self._proposal_mixture_components = proposal_mixture_components
         self._gather_used = False
         self._gather_reg = None  # (version, GatherRegistry)
+
+    def _subclass_state(self):
+        return {
+            "head_meta": self._head_meta,
+            "lstm_dim": self._lstm_dim,
+            "lstm_depth": self._lstm_depth,
+            "lstm_input_dim": self._lstm_input_dim,
+            "sample_embedding_dim": self._sample_embedding_dim,
+            "address_embedding_dim": self._address_embedding_dim,
+            "distribution_type_embedding_dim": self._distribution_type_embedding_dim,
+            "proposal_mixture_components": self._proposal_mixture_components,
+            "gather_used": self._gather_used,
+        }
+
+    def _load_subclass_state(self, state):
+        for key, value in state.items():
+            setattr(self, "_" + key, value)
 
     @property
     def _infer_lstm_state(self):
@@ -187,17 +203,8 @@ class InferenceNetworkLSTM(InferenceNetwork):
             device=device,
         )
         net._params.update(net._params_from_numpy(params))
-        net._observe_meta = {}
-        for name, m in meta["observe_meta"].items():
-            m = dict(m)
-            # the JAX package's enum member, or its name
-            m["embedding"] = ObserveEmbedding[getattr(m["embedding"], "name", m["embedding"])]
-            net._observe_meta[name] = m
-        net._observe_embedding_dim = meta["observe_embedding_dim"]
+        net._set_meta_from_numpy(meta)
         net._lstm_input_dim = meta["lstm_input_dim"]
-        net._head_meta = {a: dict(m) for a, m in meta["head_meta"].items()}
-        net._head_train_iterations = {a: 0 for a in net._head_meta}
-        net._layers_initialized = True
         return net
 
     def _params_from_numpy(self, params):
@@ -232,26 +239,6 @@ class InferenceNetworkLSTM(InferenceNetwork):
     # ------------------------------------------------------------------
     # training loss
     # ------------------------------------------------------------------
-    def _pack_sub_batch(self, sub_batch):
-        """One trace type's materialized traces as the loss's packed dict."""
-        device = self._device
-
-        def rows(arrays):
-            return torch.tensor(np.stack(arrays), dtype=util.dtype(), device=device)
-
-        steps = []
-        for t in range(sub_batch[0].length_controlled):
-            variables = [tr.variables_controlled[t] for tr in sub_batch]
-            prior = {}
-            for v in variables:
-                for k, val in prior_param_arrays(v.distribution).items():
-                    prior.setdefault(k, []).append(np.asarray(val, np.float32).reshape(-1))
-            steps.append({
-                "values": rows([np.asarray(v.value, np.float32) for v in variables]),
-                "prior": {k: rows(vals) for k, vals in prior.items()},
-            })
-        return {"obs": self._pack_observes(sub_batch), "steps": steps}
-
     def _loss_params_subset(self, addrs, dist_names):
         """Only the keys the LSTM loss reads."""
         p = self._params

@@ -6,9 +6,10 @@
 //   out = (m, s1, s2) = (max lw, sum exp(lw - m), sum exp(2 (lw - m))),
 // from which ESS = s1^2 / s2 and log Z = m + log s1.  As in the reference
 // (`_log_weight_stats_ref`), m is NaN where any weight is NaN, and s1 and
-// s2 are NaN where m is NaN or +inf (exp(inf - inf)).  Where every weight
-// is -inf the result is (-inf, 0, 0), so that ESS is 0 (the reference's
-// exp(-inf - -inf) is NaN there).
+// s2 are NaN where m is NaN or +inf (exp(inf - inf)), and where every
+// weight is -inf the result is (-inf, NaN, NaN), the reference's
+// exp(-inf - -inf).  (The batched tier maps m = -inf to ESS 0 and log Z
+// -inf itself.)
 //
 // Bound on an H100: the bytes (N = 10^6 weights are 4 MB, 1.19 us at
 // 3.35 TB/s) and, at every size the path launches it at, the launch itself
@@ -89,7 +90,8 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 // exp(2 (w - m[k])), into the warp's (M, a1, a2) in lane 0: M the max of
 // every m (in every lane), then one exp a triple against it, each lane
 // folding its triples in order with fmas, then the warp's trees.  A triple
-// of -inf weights is (-inf, 0, 0): r = 0 adds nothing.
+// of -inf weights (padding, or a warp or block that met only -inf) is
+// (-inf, 0, 0) inside the reduction: r = 0 adds nothing.
 template <int P>
 __device__ __forceinline__ void warp_merge(const float (&m)[P], const float (&s1)[P],
                                            const float (&s2)[P], float& M, float& a1,
@@ -120,9 +122,10 @@ __device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
   return ticket;
 }
 
-// (m, s1, s2) as the reference has them where m is not finite.
+// (m, s1, s2) as the reference has them where m is not finite: NaN sums
+// for a NaN max, +inf (exp(inf - inf)) and -inf (exp(-inf - -inf)).
 __device__ __forceinline__ void write_result(float* out, float m, float s1, float s2) {
-  if (!isfinite(m)) s1 = s2 = m == -INFINITY ? 0.0f : NAN;
+  if (!isfinite(m)) s1 = s2 = NAN;
   out[0] = m;
   out[1] = s1;
   out[2] = s2;

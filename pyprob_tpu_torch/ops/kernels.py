@@ -377,10 +377,10 @@ class MixtureTruncatedNormalLogProb(torch.autograd.Function):
 
 def log_weight_stats_plain(log_weights):
     """Plain PyTorch version (``pyprob_tpu`` ``_log_weight_stats_ref``),
-    giving (−inf, 0, 0) when every weight is −inf."""
+    giving (−inf, NaN, NaN) when every weight is −inf, as it does."""
     lw = log_weights.reshape(-1)
     m = lw.max()
-    e = torch.exp(lw - torch.where(torch.isneginf(m), torch.zeros_like(m), m))
+    e = torch.exp(lw - m)
     return m, e.sum(), (e * e).sum()
 
 
@@ -396,7 +396,8 @@ def log_weight_stats_packed(log_weights):
     card, and one copy where the host wants all three.
 
     As ``_log_weight_stats_ref``: m is NaN where a weight is NaN, s1 and
-    s2 are NaN where m is NaN or +inf; every weight −inf gives (−inf, 0, 0).
+    s2 are NaN where m is not finite: every weight −inf gives (−inf, NaN,
+    NaN), and the batched tier maps m = −inf to ESS 0 itself.
     The kernel merges its blocks in the same launch: the last block to
     finish, found by a ticket counter, reads every block's triple from a
     scratch buffer and resets the counter.  Scratch and counter are made

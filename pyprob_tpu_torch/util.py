@@ -15,6 +15,7 @@ PyTorch counterpart of ``pyprob_tpu/util.py``.  Differences by design:
 
 from __future__ import annotations
 
+import datetime
 import enum
 import random
 import threading
@@ -218,6 +219,10 @@ def effective_sample_size(log_weights):
 def log_print(*args, **kwargs):
     if _verbosity >= 2:
         print(*args, **kwargs)
+
+
+def get_time_stamp():
+    return datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
 
 
 def truncate_str(s, length=80):

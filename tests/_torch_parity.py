@@ -19,9 +19,9 @@ import torch
 
 import pyprob_tpu
 import pyprob_tpu_torch
-from pyprob_tpu.nn import InferenceNetworkLSTM as JaxLSTM
+from pyprob_tpu.nn import InferenceNetworkFeedForward as JaxFF, InferenceNetworkLSTM as JaxLSTM
 from pyprob_tpu.nn.layers import Static
-from pyprob_tpu_torch.nn import InferenceNetworkLSTM as TorchLSTM
+from pyprob_tpu_torch.nn import InferenceNetworkFeedForward as TorchFF, InferenceNetworkLSTM as TorchLSTM
 
 OBSERVE = {"obs0": 8.0, "obs1": 9.0}
 POSTERIOR_MEAN, POSTERIOR_STDDEV = 7.25, math.sqrt(1.0 / 1.2)
@@ -168,5 +168,33 @@ def carry(jnet, model):
         "proposal_mixture_components": jnet._proposal_mixture_components,
     }
     net = TorchLSTM.from_numpy(model, params, meta, device="cpu")
+    model._inference_network = net
+    return net
+
+
+def jax_ff_network(model, mixture_components=3, observe_dim=4, seed=7, vectorized=None):
+    """An untrained pyprob_tpu feedforward network for ``model``, its heads
+    grown from two prior traces (``vectorized`` picks the tier that draws
+    them)."""
+    pyprob_tpu.seed(seed)
+    net = JaxFF(
+        model=model,
+        observe_embeddings={"obs0": {"dim": observe_dim}, "obs1": {"dim": observe_dim}},
+        proposal_mixture_components=mixture_components,
+    )
+    net._pre_generate_layers(model.prior(num_traces=2, vectorized=vectorized).get_values())
+    return net
+
+
+def carry_ff(jnet, model):
+    """The port's feedforward network with ``jnet``'s weights."""
+    params = unwrap_static(jnet.snapshot_params()["params"])
+    meta = {
+        "head_meta": jnet._head_meta,
+        "observe_meta": jnet._observe_meta,
+        "observe_embedding_dim": jnet._observe_embedding_dim,
+        "proposal_mixture_components": jnet._proposal_mixture_components,
+    }
+    net = TorchFF.from_numpy(model, params, meta, device="cpu")
     model._inference_network = net
     return net

@@ -162,9 +162,9 @@ def test_log_weight_stats_plain_matches_pallas_kernel(pallas_interpret, n, frac)
     m, s1, s2 = (float(v) for v in TK.log_weight_stats(torch.from_numpy(lw)))
     assert m == jm
     if frac == 1.0:
-        # every weight -inf: the port gives (-inf, 0, 0) and ESS 0 where the
-        # Pallas kernel's exp(-inf - -inf) is NaN
-        assert m == -np.inf and s1 == 0.0 and s2 == 0.0
+        # every weight -inf: (-inf, NaN, NaN), the Pallas kernel's
+        # exp(-inf - -inf), NaN for NaN; ESS 0 on both sides
+        assert m == -np.inf and np.isnan([s1, s2, js1, js2]).all()
         assert pyprob_tpu_torch.util.effective_sample_size(lw) == 0.0
         assert pyprob_tpu.util.effective_sample_size(lw) == 0.0
     else:
@@ -209,10 +209,10 @@ def _tree_sum32(a):
 
 
 def _stats_result(m, s1, s2):
-    """The kernel's ``write_result``: the sums NaN where m is NaN or +inf,
-    0 where m is -inf."""
+    """The kernel's ``write_result``: the sums NaN where m is not finite
+    (NaN, +inf, or -inf where every weight is -inf)."""
     if not np.isfinite(m):
-        s1 = s2 = np.float32(0.0 if m == -np.inf else np.nan)
+        s1 = s2 = np.float32(np.nan)
     return m, s1, s2
 
 
@@ -369,9 +369,8 @@ def test_log_weight_stats_mirror_special_values(pallas_interpret, name):
     """The CUDA kernel's reduction, mirrored in numpy, on the special
     inputs against ``_log_weight_stats_ref``, the Pallas kernel in
     interpret mode and the plain version: NaN max and sums for any NaN,
-    (+inf, NaN, NaN) for any +inf, and (-inf, 0, 0) for every weight -inf
-    (the port's exception, where the reference's exp(-inf - -inf) is NaN:
-    ESS 0, as ``pyprob_tpu.util.effective_sample_size`` has it)."""
+    (+inf, NaN, NaN) for any +inf, and (-inf, NaN, NaN) for every weight
+    -inf (the reference's exp(-inf - -inf))."""
     lw = _special_stats_vectors()[name]
     with np.errstate(invalid="ignore", over="ignore"):
         got = _stats_mirror(lw)
@@ -379,13 +378,11 @@ def test_log_weight_stats_mirror_special_values(pallas_interpret, name):
     plain = tuple(float(v) for v in TK.log_weight_stats(torch.from_numpy(lw)))
     ref = tuple(float(v) for v in _JAX_STATS_REF(jnp.asarray(lw)))
     pallas = tuple(float(v) for v in jax.jit(JK.log_weight_stats)(jnp.asarray(lw)))
-    if name == "all_neg_inf":
-        assert got == unaligned == plain == (-np.inf, 0.0, 0.0)
-        assert ref[0] == pallas[0] == -np.inf and np.isnan(ref[1]) and np.isnan(pallas[1])
-        return
     for want in (ref, pallas, plain):
         assert _same_stats(got, want) and _same_stats(unaligned, want)
-    if "nan" in name:
+    if name == "all_neg_inf":
+        assert got[0] == -np.inf and np.isnan(got[1]) and np.isnan(got[2])
+    elif "nan" in name:
         assert np.isnan(got).all()
     else:
         assert got[0] == np.inf and np.isnan(got[1]) and np.isnan(got[2])
@@ -476,7 +473,7 @@ def test_log_weight_stats_smoke_check_on_cpu():
 def test_log_weight_stats_kernel_matches_plain_on_card():
     """Kernel 3 on the card, by ``chip_smoke.check_stats``: on the special
     inputs, the reference's values and the plain version's (NaN for NaN;
-    every weight -inf gives (-inf, 0, 0)); at every N of
+    every weight -inf gives (-inf, NaN, NaN)); at every N of
     ``chip_smoke.STATS_SIZES`` (the one 128-thread block at 1-5 and at the
     training phases' 256, 512 and 2,048, the switch to the 512-thread grid
     at 2,054, grids up to 123 blocks and, at 2^22 + 3, blocks striding over
@@ -484,7 +481,7 @@ def test_log_weight_stats_kernel_matches_plain_on_card():
     m exact and s1, s2 within rtol 1e-5 of the plain version and of
     float64; two calls bit for bit equal, one launch each, counted by N.
     The same ``check_stats_values`` on uniform weights: 10^6 + 3 with 1 %
-    -inf, N = 1, and every weight of 4,096 -inf ((-inf, 0, 0))."""
+    -inf, N = 1, and every weight of 4,096 -inf ((-inf, NaN, NaN))."""
     _need_card()
     assert chip_smoke.check_stats("cuda") <= 1e-5
     for n, frac in ((1_000_003, 0.01), (1, 0.0), (4096, 1.0)):

@@ -269,14 +269,11 @@ def test_learn_inference_network_serves_the_posterior(tmp_path):
 def test_unported_training_branches_raise():
     model = GaussianUnknownMean()
     kw = dict(num_traces=64, observe_embeddings={"obs0": {}, "obs1": {}}, batch_size=32)
-    with pytest.raises(NotImplementedError, match="inference_network_feedforward"):
-        model.learn_inference_network(**kw)
     for extra, match in (
         ({"dataset_dir": "x"}, "offline-dataset slice"),
         ({"tie_address_instances": True}, "Markov/SMC slice"),
         ({"keep_best": True}, "offline-dataset slice"),
         ({"distributed_backend": "nccl"}, "distributed slice"),
-        ({"save_file_name_prefix": "x"}, "save/load slice"),
         ({"optimizer_type": TOpt.ADAM_LARC}, "LARC slice"),
     ):
         with pytest.raises(NotImplementedError, match=match):
