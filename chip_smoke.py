@@ -3,7 +3,9 @@
 one NVIDIA GPU, for GaussianUnknownMean and for its Marsaglia variants (the
 rejection_sample one on the batched tier, and bench.py's while-loop one on
 the interpreter tier), with the LSTM and the feedforward inference
-networks, and saving and loading them.
+networks, and saving and loading them; for pyprob's HMM, a Beta-Bernoulli
+and a Gamma-Poisson model under inference compilation, and the Branching
+models' prior IS; and for GP regression.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -149,7 +151,36 @@ Phases, each printing one JSON line:
 27. GP card vs CPU: the GP log-likelihood at 256 log-lengthscales in
     [-2, 2] through the model on the card (panel path, diagonal-tile
     kernel) and through mvn_quad_logdet's kernel (batched, and unbatched
-    for three of them), against numpy float64.
+    for three of them), against numpy float64;
+28. distributions: each scalar distribution's 1,000,000 draws on the card
+    from a seeded generator (one seed, one draw), their mean and variance
+    within 5 standard errors of the distribution's own, their log_prob
+    against the CPU's within 1e-5 (1 + |cpu|); then HMM prior IS: pyprob's HMM (tests/test_inference.py:294-317: 3 states,
+    16 Normal observes, 17 categorical sites) at 1,000,000 traces on the
+    batched tier, _check_hmm's distances and the ESS fraction printed;
+29. HMM train and guided IS trained, for the LSTM (lstm_dim 128) and the
+    feedforward network: the JAX tests' recipe (tests/test_inference.py:
+    348-395: 51,200 traces, batch 256, lr 0.005, observe embeddings of
+    depth 2 and dim 8; categorical heads, one-hot sample embeddings),
+    served at 1,000,000 traces and held to _check_hmm's limits (L2 < 3, KL
+    < 1 against the posterior table) and an ESS fraction above 0.001;
+30. HMM lockstep rounds: one round of HMM sites per network against the
+    sequential step, row by row, as phase 17's check;
+31. Beta-Bernoulli IC: p ~ Beta(2, 3), 20 Bernoulli observes with 14 ones;
+    the default feedforward network trained on 51,200 traces at batch 256
+    and lr 0.005 (the Beta head: one launch each of kernels 2 and 2b a step
+    at 256 rows), served at 1,000,000 traces: mean and stddev within 0.01
+    of Beta(16, 9)'s, ESS fraction above prior IS's;
+32. Gamma-Poisson IC: the JAX test's recipe (tests/test_proposals_extended.py:
+    111-149: FF, 12,000 traces, batch 512, lr 0.005; the LogNormal-mixture
+    head), served at 1,000,000 traces: mean and stddev within 0.35 of
+    Gamma(10, 3)'s, ESS fraction above prior IS's and above 0.15;
+33. Branching prior IS: BranchingCompiled at 1,000,000 traces on the
+    batched tier and Branching at 4,000 on the interpreter tier against
+    the enumerated posterior, within 0.15 and 0.3
+    (tests/test_models_builtin.py:57-74); then kernels 2 and 2b against
+    their plain versions and timed at every row count phases 28-33
+    launched kernel 2 at.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -260,6 +291,56 @@ FF_MARSAGLIA = {"observe": {"dim": 128, "depth": 6}, "batch_size": 256, "learnin
                 "train_traces": 51_200, "seed": 123, "test_floor": 0.008}
 # save_load: the serving seed and the continued segment's
 SAVE_LOAD_SEEDS = (77, 78)
+
+# pyprob's HMM inference-compilation tests (tests/test_inference.py:271-395,
+# copied here: this script imports no test module): 3 states, 16 Normal
+# observes, 17 categorical sites, IC_TRAIN = 51,200 traces at batch 256, lr
+# 0.005, observe embeddings of depth 2 and dim 8, lstm_dim 128 for the
+# LSTM; judged by _check_hmm (L2 < 3, KL < 1 against the posterior table)
+# and an ESS above 0.001 of the traces
+HMM_INIT = [1.0 / 3.0] * 3
+HMM_T = [[0.1, 0.5, 0.4], [0.2, 0.2, 0.6], [0.15, 0.15, 0.7]]
+HMM_MEANS = [-1.0, 1.0, 0.0]
+HMM_OBSERVATION = [0.9, 0.8, 0.7, 0.0, -0.025, -5.0, -2.0, -0.1, 0.0, 0.13, 0.45, 6, 0.2, 0.3, -1, -1]
+HMM_POSTERIOR_CORRECT = [
+    [0.3775, 0.3092, 0.3133], [0.0416, 0.4045, 0.5539], [0.0541, 0.2552, 0.6907],
+    [0.0455, 0.2301, 0.7244], [0.1062, 0.1217, 0.7721], [0.0714, 0.1732, 0.7554],
+    [0.9300, 0.0001, 0.0699], [0.4577, 0.0452, 0.4971], [0.0926, 0.2169, 0.6905],
+    [0.1014, 0.1359, 0.7626], [0.0985, 0.1575, 0.7440], [0.1781, 0.2198, 0.6022],
+    [0.0000, 0.9848, 0.0152], [0.1130, 0.1674, 0.7195], [0.0557, 0.1848, 0.7595],
+    [0.2017, 0.0472, 0.7511], [0.2545, 0.0611, 0.6844],
+]
+HMM = {"train_traces": 51_200, "batch_size": 256, "learning_rate": 0.005, "observe": {"depth": 2, "dim": 8},
+       "lstm_dim": 128, "l2": 3.0, "kl": 1.0, "ess_floor": 0.001}
+# p ~ Beta(2, 3), 20 Bernoulli observes y0..y19 with 14 ones: the posterior
+# is Beta(16, 9); the default feedforward network trained with the learning
+# rate of the JAX test recipe nearest it (tests/test_proposals_extended.py:
+# 124-131, lr 0.005) on 51,200 traces at batch 256
+BETA_BERNOULLI = {"train_traces": 51_200, "batch_size": 256, "learning_rate": 0.005, "observe_dim": 4,
+                  "mean": 16.0 / 25.0, "stddev": math.sqrt(16.0 * 9.0 / (25.0**2 * 26.0)), "tol": 0.01}
+# the JAX test's recipe (tests/test_proposals_extended.py:111-149): Gamma(2, 1),
+# Poisson observes 3 and 5, FF with 16-d observe embeddings, 12,000 traces at
+# batch 512, lr 0.005; the posterior Gamma(10, 3)
+GAMMA_POISSON = {"train_traces": 12_000, "batch_size": 512, "learning_rate": 0.005, "observe_dim": 16,
+                 "observe": {"obs0": 3.0, "obs1": 5.0}, "mean": 10.0 / 3.0, "stddev": math.sqrt(10.0) / 3.0,
+                 "tol": 0.35, "ess_floor": 0.15}
+# Branching's enumerated posterior at obs 6 (tests/test_models_builtin.py:57-74)
+BRANCHING = {"batched_traces": 1_000_000, "interpreter_traces": 4000, "observe": {"obs": 6.0},
+             "batched_tol": 0.15, "interpreter_tol": 0.3}
+
+# one parameter set per scalar distribution for its draws on the card (finite
+# variance; Pareto's alpha > 4 so the variance's error is finite), as
+# tests/test_torch_scalar_distributions.py draws them on the CPU
+DISTRIBUTION_DRAWS = {
+    "Bernoulli": dict(probs=0.3), "Binomial": dict(total_count=12.0, probs=0.35),
+    "Poisson": dict(rate=4.0), "Exponential": dict(rate=1.5), "Gamma": dict(concentration=2.0, rate=1.5),
+    "Beta": dict(concentration1=2.0, concentration0=3.0, low=-1.0, high=3.0),
+    "VonMises": dict(loc=1.0, concentration=2.0), "LogNormal": dict(loc=0.2, scale=0.5),
+    "Weibull": dict(scale=2.0, concentration=1.5), "Chi2": dict(df=3.0), "HalfNormal": dict(scale=2.0),
+    "HalfCauchy": dict(scale=2.0), "InverseGamma": dict(concentration=6.0, rate=2.0),
+    "Pareto": dict(scale=1.0, alpha=5.0),
+}
+DISTRIBUTION_DRAW_COUNT = 1_000_000
 
 PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
 
@@ -842,6 +923,19 @@ def phase_launch_floor():
     return min(sleep_ms, add_ms)
 
 
+def hmm_l2_kl(posterior_mean):
+    """_check_hmm's two distances of a [17, 3] posterior mean from the
+    table (tests/test_inference.py:319-336)."""
+    correct = np.asarray(HMM_POSTERIOR_CORRECT)
+    l2 = float(np.sum(np.sqrt(np.sum((posterior_mean - correct) ** 2, axis=1))))
+    kl = 0.0
+    for p, q in zip(posterior_mean, correct):
+        p, q = np.clip(p, 1e-6, None), np.clip(q, 1e-6, None)
+        p, q = p / p.sum(), q / q.sum()
+        kl += float(np.sum(p * np.log(p / q)))
+    return l2, kl
+
+
 def check_posterior(post, label):
     mean, std = float(post.mean), float(post.stddev)
     check(abs(mean - POSTERIOR_MEAN) <= 0.5, f"{label}: mean {mean}")
@@ -1094,15 +1188,19 @@ def phase_train(device, arm, train_traces=TRAIN_TRACES, segments=TRAIN_SEGMENTS)
     return model, launches
 
 
-def serve_batched(device, model, num_traces, label):
-    """Batched guided IS of ``model``'s network: a warm-up run, then a timed
-    one with its launches and peak device memory (< 10 GiB) counted."""
+def serve_batched(device, model, num_traces, label, observe=OBSERVE, kernels=("mixture_normal_log_prob",),
+                  guided=True):
+    """Batched IS of ``model`` (guided by its network, or with ``guided``
+    False from the prior): a warm-up run, then a timed one with its
+    launches and peak device memory (< 10 GiB) counted; on the card each
+    of ``kernels`` and kernel 3 must have launched."""
     import torch
     import pyprob_tpu_torch as pp
 
-    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    engine = (pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK if guided
+              else pp.InferenceEngine.IMPORTANCE_SAMPLING)
     run = lambda: model.posterior_results(  # noqa: E731
-        num_traces, observe=OBSERVE, vectorized=True, inference_engine=engine
+        num_traces, observe=observe, vectorized=True, inference_engine=engine
     )
     run()  # warm-up
     reset_launch_counts()
@@ -1118,7 +1216,7 @@ def serve_batched(device, model, num_traces, label):
     if device == "cuda":
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check(peak_gib < 10.0, f"{label}: peak memory {peak_gib} GiB")
-        for name in ("mixture_normal_log_prob", "log_weight_stats"):
+        for name in tuple(kernels) + ("log_weight_stats",):
             check(launches[name] >= 1, f"{label} did not launch {name}")
     return post, seconds, launches, peak_gib
 
@@ -1547,7 +1645,7 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
     return errs
 
 
-def check_lockstep_round(label, model, tol):
+def check_lockstep_round(label, model, tol, observe=OBSERVE):
     """``lockstep_round_vs_sequential`` on traces of ``model`` that its
     network served by lockstep (256 traces, vectorized=False), each error
     held to ``tol`` (1 + the largest |reference|) and the other columns
@@ -1555,10 +1653,10 @@ def check_lockstep_round(label, model, tol):
     import pyprob_tpu_torch as pp
 
     traces = model.posterior(
-        256, observe=OBSERVE, vectorized=False,
+        256, observe=observe, vectorized=False,
         inference_engine=pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
     ).get_values()
-    errs = lockstep_round_vs_sequential(model._inference_network, OBSERVE, round_traces(traces))
+    errs = lockstep_round_vs_sequential(model._inference_network, observe, round_traces(traces))
     for key in ("log_q", "head", "log_p", "carry"):
         check(errs[key] <= tol * (1 + errs[key + "_ref"]),
               f"{label}: lockstep round vs sequential step, {key} off by {errs[key]}")
@@ -1918,6 +2016,313 @@ def phase_save_load(device, networks, num_traces=NUM_TRACES, train_traces=TRAIN_
                           "continued_traces": net._total_train_traces}
     emit({"phase": "save_load", **out,
           "tolerance": "served bit-equal; continued within 1e-6 (1 + |p|)"})
+
+
+def phase_distributions(device, n=DISTRIBUTION_DRAW_COUNT):
+    """Each scalar distribution's draws on the card from a seeded
+    ``torch.Generator``: the same seed gives the same draws; the mean and
+    variance of ``n`` draws within 5 standard errors of the distribution's
+    own (the median for HalfCauchy, E[cos(x − loc)] for VonMises); their
+    ``log_prob`` on the card against the same on the CPU within 1e-5 +
+    1e-5 |cpu|."""
+    import torch
+    from pyprob_tpu_torch import distributions as D
+
+    def within(x, expected, what):
+        se = float(x.std()) / math.sqrt(x.numel())
+        check(abs(float(x.mean()) - expected) <= 5 * se, f"{what}: {float(x.mean())} vs {expected} (se {se})")
+
+    out = {}
+    for name, params in DISTRIBUTION_DRAWS.items():
+        d = getattr(D, name)(**{k: torch.tensor(v, device=device) for k, v in params.items()})
+        draws = [d.sample(torch.Generator(device=device).manual_seed(7), (n,)) for _ in range(2)]
+        check(torch.equal(*draws), f"{name}: one seed gave two draws")
+        x = draws[0].double()
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite draws")
+        if name == "HalfCauchy":
+            within((x <= params["scale"]).double(), 0.5, f"{name} median")
+        elif name == "VonMises":
+            within(torch.cos(x - params["loc"]), 1.0 - float(d.variance), f"{name} E cos")
+        else:
+            within(x, float(d.mean), f"{name} mean")
+            within((x - x.mean()) ** 2, float(d.variance), f"{name} variance")
+        lp = d.log_prob(draws[0][:4096])
+        cpu = getattr(D, name)(**{k: torch.tensor(v) for k, v in params.items()}).log_prob(draws[0][:4096].cpu())
+        err = float(((lp.cpu() - cpu).abs() - 1e-5 * (1 + cpu.abs())).max())
+        check(err <= 0, f"{name}: log_prob on the card vs the CPU off by {err} past 1e-5 (1 + |cpu|)")
+        out[name] = {"mean": float(x.mean()), "variance": float(x.var()),
+                     "log_prob_max_abs_err": float((lp.cpu() - cpu).abs().max())}
+    emit({"phase": "distributions", "draws": n, **out})
+
+
+def hmm_model():
+    from pyprob_tpu_torch.models import HiddenMarkovModel
+
+    return HiddenMarkovModel(HMM_INIT, HMM_T, HMM_MEANS, 1.0, len(HMM_OBSERVATION))
+
+
+def hmm_observe():
+    return {f"obs{i}": v for i, v in enumerate(HMM_OBSERVATION)}
+
+
+def train_phase(device, phase, model, kwargs, tnorm_rows=None):
+    """One ``learn_inference_network`` call, timed, with its launches; with
+    ``tnorm_rows`` kernels 2 and 2b must have launched once a step each,
+    at that many rows.  Returns the launches and the printable line."""
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    model.learn_inference_network(**kwargs)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    net = model._inference_network
+    steps, loss = net._total_train_iterations, net._history_train_loss[-1]
+    check(math.isfinite(loss), f"{phase}: final loss {loss}")
+    if device == "cuda" and tnorm_rows is not None:
+        for name in TNORM_KERNELS:
+            check(launches[name] == steps, f"{phase}: {name} launched {launches[name]} times in {steps} steps")
+        rows = launches["mixture_truncated_normal_log_prob_by_rows"]
+        check(rows == {tnorm_rows: steps}, f"{phase}: kernel 2's rows {rows}")
+    line = {
+        "phase": phase, "network": net._network_type, "batch_size": kwargs["batch_size"],
+        "learning_rate": kwargs["learning_rate_init"], "traces": net._total_train_traces,
+        "optimizer_steps": steps, "seconds": seconds, "traces_per_s": net._total_train_traces / seconds,
+        "final_loss": loss, "launches": launches,
+    }
+    if tnorm_rows is not None:
+        line["kernel2_launches_per_step"] = launches[TNORM_KERNELS[0]] / steps
+        line["kernel2b_launches_per_step"] = launches[TNORM_KERNELS[1]] / steps
+        line["kernel2_rows_per_launch"] = tnorm_rows
+    return launches, line
+
+
+def phase_hmm_train(device, network, train_traces=HMM["train_traces"]):
+    """pyprob's HMM IC test (tests/test_inference.py:348-395): 51,200
+    traces at batch 256, lr 0.005, observe embeddings of depth 2 and dim 8,
+    the LSTM at lstm_dim 128 or the feedforward network; 17 categorical
+    heads, one-hot sample embeddings for the LSTM."""
+    import pyprob_tpu_torch as pp
+
+    model = hmm_model()
+    kwargs = dict(
+        num_traces=train_traces, observe_embeddings={k: dict(HMM["observe"]) for k in hmm_observe()},
+        inference_network=network, batch_size=HMM["batch_size"], learning_rate_init=HMM["learning_rate"],
+    )
+    if network == pp.InferenceNetwork.LSTM:
+        kwargs["lstm_dim"] = HMM["lstm_dim"]
+    launches, line = train_phase(device, "hmm_train", model, kwargs)
+    net = model._inference_network
+    kinds = {m["kind"] for m in net._head_meta.values()}
+    check(kinds == {"categorical"} and len(net._head_meta) == 17, f"hmm_train: heads {kinds}")
+    emit(line)
+    return model, launches
+
+
+def phase_hmm_prior_is(device, num_traces):
+    """IS from the prior of the HMM on the batched tier: the ESS that the
+    trained networks' must beat by far, and _check_hmm's distances."""
+    model = hmm_model()
+    post, seconds, launches, peak_gib = serve_batched(
+        device, model, num_traces, "HMM prior IS", hmm_observe(), kernels=(), guided=False
+    )
+    l2, kl = hmm_l2_kl(np.asarray(post.mean))
+    ess_fraction = post.effective_sample_size / num_traces
+    emit({
+        "phase": "hmm_prior_is", "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "l2": l2, "kl": kl, "ess_fraction": ess_fraction,
+        "peak_memory_gib": peak_gib, "launches": launches,
+    })
+    return ess_fraction, launches
+
+
+def phase_hmm_guided_is_trained(device, model, num_traces, prior_fraction):
+    """The trained HMM network served on the batched tier, held to
+    _check_hmm's limits (L2 < 3, KL < 1) and the JAX test's ESS floor
+    (0.001 of the traces), the prior IS run's ESS fraction printed beside."""
+    net = model._inference_network
+    label = f"HMM guided IS trained ({net._network_type})"
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, label, hmm_observe(), kernels=())
+    l2, kl = hmm_l2_kl(np.asarray(post.mean))
+    ess_fraction = post.effective_sample_size / num_traces
+    check(l2 < HMM["l2"] and kl < HMM["kl"], f"{label}: L2 {l2}, KL {kl}")
+    check(ess_fraction > HMM["ess_floor"], f"{label}: ESS fraction {ess_fraction}")
+    emit({
+        "phase": "hmm_guided_is_trained", "network": net._network_type, "traces": num_traces,
+        "seconds": seconds, "traces_per_s": num_traces / seconds, "l2": l2, "kl": kl,
+        "limits": {"l2": HMM["l2"], "kl": HMM["kl"], "ess_fraction": HMM["ess_floor"]},
+        "ess_fraction": ess_fraction, "prior_is_ess_fraction": prior_fraction,
+        "peak_memory_gib": peak_gib, "launches": launches,
+    })
+    return launches
+
+
+def phase_hmm_lockstep_rounds(device, models):
+    """One lockstep round of HMM sites per network against the sequential
+    step, row by row (categorical heads and one-hot sample embeddings)."""
+    out = {}
+    for model in models:
+        net = model._inference_network
+        out[net._network_type] = check_lockstep_round(
+            f"HMM lockstep round ({net._network_type})", model, LOCKSTEP_ROUND_TOL[device], hmm_observe()
+        )
+    emit({"phase": "hmm_lockstep_rounds", **out})
+
+
+def beta_bernoulli_model():
+    """p ~ Beta(2, 3); 20 Bernoulli(p) observes y0..y19."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Bernoulli, Beta
+
+    class BetaBernoulli(pp.Model):
+        def forward(self):
+            p = pp.sample(Beta(2.0, 3.0))
+            for i in range(20):
+                pp.observe(Bernoulli(probs=p), name=f"y{i}")
+            return p
+
+    return BetaBernoulli(name="Beta-Bernoulli")
+
+
+def gamma_poisson_model():
+    """rate ~ Gamma(2, 1); two Poisson(rate) observes
+    (tests/test_proposals_extended.py:111-122)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Gamma, Poisson
+
+    class GammaPoisson(pp.Model):
+        def forward(self):
+            rate = pp.sample(Gamma(2.0, 1.0))
+            likelihood = Poisson(rate)
+            pp.observe(likelihood, name="obs0")
+            pp.observe(likelihood, name="obs1")
+            return rate
+
+    return GammaPoisson(name="Gamma-Poisson")
+
+
+def beta_bernoulli_observe():
+    return {f"y{i}": float(i < 14) for i in range(20)}
+
+
+def conjugate_ic(device, phase, model, observe, train_kwargs, num_traces, spec, tnorm_rows=None,
+                 kernels=()):
+    """Train ``model``'s default feedforward network, serve it and prior IS
+    on the batched tier, and hold the guided posterior's mean and stddev
+    within ``spec["tol"]`` of the analytic ones and its ESS fraction above
+    prior IS's (and above ``spec["ess_floor"]`` where given)."""
+    launches, train_line = train_phase(device, phase + "_train", model, train_kwargs, tnorm_rows)
+    post, seconds, serve_launches, peak_gib = serve_batched(
+        device, model, num_traces, phase, observe, kernels=kernels
+    )
+    prior, prior_seconds, _, _ = serve_batched(device, model, num_traces, phase + " prior IS", observe,
+                                               kernels=(), guided=False)
+    mean, std = float(post.mean), float(post.stddev)
+    ess_fraction = post.effective_sample_size / num_traces
+    prior_fraction = prior.effective_sample_size / num_traces
+    check(abs(mean - spec["mean"]) <= spec["tol"], f"{phase}: mean {mean}")
+    check(abs(std - spec["stddev"]) <= spec["tol"], f"{phase}: stddev {std}")
+    check(ess_fraction > prior_fraction, f"{phase}: ESS fraction {ess_fraction} <= prior IS's {prior_fraction}")
+    if "ess_floor" in spec:
+        check(ess_fraction > spec["ess_floor"], f"{phase}: ESS fraction {ess_fraction}")
+    emit({
+        "phase": phase, "train": train_line, "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
+        "analytic": {"mean": spec["mean"], "stddev": spec["stddev"]}, "tolerance": spec["tol"],
+        "ess_fraction": ess_fraction, "prior_is_ess_fraction": prior_fraction,
+        "prior_is_traces_per_s": num_traces / prior_seconds, "peak_memory_gib": peak_gib,
+        "launches": serve_launches,
+    })
+    return launches, serve_launches
+
+
+def phase_beta_bernoulli_ic(device, num_traces, train_traces=BETA_BERNOULLI["train_traces"]):
+    """Kernels 2 and 2b through the Beta head (the truncated-Normal mixture
+    on Beta's [0, 1]): the default feedforward network trained on 51,200
+    traces at batch 256, one launch each of kernels 2 and 2b a step at 256
+    rows; served at 1M traces (kernel 2 at the chunks' rows) against the
+    analytic Beta(16, 9): mean and stddev within 0.01, ESS above prior
+    IS's."""
+    spec = BETA_BERNOULLI
+    observe = beta_bernoulli_observe()
+    kwargs = dict(num_traces=train_traces, observe_embeddings={k: {"dim": spec["observe_dim"]} for k in observe},
+                  batch_size=spec["batch_size"], learning_rate_init=spec["learning_rate"])
+    return conjugate_ic(device, "beta_bernoulli_ic", beta_bernoulli_model(), observe, kwargs, num_traces, spec,
+                        tnorm_rows=spec["batch_size"], kernels=(TNORM_KERNELS[0],))
+
+
+def phase_gamma_poisson_ic(device, num_traces, train_traces=GAMMA_POISSON["train_traces"]):
+    """The LogNormal-mixture head: the JAX test's recipe (FF, 12,000 traces
+    at batch 512, lr 0.005, 16-d observe embeddings), served at 1M traces
+    against the analytic Gamma(10, 3) within 0.35, ESS above prior IS's and
+    above 0.15 of the traces.  No kernel runs in its heads."""
+    spec = GAMMA_POISSON
+    kwargs = dict(num_traces=train_traces,
+                  observe_embeddings={k: {"dim": spec["observe_dim"]} for k in spec["observe"]},
+                  batch_size=spec["batch_size"], learning_rate_init=spec["learning_rate"])
+    return conjugate_ic(device, "gamma_poisson_ic", gamma_poisson_model(), spec["observe"], kwargs, num_traces, spec)
+
+
+def phase_branching_prior_is(device, num_traces=BRANCHING["batched_traces"],
+                             interpreter_traces=BRANCHING["interpreter_traces"]):
+    """Poisson on both tiers: BranchingCompiled's prior IS on the batched
+    tier and Branching's on the interpreter tier, held to
+    Branching.true_posterior(6) within 0.15 and 0.3."""
+    from pyprob_tpu_torch.models import Branching, BranchingCompiled
+
+    truth = Branching().true_posterior(6)
+    t_mean, t_std = float(truth.mean), float(truth.stddev)
+    observe = BRANCHING["observe"]
+    post, seconds, launches, peak_gib = serve_batched(device, BranchingCompiled(), num_traces,
+                                                      "Branching prior IS", observe, kernels=(), guided=False)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ipost = Branching().posterior_results(interpreter_traces, observe=observe, vectorized=False)
+    i_seconds = time.perf_counter() - t0
+    i_launches = launch_counts()
+    out = {}
+    for label, p, tol in (("batched", post, BRANCHING["batched_tol"]),
+                          ("interpreter", ipost, BRANCHING["interpreter_tol"])):
+        mean, std = float(p.mean), float(p.stddev)
+        check(abs(mean - t_mean) <= tol and abs(std - t_std) <= tol,
+              f"Branching prior IS ({label}): mean {mean}, stddev {std} vs {t_mean}, {t_std}")
+        out[label] = {"mean": mean, "stddev": std, "tolerance": tol, "ess_fraction": p.effective_sample_size / p.length}
+    emit({
+        "phase": "branching_prior_is", "true_mean": t_mean, "true_stddev": t_std,
+        "batched_traces": num_traces, "batched_traces_per_s": num_traces / seconds,
+        "interpreter_traces": interpreter_traces, "interpreter_traces_per_s": interpreter_traces / i_seconds,
+        **out, "peak_memory_gib": peak_gib, "launches": launches, "interpreter_launches": i_launches,
+    })
+    return launches, i_launches
+
+
+def phase_new_path_kernel_shapes(path, floor_ms):
+    """Kernels 2 and 2b held against their plain versions and timed at every
+    row count the new phases launched kernel 2 at (the Beta head's
+    training batch and its serving chunks), beside their bounds and the
+    launch floor."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    Kc = MIXTURE_COMPONENTS
+    rows = set()
+    for counts in path.values():
+        rows |= set(counts.get("mixture_truncated_normal_log_prob_by_rows", {}))
+    for n in sorted(rows):
+        small, small_out, small_g, fwd_err, bwd_err = check_tnorm(n, "cuda", seed=n)
+        iters = 100 if n <= 4096 else 10
+        emit_shape(
+            "mixture_truncated_normal_log_prob", lambda: K.mixture_truncated_normal_log_prob(*small),
+            lambda: K.mixture_truncated_normal_log_prob_plain(*small), *tnorm_cost(n, Kc), [n, Kc],
+            fwd_err, iters=iters, path="Beta head", launch_floor_ms=floor_ms,
+        )
+        emit_shape(
+            "mixture_truncated_normal_log_prob_backward",
+            lambda: K.mixture_truncated_normal_log_prob_backward(*small, small_out, small_g),
+            lambda: K.mixture_truncated_normal_log_prob_backward_plain(*small, small_out, small_g),
+            *tnorm_backward_cost(n, Kc), [n, Kc], bwd_err, iters=iters, path="Beta head",
+            launch_floor_ms=floor_ms,
+        )
+    emit({"phase": "new_path_kernel_checks", "kernel2_rows": sorted(rows)})
 
 
 def check_round_forwards(rows, components=MIXTURE_COMPONENTS, seed=0):
@@ -2442,6 +2847,25 @@ def main():
         "lstm128": (trained_arms[128], train_kwargs(ARMS[0], TRAIN_SEGMENTS)),
     })
     phase_interpreter_kernel_shapes(train_rows, floor_ms, ff_rows)
+    # pyprob's HMM IC tests (categorical heads, one-hot sample embeddings),
+    # the Beta head (kernels 2 and 2b), the LogNormal-mixture head, and
+    # Poisson on both tiers
+    phase_distributions("cuda")
+    new_path = {}
+    hmm_prior_fraction, new_path["hmm_prior_is"] = phase_hmm_prior_is("cuda", NUM_TRACES)
+    hmm_models = []
+    for network in (pp.InferenceNetwork.LSTM, pp.InferenceNetwork.FEEDFORWARD):
+        name = network.name.lower()
+        hmm, new_path[f"hmm_train_{name}"] = phase_hmm_train("cuda", network)
+        new_path[f"hmm_guided_is_trained_{name}"] = phase_hmm_guided_is_trained(
+            "cuda", hmm, NUM_TRACES, hmm_prior_fraction)
+        hmm_models.append(hmm)
+    phase_hmm_lockstep_rounds("cuda", hmm_models)
+    new_path["beta_bernoulli_train"], new_path["beta_bernoulli_ic"] = phase_beta_bernoulli_ic("cuda", NUM_TRACES)
+    new_path["gamma_poisson_train"], new_path["gamma_poisson_ic"] = phase_gamma_poisson_ic("cuda", NUM_TRACES)
+    new_path["branching_prior_is"], new_path["branching_interpreter_is"] = phase_branching_prior_is("cuda")
+    phase_new_path_kernel_shapes(new_path, floor_ms)
+    path.update(new_path)
     for N, num_traces in GP_RUNS:
         path[f"gp_is_{N}x{num_traces}"] = phase_gp_is("cuda", N, num_traces)
     path[f"gp_is_{GP_LARGE[0]}x{GP_LARGE[1]}"] = phase_gp_is("cuda", *GP_LARGE, warm_up=False)

@@ -24,6 +24,19 @@ def _common_device(*values):
     return util.param_device()
 
 
+def _tensors(*values):
+    """Float tensors of the parameters on one device (``_common_device``)."""
+    device = _common_device(*values)
+    return [util.to_tensor(v, device) for v in values]
+
+
+def _clip_tiny(x):
+    """``clip(x, 1e-38)`` as the JAX package computes it under XLA, which
+    flushes float32 subnormals (1e-38 among them) to zero: 0 below the
+    smallest normal float32."""
+    return torch.where(x < torch.finfo(x.dtype).tiny, torch.zeros_like(x), x)
+
+
 def _broadcast_shapes(*shapes):
     """``torch.broadcast_shapes``, with a fast path for equal shapes (the
     interpreter tier builds distributions of 0-d tensors at every site)."""
@@ -74,6 +87,23 @@ class Distribution:
 
     def _sample(self, generator, shape):
         raise NotImplementedError()
+
+    def _rand(self, generator, shape, like):
+        """U[0, 1) draws of ``shape`` + the batch shape, like ``like``."""
+        return torch.rand(
+            shape + self._batch_shape, generator=generator, dtype=like.dtype, device=like.device
+        )
+
+    def _randn(self, generator, shape, like):
+        return torch.randn(
+            shape + self._batch_shape, generator=generator, dtype=like.dtype, device=like.device
+        )
+
+    def _standard_gamma(self, generator, shape, concentration):
+        """Gamma(concentration, 1) draws of ``shape`` + the batch shape."""
+        return torch._standard_gamma(
+            concentration.expand(shape + self._batch_shape).contiguous(), generator=generator
+        )
 
     def log_prob(self, value, sum=False):
         raise NotImplementedError()

@@ -23,8 +23,9 @@ site.
 
 A round's device step samples each row's value from its proposal (with a
 generator seeded from the round's request seeds, the rows in seed order),
-scores it under the proposal (the mixture kernels: kernel 2 for Uniform
-heads, kernel 1 for Normal heads) and under the prior, and packs the
+scores it under the proposal (the mixture kernels: kernel 2 for the
+truncated-Normal heads of Uniform, Beta, VonMises and Poisson priors,
+kernel 1 for Normal heads) and under the prior, and packs the
 values, both log-densities and the heads' outputs into one tensor, copied
 to the host once.  A worker's ``state.sample`` takes the precomputed pair
 through ``_ProposalShim.pair_of``; a value the round did not draw (a
@@ -378,9 +379,11 @@ class LockstepCoordinator:
         values = proposal.sample(self._generator)
         plp = proposal.log_prob(values)
         prior_lp = prior_dist.log_prob(values)
-        host = torch.cat([values[:, None], plp[:, None], prior_lp[:, None], out], dim=1).cpu()
+        host = torch.cat([values[:, None].to(out.dtype), plp[:, None], prior_lp[:, None], out], dim=1).cpu()
         scores = host[:, 1:3].tolist()
-        for row, (r, value) in enumerate(zip(items, host[:, 0].unbind())):
+        # the values in the proposal's own dtype (a categorical head's are
+        # integer indices, exact in float32)
+        for row, (r, value) in enumerate(zip(items, host[:, 0].to(values.dtype).unbind())):
             dist = r.variable.distribution
             if dist.batch_shape != ():
                 value = value.reshape(dist.batch_shape)

@@ -8,6 +8,11 @@
   instances, and the model runs on the interpreter tier.
 * GaussianUnknownMeanMarsagliaRejection: the same loop written with the
   ``rejection_sample`` combinator, so the model runs on the batched tier.
+* HiddenMarkovModel: a K-state chain with Gaussian emissions, its
+  transitions indexed with torch so that it runs on the batched tier;
+* Branching: Poisson/Fibonacci stochastic branching with an enumerable
+  posterior, on the interpreter tier; BranchingCompiled, the same
+  posterior over r with tensor control flow, on the batched tier;
 * GaussianProcessRegression: GP regression with the latent function
   marginalized out, one [N, N] kernel matrix and its Cholesky factor per
   particle.
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import state as _state
-from ..distributions import MultivariateNormal, Normal, Uniform
+from .. import util
+from ..distributions import Categorical, Empirical, MultivariateNormal, Normal, Poisson, Uniform
 from ..model import Model
 
 sample = _state.sample
@@ -121,6 +127,119 @@ class GaussianUnknownMeanMarsagliaRejection(Model):
         return GaussianUnknownMean(
             self.prior_mean, self.prior_stddev, self.likelihood_stddev
         ).true_posterior(observed_values)
+
+
+class _OnDevice:
+    """float32 copies of a model's numpy tables, one per device."""
+
+    def __init__(self, **tables):
+        self._tables = {k: np.asarray(v, np.float32) for k, v in tables.items()}
+        self._on = {}
+
+    def __call__(self, name, device):
+        key = (name, device)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.as_tensor(self._tables[name], device=device)
+        return t
+
+
+class HiddenMarkovModel(Model):
+    """A K-state chain with Gaussian emissions, indexed with torch so that
+    ``T[state]`` over ``[N]`` states gives ``[N, K]`` probabilities on the
+    batched tier; returns the one-hot states, ``[obs_length + 1, K]`` a
+    trace."""
+
+    def __init__(self, init_probs, transition_probs, emission_means, emission_stddev=1.0, obs_length=16):
+        super().__init__(name="Hidden Markov model")
+        self._tables = _OnDevice(init=init_probs, T=transition_probs, means=emission_means)
+        self.num_states = len(init_probs)
+        self.emission_stddev = emission_stddev
+        self.obs_length = obs_length
+
+    def forward(self):
+        tables, device = self._tables, util.param_device()
+        state = sample(Categorical(probs=tables("init", device)))
+        T, means = tables("T", state.device), tables("means", state.device)
+        states = [state]
+        for t in range(self.obs_length):
+            state = sample(Categorical(probs=T[state]))
+            observe(Normal(means[state], self.emission_stddev), name=f"obs{t}")
+            states.append(state)
+        return torch.nn.functional.one_hot(torch.stack(states, dim=-1), self.num_states).to(util.dtype())
+
+
+def _fib(n):
+    if n < 2:
+        return 1
+    a, fib = 1, 1
+    for _ in range(n - 2):
+        a, fib = fib, a + fib
+    return fib
+
+
+class Branching(Model):
+    """Poisson/Fibonacci stochastic branching with an enumerable posterior:
+    it branches on ``float`` of a sampled count, so it runs on the
+    interpreter tier."""
+
+    def __init__(self, rate=4.0):
+        super().__init__(name="Branching")
+        self.rate = rate
+
+    def forward(self):
+        count_prior = Poisson(self.rate)
+        r = sample(count_prior)
+        if 4 < float(r):
+            l = 6
+        else:
+            l = 1 + _fib(3 * int(r)) + float(sample(count_prior))
+        observe(Poisson(l), name="obs")
+        return float(r)
+
+    def true_posterior(self, observe_value=6, support=40):
+        """The posterior over r enumerated on [0, support)²: an Empirical
+        of r with log-weights log p(obs | r, s) + log p(r) + log p(s), in
+        float64."""
+
+        def log_poisson(k, rate):
+            return k * math.log(rate) - rate - math.lgamma(k + 1.0)
+
+        vals, log_weights = [], []
+        for r in range(support):
+            for s in range(support):
+                l = 6 if 4 < r else 1 + _fib(3 * r) + s
+                vals.append(float(r))
+                log_weights.append(
+                    log_poisson(observe_value, float(l)) + log_poisson(r, self.rate) + log_poisson(s, self.rate)
+                )
+        return Empirical(values=vals, log_weights=log_weights)
+
+
+class BranchingCompiled(Model):
+    """Branching with tensor control flow, so it runs on the batched tier:
+    the branch is a ``where`` over a table of fib(3r), and the second count
+    is drawn on both branches (the likelihood ignores it when r > 4, which
+    marginalizes it out exactly): the posterior over r is Branching's."""
+
+    def __init__(self, rate=4.0, max_r=40):
+        super().__init__(name="Branching (compiled)")
+        self.rate = rate
+        self.max_r = max_r
+        self._tables = _OnDevice(fib3=[_fib(3 * r) for r in range(max_r + 1)])
+
+    def forward(self):
+        count_prior = Poisson(self.rate)
+        r = sample(count_prior)
+        s = sample(count_prior)
+        fib3 = self._tables("fib3", r.device)
+        idx = torch.clamp(r, 0, self.max_r).long()
+        l = torch.where(r > 4.0, 6.0, 1.0 + fib3[idx] + s)
+        observe(Poisson(l), name="obs")
+        return r
+
+    def true_posterior(self, observe_value=6, support=40):
+        return Branching(self.rate).true_posterior(observe_value, support)
 
 
 class GaussianProcessRegression(Model):

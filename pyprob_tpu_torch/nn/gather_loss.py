@@ -36,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import lstm_step, lstm_zero_state
+from .layers import lstm_step, lstm_zero_state, mlp_input
 from .proposals import head_distribution, prior_param_arrays
 
 
@@ -118,7 +118,7 @@ def gathered_mlp(table, idx, x, activation=torch.relu, activation_last=torch.rel
     """``mlp_apply`` with per-row parameters: row i of ``x`` goes through
     the MLP stacked at ``idx[i]`` of ``table`` (a ``stack_group`` of MLPs)."""
     meta = table["meta"]
-    x = x.reshape(-1, meta["in_dim"])
+    x = mlp_input(meta, x)
     n = len(table["layers"])
     for i, layer in enumerate(table["layers"]):
         x = torch.bmm(layer["w"][idx], x.unsqueeze(-1)).squeeze(-1) + layer["b"][idx]

@@ -53,6 +53,7 @@ import torch
 
 from .. import util
 from ..util import LearningRateScheduler, ObserveEmbedding, Optimizer
+from ..vectorized import _TraceabilityCache
 from .dataset import Batch, OnlineDataset, PackedBatch
 from .layers import map_tensors, mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy, tensor_leaves
 
@@ -842,9 +843,12 @@ class InferenceNetwork:
                          save_file_name_prefix=None, save_every_sec=None):
         """The online loop, one optimizer step per batch: device batches
         for a model that runs on the batched tier, materialized ones for a
-        model that runs only on the interpreter tier.  A materialized batch
-        is polymorphed first, and when it grew new layers the optimizer is
-        recreated with fresh state, as the JAX package's loop does.  With
+        model that runs only on the interpreter tier.  The first batch is
+        materialized and takes one step; it counts toward ``num_traces``
+        on the batched tier only, as in the JAX package's two loops.  A
+        materialized batch is polymorphed first, and when it grew new
+        layers the optimizer is recreated with fresh state, as the JAX
+        package's loop does.  With
         ``save_file_name_prefix`` the network is saved when more than
         ``save_every_sec`` seconds passed since the last save: first after
         ``save_every_sec`` on the batched tier (the JAX package's fused
@@ -866,11 +870,23 @@ class InferenceNetwork:
             self._total_train_traces += first.size
             self._ema_update_host()
         self._ema_sync_structure()  # polymorph may have grown the params
-        trace_count = first.size
+        # a model that runs only on the interpreter tier trains as the JAX
+        # package's generic loop does, which does not count the first batch
+        # toward num_traces (25,600 traces at batch 256: 101 steps); one
+        # that runs batched as its fused loop does, which counts it (100)
+        interpreter_only = _TraceabilityCache.known_untraceable(dataset._model)
+        trace_count = 0 if interpreter_only else first.size
         last_save = None
+        probed = interpreter_only
         while trace_count < num_traces:
             lr = self._current_learning_rate()
             device_batch = dataset.next_device_batch(batch_size)
+            if not probed:
+                probed = True
+                if device_batch is None:
+                    # the first device batch failed: the JAX package falls
+                    # back to its generic loop here, and counts from 0
+                    trace_count = 0
             if device_batch is None:
                 batch = Batch(dataset.next_batch(batch_size))
                 if self._polymorph(batch):

@@ -6,8 +6,9 @@ A head's proposal depends only on the observe embedding and the site's
 prior parameters, so the network has no recurrent state.  The training
 loss (``_make_loss_for``) applies, per controlled site of a trace type,
 one head to the batch's observe embeddings and scores the batch's values
-under its mixture: kernel 1 forward and kernel 1b backward on the card for
-Normal heads, kernels 2 and 2b for Uniform heads.  A materialized batch of
+under its proposal: kernel 1 forward and kernel 1b backward on the card for
+Normal heads, kernels 2 and 2b for the truncated-Normal heads (Uniform,
+Beta, VonMises and Poisson priors).  A materialized batch of
 several trace types takes one such loss per type (the gather-table loss
 is the LSTM's).  On the batched tier the proposal step applies a head once
 per site to the run's one observe-embedding row and expands its output
@@ -74,11 +75,13 @@ class InferenceNetworkFeedForward(InferenceNetwork):
                 kind = head_kind_for(distribution)
                 if kind is None:
                     raise RuntimeError(f"Distribution currently unsupported: {distribution.name}")
+                num_categories = distribution.num_categories if kind == "categorical" else None
                 self._params["proposal"][address] = head_init(
                     g, kind, self._observe_embedding_dim, device,
                     mixture_components=self._proposal_mixture_components,
+                    num_categories=num_categories,
                 )
-                self._head_meta[address] = {"kind": kind, "num_categories": None}
+                self._head_meta[address] = {"kind": kind, "num_categories": num_categories}
                 self._head_train_iterations.setdefault(address, 0)
                 layers_changed = True
                 util.log_print(

@@ -151,18 +151,22 @@ class InferenceNetworkLSTM(InferenceNetwork):
                         raise RuntimeError(
                             f"Distribution currently unsupported: {distribution.name}"
                         )
+                    # a categorical site's head scores its categories, and
+                    # its sample embedding reads the one-hot value
+                    num_categories = distribution.num_categories if kind == "categorical" else None
                     self._params["proposal"][address] = head_init(
                         g, kind, self._lstm_dim, device,
                         mixture_components=self._proposal_mixture_components,
+                        num_categories=num_categories,
                     )
                     value_shape = tuple(np.shape(variable.value)) or (1,)
                     self._params["sample_embedding"][address] = mlp_init(
                         g, value_shape, (self._sample_embedding_dim,), device,
-                        num_layers=1,
+                        num_layers=1, one_hot_dim=num_categories,
                     )
                     self._head_meta[address] = {
                         "kind": kind,
-                        "num_categories": None,
+                        "num_categories": num_categories,
                         "dist_name": distribution.name,
                     }
                     self._head_train_iterations.setdefault(address, 0)

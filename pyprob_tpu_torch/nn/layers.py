@@ -61,11 +61,16 @@ def linear_to_numpy(p):
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(generator, input_shape, output_shape, device, num_layers=3):
+def mlp_init(generator, input_shape, output_shape, device, num_layers=3, one_hot_dim=None):
+    """An MLP over inputs of ``input_shape``; with ``one_hot_dim``, over
+    category indices, each taken as its one-hot vector of that length
+    (the sample embedding of a categorical site)."""
     input_shape = tuple(input_shape)
     output_shape = (output_shape,) if isinstance(output_shape, int) else tuple(output_shape)
     in_dim = int(np.prod(input_shape)) if len(input_shape) else 1
     out_dim = int(np.prod(output_shape))
+    if one_hot_dim is not None:
+        in_dim = one_hot_dim
     if num_layers < 1:
         raise ValueError("Expecting num_layers >= 1")
     dims = (
@@ -78,18 +83,24 @@ def mlp_init(generator, input_shape, output_shape, device, num_layers=3):
             linear_init(generator, dims[i], dims[i + 1], device)
             for i in range(len(dims) - 1)
         ],
-        "meta": {"in_dim": in_dim, "out_shape": output_shape, "one_hot_dim": None},
+        "meta": {"in_dim": in_dim, "out_shape": output_shape, "one_hot_dim": one_hot_dim},
     }
+
+
+def mlp_input(meta, x):
+    """An MLP's input rows ``[B, in_dim]``: ``x`` flattened to rows, or for
+    a one-hot MLP each value truncated to an integer index and taken as its
+    one-hot row (all zeros outside [0, one_hot_dim), as ``jax.nn.one_hot``)."""
+    n = meta.get("one_hot_dim")
+    if n is None:
+        return x.reshape(-1, meta["in_dim"])
+    idx = x.reshape(-1, 1).long()
+    return (idx == torch.arange(n, device=x.device)).to(util.dtype())
 
 
 def mlp_apply(params, x, activation=torch.relu, activation_last=torch.relu):
     meta = params["meta"]
-    if meta.get("one_hot_dim") is not None:
-        raise NotImplementedError(
-            "one-hot MLP inputs (categorical sample embeddings) come with "
-            "the distributions slice, beside the categorical proposal head"
-        )
-    x = x.reshape(-1, meta["in_dim"])
+    x = mlp_input(meta, x)
     n = len(params["layers"])
     for i, layer in enumerate(params["layers"]):
         x = linear_apply(layer, x)

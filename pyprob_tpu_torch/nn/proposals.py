@@ -5,23 +5,80 @@ parameters to a batched proposal distribution.  Ported so far:
 
 * Normal prior -> ``normal_mixture``: a mixture of K Normals whose means and
   stddevs are residual-scaled by the prior;
-* Uniform prior -> ``uniform_truncated_normal_mixture``: a mixture of K
-  TruncatedNormals on the prior's [low, high], means squashed into it and
-  stddevs scaled by its width.
+* Uniform, Beta and VonMises priors -> ``uniform_truncated_normal_mixture``:
+  a mixture of K TruncatedNormals on the prior's [low, high] (Beta's
+  bounds, one period centred on VonMises' location), means squashed into
+  it and stddevs scaled by its width;
+* Poisson prior -> ``poisson_truncated_normal_mixture``: a mixture of K
+  TruncatedNormals on [0, 40], means squashed into it (its draws are real
+  values, as the JAX package's);
+* the positive-support priors (Gamma, Exponential, LogNormal, Weibull,
+  Chi2, HalfNormal, HalfCauchy, InverseGamma, Pareto) ->
+  ``positive_lognormal_mixture``: a mixture of K LogNormals residual-scaled
+  in log space by the prior's exact log-space moments;
+* Categorical prior -> ``categorical`` over the site's categories;
+* Bernoulli prior -> ``bernoulli``.
 
-The heads build their ``[B, K]`` parameter tensors once and hand them to
-the mixture kernels as they are.  The other head kinds are recognised and
-raise with the slice that brings them.
+The mixture heads build their ``[B, K]`` parameter tensors once; the
+truncated-Normal ones hand them, with one ``low`` and one ``high`` tensor
+shared by every component, to the truncated mixture's kernel.  The
+LogNormal mixture is scored in plain torch, as in the JAX package.  The
+heavy-tailed and event-shaped head kinds raise with the slice that brings
+them.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..distributions import Categorical, Mixture, Normal, Uniform
+from ..distributions import (
+    Bernoulli,
+    Beta,
+    Categorical,
+    Chi2,
+    Exponential,
+    Gamma,
+    HalfCauchy,
+    HalfNormal,
+    InverseGamma,
+    LogNormal,
+    Mixture,
+    Normal,
+    Pareto,
+    Poisson,
+    Uniform,
+    VonMises,
+    Weibull,
+)
 from .layers import mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy
 
-_PORTED_KINDS = ("normal_mixture", "uniform_truncated_normal_mixture")
+_EPSILON = 1e-6
+_POISSON_LOW = 0.0
+_POISSON_HIGH = 40.0
+_EULER_GAMMA = 0.5772156649015329
+_PI_OVER_SQRT6 = math.pi / math.sqrt(6.0)
+
+_POSITIVE_LOGNORMAL_PRIORS = (
+    Gamma,
+    Exponential,
+    LogNormal,
+    Weibull,
+    Chi2,
+    HalfNormal,
+    HalfCauchy,
+    InverseGamma,
+    Pareto,
+)
+# kinds whose MLP emits means, stddevs and mixing logits, K each
+_MIXTURE_KINDS = (
+    "normal_mixture",
+    "uniform_truncated_normal_mixture",
+    "poisson_truncated_normal_mixture",
+    "positive_lognormal_mixture",
+)
+_PORTED_KINDS = _MIXTURE_KINDS + ("categorical", "bernoulli")
 
 
 def head_kind_for(distribution):
@@ -29,37 +86,98 @@ def head_kind_for(distribution):
     proposal.  Only the distributions this port has are recognised."""
     if isinstance(distribution, Normal):
         return "normal_mixture"
-    if isinstance(distribution, Uniform):
+    if isinstance(distribution, (Uniform, Beta, VonMises)):
         return "uniform_truncated_normal_mixture"
+    if isinstance(distribution, Poisson):
+        return "poisson_truncated_normal_mixture"
     if isinstance(distribution, Categorical):
         return "categorical"
+    if isinstance(distribution, Bernoulli):
+        return "bernoulli"
+    if isinstance(distribution, _POSITIVE_LOGNORMAL_PRIORS):
+        return "positive_lognormal_mixture"
     return None
+
+
+def _log_space_moments(distribution):
+    """The exact (mean, stddev) of log X under a positive-support prior, the
+    point the LogNormal-mixture head residual-scales by."""
+    if isinstance(distribution, LogNormal):
+        return distribution.loc, distribution.scale
+    if isinstance(distribution, Exponential):
+        # log X = −log rate + log E, E ~ Exp(1): E[log E] = −γ, Std = π/√6
+        rate = distribution.rate
+        return -torch.log(rate) - _EULER_GAMMA, torch.full_like(rate, _PI_OVER_SQRT6)
+    if isinstance(distribution, Gamma):
+        a, r = distribution.concentration, distribution.rate
+        return torch.digamma(a) - torch.log(r), torch.sqrt(torch.polygamma(1, a))
+    if isinstance(distribution, Chi2):
+        # Chi2(df) = Gamma(df/2, 1/2)
+        half_df = distribution.df / 2.0
+        return torch.digamma(half_df) + math.log(2.0), torch.sqrt(torch.polygamma(1, half_df))
+    if isinstance(distribution, Weibull):
+        # X = scale · E^(1/k), E ~ Exp(1)
+        lam, k = distribution.scale, distribution.concentration
+        return torch.log(lam) - _EULER_GAMMA / k, _PI_OVER_SQRT6 / k
+    if isinstance(distribution, HalfNormal):
+        # E[log X] = log scale + (ψ(1/2) + log 2)/2, Std = √ψ'(1/2) / 2
+        s = distribution.scale
+        return torch.log(s) - 0.6351814227307392, torch.full_like(s, 1.1107207345395915)
+    if isinstance(distribution, HalfCauchy):
+        # no log-moments (heavy tails): the median with a wide spread
+        s = distribution.scale
+        return torch.log(s), torch.full_like(s, 2.0)
+    if isinstance(distribution, InverseGamma):
+        # log X = log rate − log Gamma(a, 1)
+        a, r = distribution.concentration, distribution.rate
+        return torch.log(r) - torch.digamma(a), torch.sqrt(torch.polygamma(1, a))
+    if isinstance(distribution, Pareto):
+        # log X = log scale + E/α, E ~ Exp(1)
+        m, a = distribution.scale, distribution.alpha
+        return torch.log(m) + 1.0 / a, 1.0 / a
+    raise ValueError(f"No log-space moments for {distribution.name}")
 
 
 def prior_param_arrays(distribution):
     """The prior parameters the head consumes at apply time."""
     if isinstance(distribution, Normal):
         return {"mean": distribution.mean, "stddev": distribution.stddev}
-    if isinstance(distribution, Uniform):
+    if isinstance(distribution, (Uniform, Beta)):
         return {"low": distribution.low, "high": distribution.high}
+    if isinstance(distribution, VonMises):
+        # one full period centred on the prior's location covers the support
+        loc = distribution.loc
+        return {"low": loc - math.pi, "high": loc + math.pi}
+    if isinstance(distribution, _POSITIVE_LOGNORMAL_PRIORS):
+        log_loc, log_scale = _log_space_moments(distribution)
+        return {"log_loc": log_loc, "log_scale": log_scale}
     return {}
 
 
 def _check_kind(kind):
     if kind not in _PORTED_KINDS:
         raise NotImplementedError(
-            f"proposal head {kind!r} is not ported yet; it comes with the "
-            "distributions slice, beside its prior distributions"
+            f"proposal head {kind!r} is not ported yet; it comes with the second half of "
+            "the distributions slice, beside its prior distributions (the heavy-tailed "
+            "family, and the event-shaped MultivariateNormal, Dirichlet and LKJ)"
         )
 
 
-def head_init(generator, kind, input_dim, device, mixture_components=10):
+def head_init(generator, kind, input_dim, device, mixture_components=10, num_categories=None):
     _check_kind(kind)
+    meta = {"kind": kind, "mixture_components": mixture_components}
+    if kind == "categorical":
+        if num_categories is None:
+            raise ValueError("a categorical head needs num_categories")
+        out_dim = num_categories
+        meta["num_categories"] = num_categories
+    elif kind == "bernoulli":
+        out_dim = 1
+    else:
+        out_dim = 3 * mixture_components
     return {
-        "ff": mlp_init(
-            generator, (input_dim,), (3 * mixture_components,), device, num_layers=2
-        ),
-        "meta": {"kind": kind, "mixture_components": mixture_components},
+        "ff": mlp_init(generator, (input_dim,), (out_dim,), device, num_layers=2),
+        "meta": meta,
     }
 
 
@@ -77,13 +195,17 @@ def head_apply(params, x, prior_params):
 
 
 def head_distribution(meta, out, prior_params):
-    """The proposal of a head whose MLP gave ``out`` [B, 3K] (the gathered
-    heads of the gather loss and of lockstep rounds apply their MLPs
-    themselves)."""
+    """The proposal of a head whose MLP gave ``out`` [B, out_dim] (the
+    gathered heads of the gather loss and of lockstep rounds apply their
+    MLPs themselves)."""
     kind = meta["kind"]
     _check_kind(kind)
-    K = meta["mixture_components"]
     B = out.shape[0]
+    if kind == "categorical":
+        return Categorical(probs=torch.softmax(out, dim=1) + _EPSILON)
+    if kind == "bernoulli":
+        return Bernoulli(probs=torch.clamp(torch.sigmoid(out[:, 0]) + _EPSILON, 0.0, 1.0))
+    K = meta["mixture_components"]
     coeffs = torch.softmax(out[:, 2 * K :], dim=1)
     if kind == "normal_mixture":
         prior_mean = _rows(prior_params["mean"], B)[:, None]
@@ -91,6 +213,18 @@ def head_distribution(meta, out, prior_params):
         means = prior_mean + out[:, :K] * prior_std
         stddevs = torch.exp(out[:, K : 2 * K]) * prior_std
         return Mixture._from_normal_params(means, stddevs, coeffs)
+    if kind == "positive_lognormal_mixture":
+        log_loc = _rows(prior_params["log_loc"], B)[:, None]
+        log_scale = _rows(prior_params["log_scale"], B)[:, None]
+        means = log_loc + out[:, :K] * log_scale
+        stddevs = torch.exp(out[:, K : 2 * K]) * log_scale
+        return Mixture([LogNormal(means[:, i], stddevs[:, i]) for i in range(K)], probs=coeffs)
+    if kind == "poisson_truncated_normal_mixture":
+        low = out.new_full((B,), _POISSON_LOW)
+        high = out.new_full((B,), _POISSON_HIGH)
+        means = low[:, None] + torch.sigmoid(out[:, :K]) * (high - low)[:, None]
+        stddevs = torch.exp(out[:, K : 2 * K])
+        return Mixture._from_truncated_normal_params(means, stddevs, coeffs, low, high)
     low = _rows(prior_params["low"], B)
     high = _rows(prior_params["high"], B)
     width = (high - low)[:, None]
@@ -103,10 +237,10 @@ def head_from_numpy(p, device):
     """A head from the JAX package's parameters (``Static`` unwrapped)."""
     meta = dict(p["meta"])
     _check_kind(meta["kind"])
-    return {
-        "ff": mlp_from_numpy(p["ff"], device),
-        "meta": {"kind": meta["kind"], "mixture_components": meta["mixture_components"]},
-    }
+    out = {"kind": meta["kind"], "mixture_components": meta["mixture_components"]}
+    if meta["kind"] == "categorical":
+        out["num_categories"] = meta["num_categories"]
+    return {"ff": mlp_from_numpy(p["ff"], device), "meta": out}
 
 
 def head_to_numpy(p):

@@ -38,7 +38,7 @@ import torch
 
 from . import util
 from .address import extract_address
-from .distributions import Categorical, Normal, Uniform
+from .distributions import Categorical, Factor, Normal, Uniform
 from .trace import Trace, Variable
 from .util import InferenceEngine, PriorInflation, TraceMode
 
@@ -138,7 +138,7 @@ def _score(distribution, value):
     the Python side: ``log_prob`` there is a few torch calls of a few µs
     each, a large share of a site's host time (``profile_host_score.py``
     times both)."""
-    if value.dim() == 0 and distribution.batch_shape == ():
+    if value is not None and value.dim() == 0 and distribution.batch_shape == ():
         if type(distribution) is Normal:
             z = (float(value) - float(distribution.loc)) / float(distribution.scale)
             return -0.5 * z * z - math.log(float(distribution.scale)) - _LOG_SQRT_2PI
@@ -213,11 +213,9 @@ def factor(log_prob=None, log_prob_func=None, name=None, address=None, mask=None
             log_prob=log_prob, log_prob_func=log_prob_func, name=name,
             address=address, mask=mask,
         )
-    if _ctx_local.value.current_trace is None:
-        return None
-    raise NotImplementedError(
-        "factor is not ported yet; it comes with the distributions slice (the Factor distribution)"
-    )
+    if mask is not None:
+        raise NotImplementedError("factor(mask=) is not ported yet; it comes with the Markov/SMC slice")
+    return observe(Factor(log_prob=log_prob, log_prob_func=log_prob_func), name=name, address=address)
 
 
 def observe(distribution, value=None, name=None, address=None):
@@ -236,7 +234,7 @@ def observe(distribution, value=None, name=None, address=None):
         value = util.to_tensor(value, "cpu")
     elif ctx.trace_mode == TraceMode.PRIOR_FOR_INFERENCE_NETWORK:
         value = distribution.sample(_get_rng())
-    if value is None:
+    if value is None and not isinstance(distribution, Factor):
         observed, log_prob, log_importance_weight = False, None, None
     else:
         observed = True

@@ -25,7 +25,7 @@ import torch
 
 from . import state, util
 from .address import extract_address
-from .distributions import Categorical, Empirical, Normal
+from .distributions import Categorical, Empirical, Factor, Normal
 from .ops import kernels
 from .trace import Trace, Variable
 from .util import InferenceEngine, PriorInflation, TraceMode
@@ -232,27 +232,34 @@ class VectorizedHandler:
             value = util.to_tensor(self.observed[name], self.device)
         elif value is not None:
             value = util.to_tensor(value, self.device)
-        elif self.trace_mode == TraceMode.PRIOR_FOR_INFERENCE_NETWORK:
+        elif self.trace_mode == TraceMode.PRIOR_FOR_INFERENCE_NETWORK and not isinstance(
+            distribution, Factor
+        ):
             value = _draw(distribution, self.n, self.generator)
-        if value is None:
+        if value is None and not isinstance(distribution, Factor):
             site.observed = False
             self._record(site, None, None)
             return None
+        # a factor without a value scores None: its fixed log-probability,
+        # or its function's value at None, as the JAX package's batched tier
         log_prob = self.likelihood_importance * self._per_particle(
-            distribution.log_prob(value)
+            util.to_tensor(distribution.log_prob(value), self.device)
         )
         if self._is_weighted():
             self.log_importance_weight = self.log_importance_weight + log_prob
         self.log_prob_observed = self.log_prob_observed + log_prob
         self.log_prob_total = self.log_prob_total + log_prob
-        self._record(site, self._per_particle_value(distribution, value), log_prob)
+        self._record(
+            site, None if value is None else self._per_particle_value(distribution, value), log_prob
+        )
         return value
 
     def factor(self, log_prob=None, log_prob_func=None, name=None, address=None, mask=None):
-        raise NotImplementedError(
-            "factor is not ported yet; it comes with the distributions slice "
-            "(the Factor distribution)"
-        )
+        if mask is not None:
+            raise NotImplementedError(
+                "factor(mask=) is not ported yet; it comes with the Markov/SMC slice"
+            )
+        return self.observe(Factor(log_prob=log_prob, log_prob_func=log_prob_func), name=name, address=address)
 
     def tag(self, value, name=None, address=None):
         raise NotImplementedError(

@@ -2,13 +2,14 @@
 
 The Gaussian-unknown-mean body and its Marsaglia variants (the prior drawn
 by the polar method inside ``rejection_sample``, and in a plain while loop
-that branches on ``float`` of the sampled values) are defined once here
-and both packages' models call them: an address embeds the source line of
+that branches on ``float`` of the sampled values), pyprob's HMM, and the
+Beta–Bernoulli and Gamma–Poisson models are defined once here and both
+packages' models call them: an address embeds the source line of
 its ``sample`` call and the function-name chain, so the two packages'
 sites get equal addresses and carried proposal heads land on the right
 address.  The ``rejection_sample`` body takes its ``sqrt`` and ``log``
-from the caller.  ``port_trace`` rebuilds a JAX package trace in the
-port's records, so both packages' losses can run on the same traces.
+from the caller, the HMM body its tables.  ``port_trace`` rebuilds a JAX
+package trace in the port's records, so both packages' losses can run on the same traces.
 """
 
 import math
@@ -97,21 +98,97 @@ class TorchMarsagliaWhile(pyprob_tpu_torch.Model):
         return marsaglia_while_body(pyprob_tpu_torch)
 
 
+# pyprob's HMM test (tests/test_inference.py:271-317): 3 states, 16 Normal
+# observes, 17 categorical sites
+HMM_INIT = [1.0 / 3.0] * 3
+HMM_T = [[0.1, 0.5, 0.4], [0.2, 0.2, 0.6], [0.15, 0.15, 0.7]]
+HMM_MEANS = [-1.0, 1.0, 0.0]
+HMM_OBSERVATION = [0.9, 0.8, 0.7, 0.0, -0.025, -5.0, -2.0, -0.1, 0.0, 0.13, 0.45, 6, 0.2, 0.3, -1, -1]
+HMM_OBSERVE = {f"obs{i}": v for i, v in enumerate(HMM_OBSERVATION)}
+
+
+def hmm_body(pp, table):
+    """``table(name, state)``: the model's ``init``, ``T`` or ``means`` in the
+    caller's array type, on ``state``'s device (None: the first draw)."""
+    state = pp.sample(pp.distributions.Categorical(probs=table("init", None)))
+    for t in range(len(HMM_OBSERVATION)):
+        state = pp.sample(pp.distributions.Categorical(probs=table("T", state)[state]))
+        pp.observe(pp.distributions.Normal(table("means", state)[state], 1.0), name=f"obs{t}")
+    return state
+
+
+_HMM_TABLES = {"init": HMM_INIT, "T": HMM_T, "means": HMM_MEANS}
+
+
+class JaxHMM(pyprob_tpu.Model):
+    def forward(self):
+        return hmm_body(pyprob_tpu, lambda name, state: jnp.asarray(_HMM_TABLES[name], jnp.float32))
+
+
+class TorchHMM(pyprob_tpu_torch.Model):
+    def forward(self):
+        def table(name, state):
+            device = pyprob_tpu_torch.util.param_device() if state is None else state.device
+            return torch.tensor(_HMM_TABLES[name], dtype=torch.float32, device=device)
+
+        return hmm_body(pyprob_tpu_torch, table)
+
+
+# p ~ Beta(2, 3), 20 Bernoulli observes (the Beta head: kernels 2 and 2b)
+BETA_BERNOULLI_OBSERVE = {f"y{i}": float(i < 14) for i in range(20)}
+
+
+def beta_bernoulli_body(pp):
+    p = pp.sample(pp.distributions.Beta(2.0, 3.0))
+    for i in range(20):
+        pp.observe(pp.distributions.Bernoulli(probs=p), name=f"y{i}")
+    return p
+
+
+class JaxBetaBernoulli(pyprob_tpu.Model):
+    def forward(self):
+        return beta_bernoulli_body(pyprob_tpu)
+
+
+class TorchBetaBernoulli(pyprob_tpu_torch.Model):
+    def forward(self):
+        return beta_bernoulli_body(pyprob_tpu_torch)
+
+
+# rate ~ Gamma(2, 1), two Poisson observes (tests/test_proposals_extended.py:111-122)
+def gamma_poisson_body(pp):
+    rate = pp.sample(pp.distributions.Gamma(2.0, 1.0))
+    likelihood = pp.distributions.Poisson(rate)
+    pp.observe(likelihood, name="obs0")
+    pp.observe(likelihood, name="obs1")
+    return rate
+
+
+class JaxGammaPoisson(pyprob_tpu.Model):
+    def forward(self):
+        return gamma_poisson_body(pyprob_tpu)
+
+
+class TorchGammaPoisson(pyprob_tpu_torch.Model):
+    def forward(self):
+        return gamma_poisson_body(pyprob_tpu_torch)
+
+
 def _port_distribution(d):
+    """A JAX package distribution as the port's, its parameters on the CPU."""
     if d is None:
         return None
     D = pyprob_tpu_torch.distributions
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
-    if type(d).__name__ == "Uniform":
-        return D.Uniform(f(d.low), f(d.high))
-    if type(d).__name__ == "Normal":
-        return D.Normal(f(d.mean), f(d.stddev))
-    raise TypeError(type(d).__name__)
+    name = type(d).__name__
+    if name in ("Mixture", "Factor", "Empirical") or not hasattr(D, name):
+        raise TypeError(name)
+    return getattr(D, name)._rebuild([f(getattr(d, "_" + n)) for n in d._param_names])
 
 
 def port_trace(jtrace):
     """A JAX package trace (pruned or whole) as the port's ``Trace``: the
-    same addresses and values, Uniform and Normal distributions on the CPU."""
+    same addresses and values, the distributions on the CPU."""
     from pyprob_tpu_torch.trace import Trace, Variable
 
     tr = Trace()
@@ -136,14 +213,19 @@ def unwrap_static(tree):
     return np.asarray(tree) if hasattr(tree, "shape") else tree
 
 
-def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7, vectorized=None):
+def _embeddings(observe_dim, observe_names):
+    return {name: {"dim": observe_dim} for name in observe_names}
+
+
+def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7, vectorized=None,
+                observe_names=("obs0", "obs1")):
     """An untrained pyprob_tpu LSTM network for ``model``: constructor plus
     layer pre-generation on two prior traces (``vectorized`` picks the
     tier that draws them)."""
     pyprob_tpu.seed(seed)
     net = JaxLSTM(
         model=model,
-        observe_embeddings={"obs0": {"dim": observe_dim}, "obs1": {"dim": observe_dim}},
+        observe_embeddings=_embeddings(observe_dim, observe_names),
         lstm_dim=lstm_dim,
         proposal_mixture_components=mixture_components,
     )
@@ -172,14 +254,15 @@ def carry(jnet, model):
     return net
 
 
-def jax_ff_network(model, mixture_components=3, observe_dim=4, seed=7, vectorized=None):
+def jax_ff_network(model, mixture_components=3, observe_dim=4, seed=7, vectorized=None,
+                   observe_names=("obs0", "obs1")):
     """An untrained pyprob_tpu feedforward network for ``model``, its heads
     grown from two prior traces (``vectorized`` picks the tier that draws
     them)."""
     pyprob_tpu.seed(seed)
     net = JaxFF(
         model=model,
-        observe_embeddings={"obs0": {"dim": observe_dim}, "obs1": {"dim": observe_dim}},
+        observe_embeddings=_embeddings(observe_dim, observe_names),
         proposal_mixture_components=mixture_components,
     )
     net._pre_generate_layers(model.prior(num_traces=2, vectorized=vectorized).get_values())

@@ -248,7 +248,9 @@ def test_training_polymorphs_recreates_the_optimizer_and_grafts_the_ema(monkeypa
         proposal_mixture_components=2, ema_decay=0.9,
     )
     net = model._inference_network
-    assert net._gather_used and net._total_train_iterations == 30
+    # the first batch does not count toward num_traces for an
+    # interpreter-tier model, as in the JAX package's generic loop
+    assert net._gather_used and net._total_train_iterations == 31
     mid_run = [(step, born) for step, born in grown if step >= 1]
     assert mid_run, "no batch after the first grew the network"
     steps_created = {step for step, _, _ in created}

@@ -248,11 +248,14 @@ def test_tag_records_and_what_is_not_ported_raises():
 
     class Factored(pp.Model):
         def forward(self):
-            pp.factor(log_prob=0.0)
+            pp.factor(log_prob=-1.5)
             return 0.0
 
-    with pytest.raises(NotImplementedError, match="distributions slice"):
-        Factored().prior(2, vectorized=False)
+    (trace,) = Factored().prior(1, vectorized=False).get_values()
+    (site,) = trace.variables_observed
+    assert site.value is None and site.log_prob == -1.5 and trace.log_importance_weight == -1.5
+    with pytest.raises(NotImplementedError, match="Markov/SMC slice"):
+        pp.factor(log_prob=0.0, mask=True)
     with pytest.raises(NotImplementedError, match="engines slice"):
         TorchGUM().posterior_results(
             5, observe=OBSERVE, vectorized=False,
