@@ -1,3 +1,12 @@
+"""The port's distributions (counterpart of ``pyprob_tpu/distributions``):
+Normal, Uniform, Categorical, Bernoulli, Binomial, Poisson, the
+positive-support family, Beta, VonMises, TruncatedNormal, the heavy-tailed
+family (StudentT, Laplace, Cauchy, Logistic, Gumbel), Geometric,
+NegativeBinomial, the Censored and ZeroInflated observation wrappers,
+MultivariateNormal, Mixture, Factor and Empirical.  Dirichlet,
+Multinomial and LKJCholesky come with the event-shaped slice.
+"""
+
 from .distribution import Distribution
 from .normal import Normal
 from .uniform import Uniform
@@ -18,6 +27,15 @@ from .half_normal import HalfNormal
 from .chi2 import Chi2
 from .inverse_gamma import InverseGamma
 from .pareto import Pareto
+from .student_t import StudentT
+from .laplace import Laplace
+from .cauchy import Cauchy
+from .logistic import Logistic
+from .gumbel import Gumbel
+from .geometric import Geometric
+from .negative_binomial import NegativeBinomial
+from .censored import Censored
+from .zero_inflated import ZeroInflated
 from .mixture import Mixture
 from .factor import Factor
 from .empirical import Empirical
@@ -43,6 +61,15 @@ __all__ = [
     "Chi2",
     "InverseGamma",
     "Pareto",
+    "StudentT",
+    "Laplace",
+    "Cauchy",
+    "Logistic",
+    "Gumbel",
+    "Geometric",
+    "NegativeBinomial",
+    "Censored",
+    "ZeroInflated",
     "Mixture",
     "Factor",
     "Empirical",

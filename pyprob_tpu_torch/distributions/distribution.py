@@ -111,6 +111,12 @@ class Distribution:
     def prob(self, value, sum=False):
         return torch.exp(self.log_prob(value, sum=sum))
 
+    def cdf(self, value):
+        raise NotImplementedError(f"cdf not implemented for {self._name}")
+
+    def icdf(self, value):
+        raise NotImplementedError(f"icdf not implemented for {self._name}")
+
     @property
     def mean(self):
         raise NotImplementedError(f"mean not implemented for {self._name}")
@@ -135,6 +141,12 @@ class Distribution:
             setattr(d, "_" + n, leaf)
         d._finish_init()
         return d
+
+    def _with_leaves(self, leaves):
+        """A distribution like this one with ``leaves`` in place of
+        ``_leaves()``: ``_rebuild``, except for the wrappers, whose leaves
+        begin with their base distribution's."""
+        return type(self)._rebuild(leaves)
 
     def __repr__(self):
         ps = ", ".join(

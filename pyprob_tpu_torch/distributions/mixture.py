@@ -9,11 +9,13 @@ and all-TruncatedNormal mixtures whose components share one ``low`` and
 one ``high`` through ``ops.kernels.mixture_truncated_normal_log_prob``.
 Both are differentiable, their gradients kernels too on CUDA, and reach
 the means, the stddevs and the mixing logits through the ``.contiguous()``
-and ``.expand()`` views that feed them (the training loss).  Sampling
-draws the component index and gathers one component's parameters per row
-for a single draw; the JAX package draws every component and selects one
-with a one-hot contraction, so the two agree in distribution, not draw
-for draw.
+and ``.expand()`` views that feed them (the training loss).  Mixtures of
+StudentTs (the heavy-tailed proposal head) take the logsumexp path, as in
+the JAX package, which has no kernel for them.  Sampling draws the
+component index and gathers one component's parameters per row for a
+single draw (one Gamma draw a row for StudentTs, not K); the JAX package
+draws every component and selects one with a one-hot contraction, so the
+two agree in distribution, not draw for draw.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..ops import kernels
 from .distribution import Distribution
 from .categorical import Categorical
 from .normal import Normal
+from .student_t import StudentT
 from .truncated_normal import TruncatedNormal
 
 
@@ -51,6 +54,7 @@ class Mixture(Distribution):
         # stack on demand from the components
         self._normal_params = None
         self._tnorm_params = None
+        self._studentt_params = None
         self._finish_init()
 
     @classmethod
@@ -72,6 +76,16 @@ class Mixture(Distribution):
         comps = [TruncatedNormal(means[:, i], stddevs[:, i], low, high) for i in range(K)]
         d = cls(comps, probs=probs)
         d._tnorm_params = (means, stddevs, low, high)
+        return d
+
+    @classmethod
+    def _from_studentt_params(cls, dfs, means, scales, probs):
+        """Mixture of K StudentTs from ``[B, K]`` parameter tensors, kept
+        stacked for drawing one component a row."""
+        K = means.shape[1]
+        comps = [StudentT(dfs[:, i], means[:, i], scales[:, i]) for i in range(K)]
+        d = cls(comps, probs=probs)
+        d._studentt_params = (dfs, means, scales)
         return d
 
     def _finish_init(self):
@@ -131,6 +145,19 @@ class Mixture(Distribution):
         stddevs = torch.stack([d.stddev_non_truncated.expand(B) for d in comps], -1)
         return means, stddevs, comps[0].low.expand(B), comps[0].high.expand(B)
 
+    def _stacked_studentt_params(self):
+        """``[B, K]`` (dfs, means, scales) when every component is a StudentT
+        and the batch is 1-D, else None."""
+        if self._studentt_params is not None:
+            return self._studentt_params
+        comps = self._distributions
+        if len(self._batch_shape) != 1 or not all(isinstance(d, StudentT) for d in comps):
+            return None
+        B = self._batch_shape[0]
+        return tuple(
+            torch.stack([getattr(d, name).expand(B) for d in comps], -1) for name in ("df", "loc", "scale")
+        )
+
     def log_prob(self, value, sum=False):
         value = util.to_tensor(value, self.device)
         fused = self._fused_log_prob(value)
@@ -170,20 +197,27 @@ class Mixture(Distribution):
             )
         return None
 
+    def _row_components(self, generator):
+        """For a homogeneous mixture with a 1-D batch: each row's component
+        index drawn, and the distribution of the chosen components (batch
+        ``[B]``) built from their gathered parameters; else None."""
+        stacked, cls, gathered = self._stacked_normal_params(), Normal, 2  # (means, stddevs)
+        if stacked is None:
+            # (means, stddevs, low, high), the bounds one a row
+            stacked, cls = self._stacked_tnorm_params(), TruncatedNormal
+        if stacked is None:
+            stacked, cls, gathered = self._stacked_studentt_params(), StudentT, 3  # (dfs, means, scales)
+        if stacked is None:
+            return None
+        idx = self._mixing._sample(generator, ()).unsqueeze(-1)
+        params = [torch.gather(p, -1, idx).squeeze(-1) for p in stacked[:gathered]]
+        return cls(*params, *stacked[gathered:])
+
     def _sample(self, generator, shape):
-        stacked = (
-            self._stacked_normal_params() or self._stacked_tnorm_params()
-            if shape == ()
-            else None
-        )
-        if stacked is not None:
-            # (means, stddevs) or (means, stddevs, low, high)
-            idx = self._mixing._sample(generator, ()).unsqueeze(-1)
-            loc = torch.gather(stacked[0], -1, idx).squeeze(-1)
-            scale = torch.gather(stacked[1], -1, idx).squeeze(-1)
-            if len(stacked) == 2:
-                return Normal(loc, scale)._sample(generator, ())
-            return TruncatedNormal(loc, scale, *stacked[2:])._sample(generator, ())
+        if shape == ():
+            chosen = self._row_components(generator)
+            if chosen is not None:
+                return chosen._sample(generator, ())
         idx = self._mixing._sample(generator, shape)
         draws = torch.stack(
             [d._sample(generator, shape).expand(idx.shape) for d in self._distributions],

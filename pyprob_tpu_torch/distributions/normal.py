@@ -50,6 +50,14 @@ class Normal(Distribution):
         lp = -0.5 * z * z - torch.log(self._scale) - _LOG_SQRT_2PI
         return lp.sum() if sum else lp
 
+    def cdf(self, value):
+        value = util.to_tensor(value, self._loc.device)
+        return 0.5 * (1.0 + torch.erf((value - self._loc) / (self._scale * math.sqrt(2.0))))
+
+    def icdf(self, value):
+        value = util.to_tensor(value, self._loc.device)
+        return self._loc + self._scale * math.sqrt(2.0) * torch.erfinv(2.0 * value - 1.0)
+
     @property
     def mean(self):
         return self._loc

@@ -366,7 +366,7 @@ class LockstepCoordinator:
         for leaf in dist0._leaves():
             leaves.append(pack[:, ofs : ofs + leaf.numel()].reshape((B,) + tuple(leaf.shape)))
             ofs += leaf.numel()
-        prior_dist = type(dist0)._rebuild(leaves)  # the B priors, batched
+        prior_dist = dist0._with_leaves(leaves)  # the B priors, batched
         heads = self._heads[head_group]
         if self._is_lstm:
             feats = self._lstm_rows(idx, pack[:, ofs:], prev_group)

@@ -8,7 +8,9 @@ particles a ``forward`` call) and the interpreter tier (``state.py``, one
 trace at a time on the host).  ``vectorized=True`` asks for the first,
 ``False`` for the second; ``None`` tries the batched tier and falls back
 to the interpreter for a model whose ``forward`` cannot run there (it
-branches on sampled values), remembering that per model class.  IC on the
+branches on sampled values), remembering that per model class.  A model
+class with ``_never_vectorize = True`` runs on the interpreter tier with
+``None`` and with ``True``, as in the JAX package.  IC on the
 interpreter tier runs lockstep by default (``interpreter_lockstep.py``).
 It trains a feedforward (the default) or an LSTM inference network online
 (``learn_inference_network``), and keeps it in a file

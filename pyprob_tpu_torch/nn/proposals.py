@@ -16,15 +16,21 @@ parameters to a batched proposal distribution.  Ported so far:
   Chi2, HalfNormal, HalfCauchy, InverseGamma, Pareto) ->
   ``positive_lognormal_mixture``: a mixture of K LogNormals residual-scaled
   in log space by the prior's exact log-space moments;
+* the heavy-tailed priors (StudentT, Laplace, Cauchy, Logistic, Gumbel) ->
+  ``studentt_mixture``: a mixture of K StudentTs whose means and scales are
+  residual-scaled by the prior's reference (loc, scale), with a learned df
+  per component of ``meta["df_floor"]`` (0.5 for new heads, 1.0 for a
+  carried head that does not record it) + softplus;
 * Categorical prior -> ``categorical`` over the site's categories;
 * Bernoulli prior -> ``bernoulli``.
 
-The mixture heads build their ``[B, K]`` parameter tensors once; the
-truncated-Normal ones hand them, with one ``low`` and one ``high`` tensor
-shared by every component, to the truncated mixture's kernel.  The
-LogNormal mixture is scored in plain torch, as in the JAX package.  The
-heavy-tailed and event-shaped head kinds raise with the slice that brings
-them.
+Geometric, NegativeBinomial, Censored and ZeroInflated have no head, as in
+the JAX package.  The mixture heads build their ``[B, K]`` parameter
+tensors once; the truncated-Normal ones hand them, with one ``low`` and
+one ``high`` tensor shared by every component, to the truncated mixture's
+kernel.  The LogNormal and StudentT mixtures are scored in plain torch, as
+in the JAX package.  The event-shaped head kinds raise with the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -37,17 +43,22 @@ from ..distributions import (
     Bernoulli,
     Beta,
     Categorical,
+    Cauchy,
     Chi2,
     Exponential,
     Gamma,
+    Gumbel,
     HalfCauchy,
     HalfNormal,
     InverseGamma,
+    Laplace,
+    Logistic,
     LogNormal,
     Mixture,
     Normal,
     Pareto,
     Poisson,
+    StudentT,
     Uniform,
     VonMises,
     Weibull,
@@ -71,12 +82,18 @@ _POSITIVE_LOGNORMAL_PRIORS = (
     InverseGamma,
     Pareto,
 )
-# kinds whose MLP emits means, stddevs and mixing logits, K each
+_STUDENTT_PRIORS = (StudentT, Laplace, Cauchy, Logistic, Gumbel)
+# the df floor a new StudentT-mixture head records in its meta: the head can
+# learn tails heavier than a Cauchy prior's (df 1)
+_DF_FLOOR = 0.5
+# kinds whose MLP emits means, stddevs and mixing logits, K each (the
+# StudentT mixture also K dfs)
 _MIXTURE_KINDS = (
     "normal_mixture",
     "uniform_truncated_normal_mixture",
     "poisson_truncated_normal_mixture",
     "positive_lognormal_mixture",
+    "studentt_mixture",
 )
 _PORTED_KINDS = _MIXTURE_KINDS + ("categorical", "bernoulli")
 
@@ -96,6 +113,8 @@ def head_kind_for(distribution):
         return "bernoulli"
     if isinstance(distribution, _POSITIVE_LOGNORMAL_PRIORS):
         return "positive_lognormal_mixture"
+    if isinstance(distribution, _STUDENTT_PRIORS):
+        return "studentt_mixture"
     return None
 
 
@@ -138,6 +157,21 @@ def _log_space_moments(distribution):
     raise ValueError(f"No log-space moments for {distribution.name}")
 
 
+def _location_scale_ref(distribution):
+    """The (loc, scale) a heavy-tailed prior's StudentT-mixture head
+    residual-scales by: the location and a scale of the prior's spread
+    (its standard deviation where it has one)."""
+    if isinstance(distribution, (StudentT, Cauchy)):
+        return distribution.loc, distribution.scale
+    if isinstance(distribution, Laplace):
+        return distribution.loc, distribution.scale * math.sqrt(2.0)
+    if isinstance(distribution, Logistic):
+        return distribution.loc, distribution.scale * (math.pi / math.sqrt(3.0))
+    if isinstance(distribution, Gumbel):
+        return distribution.loc + _EULER_GAMMA * distribution.scale, distribution.scale * _PI_OVER_SQRT6
+    raise ValueError(f"No location/scale reference for {distribution.name}")
+
+
 def prior_param_arrays(distribution):
     """The prior parameters the head consumes at apply time."""
     if isinstance(distribution, Normal):
@@ -151,15 +185,18 @@ def prior_param_arrays(distribution):
     if isinstance(distribution, _POSITIVE_LOGNORMAL_PRIORS):
         log_loc, log_scale = _log_space_moments(distribution)
         return {"log_loc": log_loc, "log_scale": log_scale}
+    if isinstance(distribution, _STUDENTT_PRIORS):
+        loc, scale = _location_scale_ref(distribution)
+        return {"loc": loc, "scale": scale}
     return {}
 
 
 def _check_kind(kind):
     if kind not in _PORTED_KINDS:
         raise NotImplementedError(
-            f"proposal head {kind!r} is not ported yet; it comes with the second half of "
-            "the distributions slice, beside its prior distributions (the heavy-tailed "
-            "family, and the event-shaped MultivariateNormal, Dirichlet and LKJ)"
+            f"proposal head {kind!r} is not ported yet; it comes with the event-shaped "
+            "slice of the distributions: the MultivariateNormal, Dirichlet and LKJ heads, "
+            "and the reference's alternative Beta heads"
         )
 
 
@@ -173,6 +210,10 @@ def head_init(generator, kind, input_dim, device, mixture_components=10, num_cat
         meta["num_categories"] = num_categories
     elif kind == "bernoulli":
         out_dim = 1
+    elif kind == "studentt_mixture":
+        # means, log-scales, mixing logits and dfs, K each
+        out_dim = 4 * mixture_components
+        meta["df_floor"] = _DF_FLOOR
     else:
         out_dim = 3 * mixture_components
     return {
@@ -206,6 +247,14 @@ def head_distribution(meta, out, prior_params):
     if kind == "bernoulli":
         return Bernoulli(probs=torch.clamp(torch.sigmoid(out[:, 0]) + _EPSILON, 0.0, 1.0))
     K = meta["mixture_components"]
+    if kind == "studentt_mixture":
+        loc = _rows(prior_params["loc"], B)[:, None]
+        scale = _rows(prior_params["scale"], B)[:, None]
+        means = loc + out[:, :K] * scale
+        scales = torch.exp(out[:, K : 2 * K]) * scale
+        coeffs = torch.softmax(out[:, 2 * K : 3 * K], dim=1)
+        dfs = meta.get("df_floor", 1.0) + torch.nn.functional.softplus(out[:, 3 * K :])
+        return Mixture._from_studentt_params(dfs, means, scales, coeffs)
     coeffs = torch.softmax(out[:, 2 * K :], dim=1)
     if kind == "normal_mixture":
         prior_mean = _rows(prior_params["mean"], B)[:, None]
@@ -240,6 +289,8 @@ def head_from_numpy(p, device):
     out = {"kind": meta["kind"], "mixture_components": meta["mixture_components"]}
     if meta["kind"] == "categorical":
         out["num_categories"] = meta["num_categories"]
+    if meta["kind"] == "studentt_mixture" and "df_floor" in meta:
+        out["df_floor"] = meta["df_floor"]
     return {"ff": mlp_from_numpy(p["ff"], device), "meta": out}
 
 

@@ -119,7 +119,7 @@ def _on_host(distribution):
     leaves = distribution._leaves() if type(distribution)._param_names else ()
     if all(leaf.device.type == "cpu" for leaf in leaves):
         return distribution
-    return type(distribution)._rebuild([leaf.cpu() for leaf in leaves])
+    return distribution._with_leaves([leaf.cpu() for leaf in leaves])
 
 
 def _as_value(distribution, value):

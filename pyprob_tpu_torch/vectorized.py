@@ -403,7 +403,7 @@ def _select_distribution(mask, new, old):
         a = a.unsqueeze(0) if new.batch_shape == () else a
         b = b.unsqueeze(0) if old.batch_shape == () else b
         leaves.append(_select(mask, a, b))
-    return type(new)._rebuild(leaves)
+    return new._with_leaves(leaves)
 
 
 class _RejectionAttemptHandler:
@@ -634,17 +634,31 @@ def _run_batched(
 
 class _TraceabilityCache:
     """Remembers per model class whether ``forward`` runs on the batched
-    tier; a class marked False goes straight to the interpreter tier."""
+    tier; a class marked False goes straight to the interpreter tier, as
+    does a model with ``_never_vectorize`` set (a forward with side effects,
+    which must not run even once on this tier)."""
 
     _cache = {}
 
     @classmethod
     def known_untraceable(cls, model):
+        if getattr(model, "_never_vectorize", False):
+            return True
         return cls._cache.get(type(model)) is False
 
     @classmethod
     def mark(cls, model, ok):
         cls._cache[type(model)] = ok
+
+
+def _skips_batched_tier(model, fallback):
+    """Whether an entry point returns None at once for ``model``: with
+    ``fallback`` for a model known not to run here, and for a model with
+    ``_never_vectorize`` set even without it (``vectorized=True``), as the
+    JAX package does."""
+    if getattr(model, "_never_vectorize", False):
+        return True
+    return fallback and _TraceabilityCache.known_untraceable(model)
 
 
 def _concat(chunks):
@@ -710,7 +724,7 @@ def _materialize_traces(sites, outputs, dists, sizes):
             dist = (
                 None
                 if leaves[j] is None
-                else type(s.distribution)._rebuild([leaf[i] for leaf in leaves[j]])
+                else s.distribution._with_leaves([leaf[i] for leaf in leaves[j]])
             )
             tr.add(
                 Variable(
@@ -759,7 +773,7 @@ def vectorized_traces(
         raise NotImplementedError(
             "file-backed Empirical results come with the storage slice"
         )
-    if fallback and _TraceabilityCache.known_untraceable(model):
+    if _skips_batched_tier(model, fallback):
         return None
     if observe is not None and any(v is None for v in observe.values()):
         raise RuntimeError(f"Observe has missing value(s): {observe}")
@@ -882,7 +896,7 @@ def vectorized_posterior(
     """Batched posterior by importance sampling, from the prior (IS) or
     from the model's inference network (IC); None when ``fallback`` and
     the model cannot run on this tier (``vectorized_traces``)."""
-    if fallback and _TraceabilityCache.known_untraceable(model):
+    if _skips_batched_tier(model, fallback):
         return None
     if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
         proposal_step, label = None, "IS"

@@ -2,14 +2,18 @@
 
 The Gaussian-unknown-mean body and its Marsaglia variants (the prior drawn
 by the polar method inside ``rejection_sample``, and in a plain while loop
-that branches on ``float`` of the sampled values), pyprob's HMM, and the
-Beta–Bernoulli and Gamma–Poisson models are defined once here and both
+that branches on ``float`` of the sampled values), pyprob's HMM, the
+Beta–Bernoulli and Gamma–Poisson models, the Laplace-prior model (and its
+interpreter-only copy) and the Beta–NegativeBinomial model are defined
+once here and both
 packages' models call them: an address embeds the source line of
 its ``sample`` call and the function-name chain, so the two packages'
 sites get equal addresses and carried proposal heads land on the right
 address.  The ``rejection_sample`` body takes its ``sqrt`` and ``log``
 from the caller, the HMM body its tables.  ``port_trace`` rebuilds a JAX
-package trace in the port's records, so both packages' losses can run on the same traces.
+package trace in the port's records (the Censored and ZeroInflated
+wrappers with their bases), so both packages' losses can run on the same
+traces.
 """
 
 import math
@@ -174,6 +178,58 @@ class TorchGammaPoisson(pyprob_tpu_torch.Model):
         return gamma_poisson_body(pyprob_tpu_torch)
 
 
+# x ~ Laplace(0, 1), obs0 ~ Normal(x, 0.5) (tests/test_proposals_extended.py:
+# 191-228): the StudentT-mixture head; the interpreter-only copies carry
+# _never_vectorize
+LAPLACE_OBSERVE = {"obs0": 4.0}
+
+
+def laplace_body(pp):
+    x = pp.sample(pp.distributions.Laplace(0.0, 1.0))
+    pp.observe(pp.distributions.Normal(x, 0.5), name="obs0")
+    return x
+
+
+class JaxLaplace(pyprob_tpu.Model):
+    def forward(self):
+        return laplace_body(pyprob_tpu)
+
+
+class TorchLaplace(pyprob_tpu_torch.Model):
+    def forward(self):
+        return laplace_body(pyprob_tpu_torch)
+
+
+class JaxLaplaceInterpreter(JaxLaplace):
+    _never_vectorize = True
+
+
+class TorchLaplaceInterpreter(TorchLaplace):
+    _never_vectorize = True
+
+
+# p ~ Beta(2, 2), k0 = 7 and k1 = 9 ~ NegativeBinomial(5, p)
+# (tests/test_distributions_r3.py:171-180): the posterior is Beta(12, 18)
+NB_OBSERVE = {"k0": 7.0, "k1": 9.0}
+
+
+def nb_body(pp):
+    p = pp.sample(pp.distributions.Beta(2.0, 2.0), name="p")
+    pp.observe(pp.distributions.NegativeBinomial(5.0, p), name="k0")
+    pp.observe(pp.distributions.NegativeBinomial(5.0, p), name="k1")
+    return p
+
+
+class JaxNB(pyprob_tpu.Model):
+    def forward(self):
+        return nb_body(pyprob_tpu)
+
+
+class TorchNB(pyprob_tpu_torch.Model):
+    def forward(self):
+        return nb_body(pyprob_tpu_torch)
+
+
 def _port_distribution(d):
     """A JAX package distribution as the port's, its parameters on the CPU."""
     if d is None:
@@ -183,6 +239,11 @@ def _port_distribution(d):
     name = type(d).__name__
     if name in ("Mixture", "Factor", "Empirical") or not hasattr(D, name):
         raise TypeError(name)
+    # the wrappers' bases are distributions, ported in turn
+    if name == "Censored":
+        return D.Censored(_port_distribution(d.base), lower=f(d.lower), upper=f(d.upper))
+    if name == "ZeroInflated":
+        return D.ZeroInflated(_port_distribution(d.base), gate=f(d.gate))
     return getattr(D, name)._rebuild([f(getattr(d, "_" + n)) for n in d._param_names])
 
 

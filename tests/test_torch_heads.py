@@ -1,16 +1,19 @@
 """The port's proposal heads for Categorical, Bernoulli, Poisson, Beta,
-VonMises and the positive-support priors against the JAX package's
-(``pyprob_tpu/nn/proposals.py``), on the CPU.
+VonMises, the positive-support priors and the heavy-tailed priors against
+the JAX package's (``pyprob_tpu/nn/proposals.py``), on the CPU.
 
-``head_kind_for`` and ``prior_param_arrays`` for every ported class; each
-new head kind's ``head_apply`` on a JAX head carried into the port (the
-proposal's log-density at values inside and, for the truncated heads, at
-the bounds, and its mixture's parameters), and one loss's gradients
-(−Σ log q of the values) with respect to the head's weights and its
-input, within 1e-5 (1e-5 + 1e-4 |ref| for the truncated-Normal heads, the
-float32 cancellation of the truncated mixture's terms).  On the CPU the
-truncated mixture is the kernel's plain version; its kernel branch is
-taken (one ``low`` and one ``high`` shared by the components).
+``head_kind_for`` and ``prior_param_arrays`` for every ported class, and
+for the four classes with no head; each head kind's ``head_apply`` on a
+JAX head carried into the port (the proposal's log-density at values
+inside and, for the truncated heads, at the bounds, and far in the tails
+for the StudentT-mixture heads; its mixture's parameters), and one loss's
+gradients (−Σ log q of the values) with respect to the head's weights and
+its input, within 1e-5 (1e-5 + 1e-4 |ref| for the truncated-Normal heads,
+the float32 cancellation of the truncated mixture's terms, and for the
+StudentT-mixture heads, whose lgamma(ν/2) and log1p(z²/ν) lose float32
+precision near the df floor 0.5).  On the CPU the truncated mixture is
+the kernel's plain version; its kernel branch is taken (one ``low`` and
+one ``high`` shared by the components).
 """
 
 import functools
@@ -29,6 +32,7 @@ from pyprob_tpu_torch import distributions as TD
 from pyprob_tpu_torch.nn import proposals as TP
 from pyprob_tpu_torch.nn.layers import tensor_leaves
 
+from pyprob_tpu.nn.layers import Static
 from _torch_parity import unwrap_static
 
 torch.set_num_threads(2)
@@ -62,20 +66,39 @@ PRIORS = {
     "InverseGamma": dict(concentration=np.linspace(1.5, 5, B), rate=np.linspace(0.5, 2, B)),
     "Pareto": dict(scale=np.linspace(0.5, 2, B), alpha=np.linspace(1.5, 4, B)),
     "Binomial": dict(total_count=np.full(B, 5.0), probs=np.linspace(0.1, 0.9, B)),
+    "StudentT": dict(df=np.linspace(0.6, 8, B), loc=np.linspace(-1, 1, B), scale=np.linspace(0.5, 2, B)),
+    "Laplace": dict(loc=np.linspace(-1, 1, B), scale=np.linspace(0.5, 2, B)),
+    "Cauchy": dict(loc=np.linspace(-1, 1, B), scale=np.linspace(0.5, 2, B)),
+    "Logistic": dict(loc=np.linspace(-1, 1, B), scale=np.linspace(0.5, 2, B)),
+    "Gumbel": dict(loc=np.linspace(-1, 1, B), scale=np.linspace(0.5, 2, B)),
+    # no head: sites of these classes propose from the prior
+    "Geometric": dict(probs=np.linspace(0.1, 0.9, B)),
+    "NegativeBinomial": dict(total_count=np.full(B, 5.0), probs=np.linspace(0.1, 0.9, B)),
+    "Censored": dict(loc=np.linspace(-1, 1, B), scale=np.full(B, 1.0), upper=np.full(B, 1.0)),
+    "ZeroInflated": dict(rate=np.linspace(0.5, 8, B), gate=np.full(B, 0.3)),
 }
 
 
 def _priors(name):
     params = {k: np.asarray(v, np.float32) for k, v in PRIORS[name].items()}
-    j = getattr(JD, name)(**{k: jnp.asarray(v) for k, v in params.items()})
-    t = getattr(TD, name)(**{k: torch.from_numpy(v) for k, v in params.items()})
-    return j, t
+    out = []
+    for lib, array in ((JD, jnp.asarray), (TD, torch.from_numpy)):
+        p = {k: array(v) for k, v in params.items()}
+        if name == "Censored":
+            out.append(lib.Censored(lib.Normal(p["loc"], p["scale"]), upper=p["upper"]))
+        elif name == "ZeroInflated":
+            out.append(lib.ZeroInflated(lib.Poisson(p["rate"]), gate=p["gate"]))
+        else:
+            out.append(getattr(lib, name)(**p))
+    return tuple(out)
 
 
 @pytest.mark.parametrize("name", sorted(PRIORS))
 def test_head_kind_and_prior_params_match(name):
     j, t = _priors(name)
     assert TP.head_kind_for(t) == JP.head_kind_for(j)
+    if name in ("Geometric", "NegativeBinomial", "Censored", "ZeroInflated"):
+        assert TP.head_kind_for(t) is None
     jp, tp = JP.prior_param_arrays(j), TP.prior_param_arrays(t)
     assert sorted(tp) == sorted(jp)
     for k in jp:
@@ -95,6 +118,11 @@ HEADS = {
     "lognormal_gamma": ("Gamma", [0.1, 0.5, 1.0, 2.0, 3.0, 5.0, 8.0, 0.3], False),
     "lognormal_pareto": ("Pareto", [0.6, 1.0, 1.5, 2.0, 3.0, 5.0, 8.0, 1.1], False),
     "lognormal_halfcauchy": ("HalfCauchy", [0.1, 0.5, 1.0, 2.0, 3.0, 5.0, 8.0, 0.3], False),
+    "studentt_laplace": ("Laplace", [-1e6, -3.0, -0.5, 0.0, 0.4, 2.0, 7.0, 1e6], False),
+    "studentt_studentt": ("StudentT", [-40.0, -3.0, -0.5, 0.0, 0.4, 2.0, 7.0, 1e7], False),
+    "studentt_gumbel": ("Gumbel", [-5.0, -3.0, -0.5, 0.0, 0.4, 2.0, 7.0, 60.0], False),
+    # a carried head that predates the df_floor key decodes df from 1.0
+    "studentt_cauchy_no_df_floor": ("Cauchy", [-1e6, -3.0, -0.5, 0.0, 0.4, 2.0, 7.0, 1e6], False),
 }
 
 
@@ -104,7 +132,12 @@ def _heads(case, seed=3):
     kind = JP.head_kind_for(jprior)
     nc = 3 if kind == "categorical" else None
     jparams = JP.head_init(jax.random.PRNGKey(seed), kind, H, mixture_components=K, num_categories=nc)
+    if case.endswith("no_df_floor"):
+        meta = {k: v for k, v in jparams["meta"].value.items() if k != "df_floor"}
+        jparams = {"ff": jparams["ff"], "meta": Static(meta)}
     tparams = TP.head_from_numpy(unwrap_static(jparams), "cpu")
+    if kind == "studentt_mixture":
+        assert tparams["meta"].get("df_floor") == (None if case.endswith("no_df_floor") else 0.5)
     x = np.random.default_rng(seed).normal(size=(B, H)).astype(np.float32)
     return jprior, tprior, jparams, tparams, x, np.asarray(values, np.float32), truncated
 
@@ -137,8 +170,9 @@ def _jax_reference(case):
     }
 
 
-def _tol(truncated):
-    return dict(atol=1e-5, rtol=1e-4 if truncated else 1e-5)
+def _tol(case):
+    loose = HEADS[case][2] or case.startswith("studentt")
+    return dict(atol=1e-5, rtol=1e-4 if loose else 1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(HEADS))
@@ -147,7 +181,7 @@ def test_head_apply_matches(case):
     ref = _jax_reference(case)
     td = TP.head_apply(tparams, torch.from_numpy(x), TP.prior_param_arrays(tprior))
     assert td.batch_shape == (B,)
-    np.testing.assert_allclose(td.log_prob(torch.from_numpy(values)).numpy(), ref["log_prob"], **_tol(truncated))
+    np.testing.assert_allclose(td.log_prob(torch.from_numpy(values)).numpy(), ref["log_prob"], **_tol(case))
     np.testing.assert_allclose(td.probs.numpy(), ref["probs"], rtol=1e-5, atol=1e-7)
     if isinstance(td, TD.Mixture):
         leaves = [leaf.expand(B) for c in td.distributions for leaf in c._leaves()]
@@ -172,7 +206,7 @@ def test_head_loss_gradients_match(case):
     loss = -torch.clamp(td.log_prob(torch.from_numpy(values)), min=-1e38).sum()
     loss.backward()
     assert float(loss.detach()) == pytest.approx(ref["loss"], rel=1e-5)
-    tol = _tol(truncated)
+    tol = _tol(case)
     np.testing.assert_allclose(tx.grad.numpy(), ref["grad_x"], **tol)
     for tlayer, jlayer in zip(tparams["ff"]["layers"], ref["grad_layers"]):
         np.testing.assert_allclose(tlayer["w"].grad.numpy().T, jlayer["w"], **tol)
@@ -180,8 +214,8 @@ def test_head_loss_gradients_match(case):
 
 
 def test_unported_head_kinds_name_their_slice():
-    for kind in ("studentt_mixture", "mvn", "dirichlet", "lkj_cpc_normal", "uniform_beta_mixture"):
-        with pytest.raises(NotImplementedError, match="second half of the distributions slice"):
+    for kind in ("mvn", "dirichlet", "lkj_cpc_normal", "uniform_beta_mixture"):
+        with pytest.raises(NotImplementedError, match="event-shaped slice of the distributions"):
             TP.head_init(torch.Generator(), kind, 4, "cpu")
     with pytest.raises(ValueError, match="num_categories"):
         TP.head_init(torch.Generator(), "categorical", 4, "cpu")

@@ -1,5 +1,6 @@
-"""The HMM, Beta–Bernoulli and Gamma–Poisson inference-compilation paths
-of the port against the JAX package's, on the CPU, at small widths.
+"""The HMM, Beta–Bernoulli, Gamma–Poisson, Laplace-prior and
+Beta–NegativeBinomial inference-compilation paths of the port against the
+JAX package's, on the CPU, at small widths.
 
 Networks carried from the JAX package (untrained, lstm_dim 16, 3 mixture
 components, 4-d observe embeddings): the training loss and every gradient
@@ -7,13 +8,17 @@ on a batch packed from the port's batched tier, for pyprob's HMM (17
 categorical sites: categorical heads, one-hot sample embeddings) with the
 LSTM and the feedforward network, and for the Beta–Bernoulli (the
 truncated-Normal head on Beta's bounds, kernel 2's path) and Gamma–Poisson
-(the LogNormal-mixture head) feedforward networks: the loss to 1e-5
-relative, the gradients to 1e-5 relative in the 2-norm over every element
-(each element within 1e-5 + 1e-4 |ref| for the Beta head).  The gather
-loss on HMM traces equals the per-type loss.  One lockstep round of HMM
-sites answers each row as the sequential step does (1e-5 (1 + |ref|)).
-Saving and loading the three models' networks keeps everything and
-serves the same seeded posterior.  ``factor`` on both tiers gives the JAX
+(the LogNormal-mixture head) feedforward networks, for the Laplace-prior
+model (the StudentT-mixture head) with both networks, its batch holding
+draws of 10^6 and beyond, and for the Beta–NegativeBinomial feedforward
+network (the Beta head again): the loss to 1e-5 relative, the gradients
+to 1e-5 relative in the 2-norm over every element (each element within
+1e-5 + 1e-4 |ref| for the Beta and StudentT-mixture heads).  The gather
+loss on HMM traces and on the interpreter-only Laplace model's traces
+equals the per-type loss.  One lockstep round of HMM sites, and one of
+Laplace sites, answers each row as the sequential step does (1e-5 (1 +
+|ref|)).  Saving and loading the networks keeps everything and serves
+the same seeded posterior.  ``factor`` on both tiers gives the JAX
 package's weights; the Branching models and the HMM's prior IS hold to
 their enumerated posteriors.
 """
@@ -37,12 +42,19 @@ import chip_smoke
 from _torch_parity import (
     BETA_BERNOULLI_OBSERVE,
     HMM_OBSERVE,
+    LAPLACE_OBSERVE,
+    NB_OBSERVE,
     JaxBetaBernoulli,
     JaxGammaPoisson,
     JaxHMM,
+    JaxLaplace,
+    JaxNB,
     TorchBetaBernoulli,
     TorchGammaPoisson,
     TorchHMM,
+    TorchLaplace,
+    TorchLaplaceInterpreter,
+    TorchNB,
     carry,
     carry_ff,
     jax_ff_network,
@@ -77,12 +89,20 @@ def _arrays(tree, path=()):
     return out
 
 
-# case: (JAX model, port model, observe names, network, truncated head?)
+# case: (JAX model, port model, observe names, network, per-element
+# gradient tolerance? (the truncated-Normal and StudentT-mixture heads))
 CASES = {
     "hmm_lstm": (JaxHMM, TorchHMM, tuple(HMM_OBSERVE), "lstm", False),
     "hmm_ff": (JaxHMM, TorchHMM, tuple(HMM_OBSERVE), "ff", False),
     "beta_bernoulli_ff": (JaxBetaBernoulli, TorchBetaBernoulli, tuple(BETA_BERNOULLI_OBSERVE), "ff", True),
     "gamma_poisson_ff": (JaxGammaPoisson, TorchGammaPoisson, tuple(GAMMA_POISSON_OBSERVE), "ff", False),
+    "laplace_lstm": (JaxLaplace, TorchLaplace, tuple(LAPLACE_OBSERVE), "lstm", True),
+    "laplace_ff": (JaxLaplace, TorchLaplace, tuple(LAPLACE_OBSERVE), "ff", True),
+    "beta_nb_ff": (JaxNB, TorchNB, tuple(NB_OBSERVE), "ff", True),
+}
+OBSERVES = {
+    "hmm": HMM_OBSERVE, "beta_bernoulli": BETA_BERNOULLI_OBSERVE, "gamma_poisson": GAMMA_POISSON_OBSERVE,
+    "laplace": LAPLACE_OBSERVE, "beta_nb": NB_OBSERVE,
 }
 
 
@@ -101,6 +121,9 @@ def test_loss_and_gradients_match(case):
     pp.seed(3)
     outputs, sites = V.run_training_batch(CASES[case][1](), ROWS)
     packed, addrs, dist_names = tnet._pack_arrays_from_outputs(outputs, sites, ROWS)
+    if case.startswith("laplace"):
+        # heavy-tailed prior draws: the loss stays finite and equal at 10^6
+        packed["steps"][0]["values"][:4] = torch.tensor([1e6, -1e6, 3e7, -2.5e4])
     batch = pp.nn.PackedBatch(packed, ROWS, addrs, dist_names)
     for p in tensor_leaves(tnet._params):
         p.requires_grad_(True)
@@ -108,7 +131,10 @@ def test_loss_and_gradients_match(case):
     _, loss_fn = jnet._make_loss_for(addrs, dist_names)
     jpacked = jax.tree_util.tree_map(lambda t: jnp.asarray(t.contiguous().numpy()), packed)
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jnet._loss_params_subset(addrs, dist_names), jpacked)
-    assert loss == pytest.approx(float(jloss) / ROWS, rel=1e-5)
+    # the Beta–NegativeBinomial batch's loss is a sum of log q of both signs
+    # that cancels to near 0 (about −7e-4 a row): 1e-6 a row beside 1e-5 relative
+    loss_abs = 1e-6 if case == "beta_nb_ff" else 0.0
+    assert math.isfinite(loss) and loss == pytest.approx(float(jloss) / ROWS, rel=1e-5, abs=loss_abs)
     port = _arrays(tnet.to_numpy(map_tensors(tnet._params, lambda t: t.grad)))
     ref = {k: v / ROWS for k, v in _arrays(unwrap_static(jgrads)).items()}
     assert port.keys() == ref.keys()
@@ -176,12 +202,71 @@ def test_hmm_lockstep_round_matches_the_sequential_step(hmm_networks, network):
     assert all(v.value.dtype == torch.int64 for t in traces for v in t.variables_controlled)
 
 
-@pytest.mark.parametrize("case", ["hmm_lstm", "hmm_ff", "beta_bernoulli_ff", "gamma_poisson_ff"])
-def test_save_and_load_round_trip(case, hmm_networks, tmp_path):
+@pytest.fixture(scope="module")
+def laplace_networks():
+    """The Laplace-prior model's LSTM trained on the interpreter tier (its
+    _never_vectorize copy) and its feedforward network trained batched."""
+    pp.set_device("cpu")
+    return {TNet.LSTM: _trained(TorchLaplaceInterpreter(), TNet.LSTM, LAPLACE_OBSERVE),
+            TNet.FEEDFORWARD: _trained(TorchLaplace(), TNet.FEEDFORWARD, LAPLACE_OBSERVE)}
+
+
+def test_gather_loss_equals_the_per_type_loss_on_laplace_traces(laplace_networks):
+    """The StudentT-mixture head through the gather loss, on interpreter
+    traces holding draws of 10^6 and beyond: value and gradients equal the
+    per-type loss's."""
+    from pyprob_tpu_torch.nn.dataset import OnlineDataset
+
+    model = laplace_networks[TNet.LSTM]
+    net = model._inference_network
+    traces = OnlineDataset(model).next_batch(24)
+    for t, v in zip(traces, (1e6, -3e7, 2.5e4)):
+        t.variables_controlled[0].value = torch.tensor(v)
+    batch = Batch(traces)
+    per_type = net._per_type_loss(batch)
+    grads = torch.autograd.grad(per_type, tensor_leaves(net._params), allow_unused=True)
+    net._gather_used = True
+    try:
+        gathered = net._try_gather_loss(batch)
+    finally:
+        net._gather_used = False
+    assert gathered is not None and math.isfinite(float(gathered.detach()))
+    assert float(gathered.detach()) == pytest.approx(float(per_type.detach()), rel=1e-5)
+    ggrads = torch.autograd.grad(gathered, tensor_leaves(net._params), allow_unused=True)
+    for a, b in zip(grads, ggrads):
+        if a is None:
+            assert b is None or float(b.abs().max()) == 0.0
+        else:
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("network", [TNet.LSTM, TNet.FEEDFORWARD], ids=["lstm", "ff"])
+def test_laplace_lockstep_round_matches_the_sequential_step(laplace_networks, network):
+    model = laplace_networks[network]
+    traces = model.posterior(80, observe=LAPLACE_OBSERVE, vectorized=False, inference_engine=IC).get_values()
+    errs = chip_smoke.lockstep_round_vs_sequential(
+        model._inference_network, LAPLACE_OBSERVE, chip_smoke.round_traces(traces)
+    )
+    assert len(errs["rows"]) == 64
+    for key in ("log_q", "head", "log_p", "carry"):
+        assert errs[key] <= 1e-5 * (1 + errs[key + "_ref"]), (key, errs[key])
+    assert errs["untouched"] == 0.0
+
+
+@pytest.mark.parametrize(
+    "case", ["hmm_lstm", "hmm_ff", "beta_bernoulli_ff", "gamma_poisson_ff", "laplace_lstm", "laplace_ff"]
+)
+def test_save_and_load_round_trip(case, hmm_networks, laplace_networks, tmp_path):
     _, tcls, names, kind, _ = CASES[case]
     network = TNet.LSTM if kind == "lstm" else TNet.FEEDFORWARD
-    model = hmm_networks[network] if tcls is TorchHMM else _trained(tcls(), network, names)
-    observe = {"hmm": HMM_OBSERVE, "beta": BETA_BERNOULLI_OBSERVE, "gamma": GAMMA_POISSON_OBSERVE}[case.split("_")[0]]
+    if tcls is TorchHMM:
+        model = hmm_networks[network]
+    elif tcls is TorchLaplace:
+        model = laplace_networks[network]
+        tcls = type(model)
+    else:
+        model = _trained(tcls(), network, names)
+    observe = OBSERVES[case.rpartition("_")[0]]
     path = str(tmp_path / "net.network")
     model.save_inference_network(path)
     loaded = tcls()
@@ -190,7 +275,7 @@ def test_save_and_load_round_trip(case, hmm_networks, tmp_path):
     served = []
     for m in (model, loaded):
         pp.seed(11)
-        post = m.posterior_results(2000, observe=observe, vectorized=True, inference_engine=IC)
+        post = m.posterior_results(2000, observe=observe, inference_engine=IC)
         served.append((np.asarray(post.mean).tolist(), post.effective_sample_size))
     assert served[0] == served[1]
     data = InferenceNetwork._load(path)

@@ -190,3 +190,29 @@ def test_factor_distribution():
         TD.Factor()
     with pytest.raises(NotImplementedError):
         tf.mean
+
+
+def test_normal_cdf_icdf_match():
+    """Normal's cdf 0.5 (1 + erf(z/√2)) and icdf through erfinv, batched and
+    scalar, at interior, tail and ±inf points: rtol/atol 1e-6."""
+    params = dict(loc=[0.0, 1.5, -2.0], scale=[1.0, 0.5, 3.0])
+    j, t = _both("Normal", params)
+    x = np.asarray([-np.inf, -9.0, -3.0, -0.5, 0.0, 0.5, 3.0, 9.0, np.inf], np.float32)[:, None]
+    _close(t.cdf(torch.from_numpy(x)).numpy(), np.asarray(j.cdf(jnp.asarray(x))), 1e-6)
+    u = np.asarray([0.0, 1e-6, 0.1, 0.5, 0.9, 0.999999, 1.0], np.float32)[:, None]
+    _close(t.icdf(torch.from_numpy(u)).numpy(), np.asarray(j.icdf(jnp.asarray(u))), 1e-6)
+    js, ts = _both("Normal", dict(loc=0.0, scale=1.0))
+    assert abs(float(ts.cdf(0.5)) - 0.691462) < 1e-6
+    _close(ts.cdf(0.5).numpy(), np.asarray(js.cdf(0.5)), 1e-6)
+    _close(ts.icdf(0.3).numpy(), np.asarray(js.icdf(0.3)), 1e-6)
+
+
+def test_cdf_not_implemented_names_the_class():
+    """The base class raises NotImplementedError naming the distribution,
+    as the JAX package's does, for a class without cdf or icdf."""
+    for lib in (JD, TD):
+        d = lib.Bernoulli(probs=0.3)
+        with pytest.raises(NotImplementedError, match="cdf not implemented for Bernoulli"):
+            d.cdf(0.5)
+        with pytest.raises(NotImplementedError, match="icdf not implemented for Bernoulli"):
+            d.icdf(0.5)

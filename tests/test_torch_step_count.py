@@ -50,3 +50,61 @@ def test_steps_and_last_file_name_match_the_jax_package(tier, steps, tmp_path):
         files = [re.sub(r"_\d{8}_\d{6}_", "_TS_", f.name) for f in d.iterdir()]
         names[lib.__name__] = max(files, key=lambda f: int(re.search(r"traces_(\d+)", f).group(1)))
     assert names["pyprob_tpu"] == names["pyprob_tpu_torch"] == f"m_TS_traces_{256 * steps}.network"
+
+
+def _never_vectorize_model(lib, calls):
+    class M(lib.Model):
+        _never_vectorize = True
+
+        def forward(self):
+            calls.append(1)
+            return _body(lib, False)
+
+    return M()
+
+
+@pytest.mark.parametrize("vectorized", [None, True])
+def test_never_vectorize_runs_on_the_interpreter_tier(vectorized):
+    """A model marked ``_never_vectorize`` (a GUM-like body that would run
+    batched) never enters the batched tier, with vectorized=None and with
+    vectorized=True, in both packages: its forward runs once a trace."""
+    for lib in (pyprob_tpu, pp):
+        if lib is pp:
+            pp.set_device("cpu")
+        lib.seed(0)
+        calls = []
+        model = _never_vectorize_model(lib, calls)
+        post = model.posterior_results(20, observe={"obs0": 0.5}, vectorized=vectorized)
+        assert len(calls) == 20, (lib.__name__, len(calls))
+        assert post.length == 20
+        calls.clear()
+        prior = model.prior_results(12, vectorized=vectorized)
+        assert len(calls) == 12 and prior.length == 12, lib.__name__
+
+
+def test_never_vectorize_trains_as_the_interpreter_tier(tmp_path):
+    """Training a ``_never_vectorize`` model at 768 traces and batch 256 takes
+    the interpreter tier's step count (4) and last file name in both
+    packages, and never runs forward batched."""
+    names = {}
+    for lib in (pyprob_tpu, pp):
+        if lib is pp:
+            pp.set_device("cpu")
+        lib.seed(0)
+        calls = []
+        model = _never_vectorize_model(lib, calls)
+        d = tmp_path / lib.__name__
+        d.mkdir()
+        model.learn_inference_network(
+            num_traces=768, observe_embeddings={"obs0": {"dim": 4}}, batch_size=256,
+            proposal_mixture_components=2, save_file_name_prefix=str(d / "m"), save_every_sec=1e9,
+        )
+        net = model._inference_network
+        assert net._total_train_iterations == 4, lib.__name__
+        assert net._total_train_traces == 1024, lib.__name__
+        # every trace drawn one forward call at a time (the layer
+        # pre-generation and first batch included)
+        assert len(calls) >= 1024, (lib.__name__, len(calls))
+        files = [re.sub(r"_\d{8}_\d{6}_", "_TS_", f.name) for f in d.iterdir()]
+        names[lib.__name__] = max(files, key=lambda f: int(re.search(r"traces_(\d+)", f).group(1)))
+    assert names["pyprob_tpu"] == names["pyprob_tpu_torch"] == "m_TS_traces_1024.network"
