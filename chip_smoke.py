@@ -2433,8 +2433,11 @@ def geometric_truth():
 
 
 def laplace_model(interpreter=False):
-    """x ~ Laplace(0, 1), obs0 ~ Normal(x, 0.5); with ``interpreter`` the
-    class sets ``_never_vectorize`` and runs on the interpreter tier."""
+    """x ~ Laplace(0, 1), obs0 ~ Normal(x, 0.5).  With ``interpreter`` the
+    class sets ``_never_vectorize`` and runs on the interpreter tier, and a
+    branch on the draw adds a second Laplace site where x > 0: two trace
+    types, so training takes the gather-table loss by itself; the site is
+    not observed, so x's posterior stays the same."""
     import pyprob_tpu_torch as pp
     from pyprob_tpu_torch.distributions import Laplace, Normal
 
@@ -2443,6 +2446,8 @@ def laplace_model(interpreter=False):
 
         def forward(self):
             x = pp.sample(Laplace(0.0, 1.0))
+            if interpreter and x > 0:
+                pp.sample(Laplace(0.0, 1.0), name="side")
             pp.observe(Normal(x, 0.5), name="obs0")
             return x
 
@@ -2532,16 +2537,15 @@ def phase_laplace_ic(device, num_traces, train_traces=LAPLACE["train_traces"]):
 
 
 def phase_laplace_lockstep(device, num_traces=INTERPRETER["traces"], train_traces=LAPLACE["train_traces"]):
-    """The Laplace-prior model's interpreter-only copy (``_never_vectorize``):
-    an LSTM (lstm_dim 128) trained on interpreter batches with the JAX
-    test's recipe, through the gather-table loss: the first call (one
-    step on its first batch) grows the network, then the gather loss is
-    engaged for the rest (a model of one trace type keeps the per-type loss
-    until it is, in both packages).  Served by lockstep at 12,000 traces
-    after 1,000 warm-up: the mean within 0.3 of the grid truth, one round
-    of served sites row by row against the sequential step within 1e-4
-    (1 + |ref|), the ESS fraction printed beside prior IS's on the same
-    tier at the same count."""
+    """The Laplace-prior model's interpreter-only copy (``_never_vectorize``,
+    with a branch on the draw that makes two trace types): an LSTM
+    (lstm_dim 128) trained on interpreter batches with the JAX test's
+    recipe, where every batch holds both trace types and so takes the
+    gather-table loss, as the Marsaglia phase's do.  Served by lockstep at
+    12,000 traces after 1,000 warm-up: the mean within 0.3 of the grid
+    truth, one round of served sites row by row against the sequential
+    step within 1e-4 (1 + |ref|), the ESS fraction printed beside prior
+    IS's on the same tier at the same count."""
     import pyprob_tpu_torch as pp
 
     spec = LAPLACE
@@ -2551,29 +2555,11 @@ def phase_laplace_lockstep(device, num_traces=INTERPRETER["traces"], train_trace
     kw = dict(observe_embeddings={"obs0": {"dim": spec["observe_dim"]}}, inference_network=pp.InferenceNetwork.LSTM,
               lstm_dim=spec["lstm_dim"], batch_size=spec["batch_size"], learning_rate_init=spec["learning_rate"])
     pp.seed(INTERPRETER["seed"])
-    model.learn_inference_network(num_traces=0, **kw)
+    launches, train_line = train_phase(device, "laplace_lockstep_train", model, dict(num_traces=train_traces, **kw))
     net = model._inference_network
-    net._gather_used = True
-    steps_before = net._total_train_iterations
-    gathered = []  # per training step, whether the gather loss served it
-    try_gather = net._try_gather_loss
-
-    def counted(batch):
-        loss = try_gather(batch)
-        gathered.append(loss is not None)
-        return loss
-
-    net._try_gather_loss = counted
-    try:
-        launches, train_line = train_phase(device, "laplace_lockstep_train", model,
-                                           dict(num_traces=train_traces - net._total_train_traces, **kw))
-    finally:
-        del net._try_gather_loss
-    steps = net._total_train_iterations - steps_before
-    check(all(gathered) and len(gathered) == steps,
-          f"laplace_lockstep_train: the gather loss served {sum(gathered)} of {steps} steps")
-    check(all(m["kind"] == "studentt_mixture" for m in net._head_meta.values()), "laplace_lockstep_train: heads")
-    train_line["gather_loss_steps"] = sum(gathered)
+    check(net._gather_used, "laplace_lockstep_train: the gather-table loss was not used")
+    check(len(net._head_meta) == 2 and all(m["kind"] == "studentt_mixture" for m in net._head_meta.values()),
+          f"laplace_lockstep_train: heads {net._head_meta}")
     post, seconds, serve_launches, peak_gib, rounds = phase_interpreter_ic(
         device, model, "Laplace lockstep IS", INTERPRETER["warm_up"], num_traces, observe=observe
     )

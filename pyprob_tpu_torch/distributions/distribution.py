@@ -132,21 +132,16 @@ class Distribution:
     def _leaves(self):
         return [getattr(self, "_" + n) for n in self._param_names]
 
-    @classmethod
-    def _rebuild(cls, leaves):
-        """A distribution of this class with the given parameter tensors
-        (used to rebuild per-trace distributions from batched leaves)."""
-        d = cls.__new__(cls)
-        for n, leaf in zip(cls._param_names, leaves):
+    def _with_leaves(self, leaves):
+        """A distribution of this class with ``leaves`` in place of
+        ``_leaves()`` (used to rebuild per-trace distributions from batched
+        leaves); the wrappers, whose leaves begin with their base
+        distribution's, override it."""
+        d = type(self).__new__(type(self))
+        for n, leaf in zip(self._param_names, leaves):
             setattr(d, "_" + n, leaf)
         d._finish_init()
         return d
-
-    def _with_leaves(self, leaves):
-        """A distribution like this one with ``leaves`` in place of
-        ``_leaves()``: ``_rebuild``, except for the wrappers, whose leaves
-        begin with their base distribution's."""
-        return type(self)._rebuild(leaves)
 
     def __repr__(self):
         ps = ", ".join(

@@ -11,7 +11,8 @@ Both are differentiable, their gradients kernels too on CUDA, and reach
 the means, the stddevs and the mixing logits through the ``.contiguous()``
 and ``.expand()`` views that feed them (the training loss).  Mixtures of
 StudentTs (the heavy-tailed proposal head) take the logsumexp path, as in
-the JAX package, which has no kernel for them.  Sampling draws the
+the JAX package, which has no kernel for them, with the K components
+scored in one pass at their ``[B, K]`` parameters.  Sampling draws the
 component index and gathers one component's parameters per row for a
 single draw (one Gamma draw a row for StudentTs, not K); the JAX package
 draws every component and selects one with a one-hot contraction, so the
@@ -81,7 +82,7 @@ class Mixture(Distribution):
     @classmethod
     def _from_studentt_params(cls, dfs, means, scales, probs):
         """Mixture of K StudentTs from ``[B, K]`` parameter tensors, kept
-        stacked for drawing one component a row."""
+        stacked for scoring and for drawing one component a row."""
         K = means.shape[1]
         comps = [StudentT(dfs[:, i], means[:, i], scales[:, i]) for i in range(K)]
         d = cls(comps, probs=probs)
@@ -163,7 +164,12 @@ class Mixture(Distribution):
         fused = self._fused_log_prob(value)
         if fused is not None:
             return fused.sum() if sum else fused
-        comp = torch.stack([d.log_prob(value) for d in self._distributions], -1)
+        studentt = self._stacked_studentt_params() if value.dim() == 1 else None
+        if studentt is not None:
+            # the K components scored in one pass at the stacked parameters
+            comp = StudentT(*studentt).log_prob(value.unsqueeze(-1))
+        else:
+            comp = torch.stack([d.log_prob(value) for d in self._distributions], -1)
         lp = torch.logsumexp(comp + self._mixing.logits, dim=-1)
         return lp.sum() if sum else lp
 

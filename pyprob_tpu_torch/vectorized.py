@@ -642,9 +642,7 @@ class _TraceabilityCache:
 
     @classmethod
     def known_untraceable(cls, model):
-        if getattr(model, "_never_vectorize", False):
-            return True
-        return cls._cache.get(type(model)) is False
+        return _skips_batched_tier(model, fallback=True)
 
     @classmethod
     def mark(cls, model, ok):
@@ -652,13 +650,13 @@ class _TraceabilityCache:
 
 
 def _skips_batched_tier(model, fallback):
-    """Whether an entry point returns None at once for ``model``: with
-    ``fallback`` for a model known not to run here, and for a model with
-    ``_never_vectorize`` set even without it (``vectorized=True``), as the
-    JAX package does."""
-    if getattr(model, "_never_vectorize", False):
-        return True
-    return fallback and _TraceabilityCache.known_untraceable(model)
+    """Whether an entry point returns None at once for ``model``: for a
+    model with ``_never_vectorize`` set, also without ``fallback``
+    (``vectorized=True``), as the JAX package does; with ``fallback`` also
+    for a model whose class is known not to run here."""
+    return getattr(model, "_never_vectorize", False) or (
+        fallback and _TraceabilityCache._cache.get(type(model)) is False
+    )
 
 
 def _concat(chunks):

@@ -179,13 +179,17 @@ class TorchGammaPoisson(pyprob_tpu_torch.Model):
 
 
 # x ~ Laplace(0, 1), obs0 ~ Normal(x, 0.5) (tests/test_proposals_extended.py:
-# 191-228): the StudentT-mixture head; the interpreter-only copies carry
-# _never_vectorize
+# 191-228): the StudentT-mixture head.  The interpreter-only copy carries
+# _never_vectorize and a branch on the draw that adds an unobserved second
+# Laplace site where x > 0: two trace types, so training takes the
+# gather-table loss by itself, and x's posterior stays the same
 LAPLACE_OBSERVE = {"obs0": 4.0}
 
 
-def laplace_body(pp):
+def laplace_body(pp, branch=False):
     x = pp.sample(pp.distributions.Laplace(0.0, 1.0))
+    if branch and x > 0:
+        pp.sample(pp.distributions.Laplace(0.0, 1.0), name="side")
     pp.observe(pp.distributions.Normal(x, 0.5), name="obs0")
     return x
 
@@ -200,12 +204,11 @@ class TorchLaplace(pyprob_tpu_torch.Model):
         return laplace_body(pyprob_tpu_torch)
 
 
-class JaxLaplaceInterpreter(JaxLaplace):
+class TorchLaplaceInterpreter(pyprob_tpu_torch.Model):
     _never_vectorize = True
 
-
-class TorchLaplaceInterpreter(TorchLaplace):
-    _never_vectorize = True
+    def forward(self):
+        return laplace_body(pyprob_tpu_torch, branch=True)
 
 
 # p ~ Beta(2, 2), k0 = 7 and k1 = 9 ~ NegativeBinomial(5, p)
@@ -244,7 +247,8 @@ def _port_distribution(d):
         return D.Censored(_port_distribution(d.base), lower=f(d.lower), upper=f(d.upper))
     if name == "ZeroInflated":
         return D.ZeroInflated(_port_distribution(d.base), gate=f(d.gate))
-    return getattr(D, name)._rebuild([f(getattr(d, "_" + n)) for n in d._param_names])
+    cls = getattr(D, name)
+    return cls.__new__(cls)._with_leaves([f(getattr(d, "_" + n)) for n in d._param_names])
 
 
 def port_trace(jtrace):

@@ -205,7 +205,8 @@ def test_hmm_lockstep_round_matches_the_sequential_step(hmm_networks, network):
 @pytest.fixture(scope="module")
 def laplace_networks():
     """The Laplace-prior model's LSTM trained on the interpreter tier (its
-    _never_vectorize copy) and its feedforward network trained batched."""
+    _never_vectorize copy, with two trace types) and its feedforward network
+    trained batched."""
     pp.set_device("cpu")
     return {TNet.LSTM: _trained(TorchLaplaceInterpreter(), TNet.LSTM, LAPLACE_OBSERVE),
             TNet.FEEDFORWARD: _trained(TorchLaplace(), TNet.FEEDFORWARD, LAPLACE_OBSERVE)}
@@ -213,23 +214,21 @@ def laplace_networks():
 
 def test_gather_loss_equals_the_per_type_loss_on_laplace_traces(laplace_networks):
     """The StudentT-mixture head through the gather loss, on interpreter
-    traces holding draws of 10^6 and beyond: value and gradients equal the
-    per-type loss's."""
+    traces of both trace types holding draws of 10^6 and beyond: value and
+    gradients equal the per-type loss's."""
     from pyprob_tpu_torch.nn.dataset import OnlineDataset
 
     model = laplace_networks[TNet.LSTM]
     net = model._inference_network
+    assert net._gather_used  # training took it by itself
     traces = OnlineDataset(model).next_batch(24)
     for t, v in zip(traces, (1e6, -3e7, 2.5e4)):
         t.variables_controlled[0].value = torch.tensor(v)
     batch = Batch(traces)
+    assert len(batch.sub_batches) == 2
     per_type = net._per_type_loss(batch)
     grads = torch.autograd.grad(per_type, tensor_leaves(net._params), allow_unused=True)
-    net._gather_used = True
-    try:
-        gathered = net._try_gather_loss(batch)
-    finally:
-        net._gather_used = False
+    gathered = net._try_gather_loss(batch)
     assert gathered is not None and math.isfinite(float(gathered.detach()))
     assert float(gathered.detach()) == pytest.approx(float(per_type.detach()), rel=1e-5)
     ggrads = torch.autograd.grad(gathered, tensor_leaves(net._params), allow_unused=True)
@@ -275,7 +274,7 @@ def test_save_and_load_round_trip(case, hmm_networks, laplace_networks, tmp_path
     served = []
     for m in (model, loaded):
         pp.seed(11)
-        post = m.posterior_results(2000, observe=observe, inference_engine=IC)
+        post = m.posterior_results(2000, observe=observe, vectorized=True, inference_engine=IC)
         served.append((np.asarray(post.mean).tolist(), post.effective_sample_size))
     assert served[0] == served[1]
     data = InferenceNetwork._load(path)

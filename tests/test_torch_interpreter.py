@@ -293,6 +293,6 @@ def test_host_scores_equal_the_distributions_log_prob(kind, params, value):
     got = state._score(dist, value)
     assert got == want == -math.inf or got == pytest.approx(want, rel=1e-6)
     # batched parameters take the distribution's own log_prob
-    batched = type(dist)._rebuild([leaf.expand(3) for leaf in dist._leaves()])
+    batched = dist._with_leaves([leaf.expand(3) for leaf in dist._leaves()])
     got = state._score(batched, value.expand(3))
     assert got == 3 * want == -math.inf or got == pytest.approx(3 * want, rel=1e-6)
