@@ -8,7 +8,9 @@ and a Gamma-Poisson model under inference compilation, and the Branching
 models' prior IS; for the Laplace-prior model (the StudentT-mixture head,
 batched and in lockstep) and a Beta-NegativeBinomial model under inference
 compilation, and Tobit, zero-inflated Poisson and Geometric-latent prior
-IS; and for GP regression.
+IS; for MultivariateNormal, Dirichlet and LKJCholesky latents under
+inference compilation and the conjugate vector models' prior IS; and for
+GP regression.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -206,8 +208,29 @@ Phases, each printing one JSON line:
 38. Geometric prior IS: k ~ Geometric(0.4), y ~ Normal(k, 1) = 2 at
     1,000,000 traces batched and 4,000 on the interpreter against the
     posterior enumerated over k = 0..200, within 0.01 and 0.1;
+39. event distributions: 1,000,000 draws on the card of Dirichlet(2, 0.5,
+    1), Dirichlet at alpha = 1e-4 (no NaN row, rows summing to 1 within
+    1e-5), Multinomial(10, (0.2, 0.3, 0.5)), LKJCholesky(3, 1.5) (the
+    implied correlations against their marginal, rows of unit norm) and
+    LKJCholeskyCPCNormal, none NaN or ±inf, their moments within 5
+    standard errors, log_prob against the CPU's within 1e-5 (1 + |cpu|);
+40. LKJ CPC density: 1,000,000 LKJCholeskyCPCNormal(0, 0) draws weighted
+    by LKJCholesky(3, 1.5), the mean weight within 0.1 of 1;
+41. event-shaped IC (tests/test_proposals_extended.py:231-410): a
+    MultivariateNormal latent (the mvn head) and a Dirichlet latent (the
+    dirichlet head), each with the feedforward network and the LSTM, and
+    an LKJCholesky latent (the lkj_cpc_normal head, feedforward), each
+    trained with its JAX test's recipe (seed, traces, batch 256, lr 0.003,
+    16-d observe embeddings), served at 1,000,000 traces on the batched
+    tier and by lockstep at 1,024, beside prior IS at 1,000,000: the JAX
+    test's mean and ESS criteria on both tiers, those that are not a
+    lottery over training seeds enforced (EVENT_IC), the training and
+    serving traces/s, kernel 3's launches and the peak device memory;
+42. Dirichlet-Categorical and conjugate MultivariateNormal prior IS
+    (tests/test_distributions_extra.py:115-171) at 1,000,000 traces
+    batched and 2,000 on the interpreter, within 0.06 and 0.12;
     then kernels 2 and 2b against their plain versions and timed at every
-    row count phases 28-38 launched kernel 2 at.
+    row count phases 28-42 launched kernel 2 at.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -218,6 +241,7 @@ the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 raises and the script exits non-zero without that line.
 """
 
+import gc
 import json
 import math
 import re
@@ -402,6 +426,38 @@ ZIP = {"observe": {f"y{i}": v for i, v in enumerate((0.0, 4.0, 0.0, 3.0, 5.0))},
 # estimate (prior IS's ESS fraction is about 0.6)
 GEOMETRIC = {"observe": {"y": 2.0}, "batched_traces": 1_000_000, "interpreter_traces": 4000,
              "batched_tol": 0.01, "interpreter_tol": 0.1}
+
+# the event-shaped slice.  IC on a MultivariateNormal, a Dirichlet and an
+# LKJCholesky latent with the JAX tests' recipes
+# (tests/test_proposals_extended.py:303-339, 342-361, 388-410: 16-d observe
+# embeddings, batch 256, lr 0.003; the LKJ latent with the default
+# feedforward network), served at 1,000,000 traces on the batched tier and
+# by lockstep at the JAX tests' 1,024.  ``checked`` lists the JAX tests'
+# criteria that fail the run; the others are printed with their outcome:
+# for this recipe they are a lottery over training seeds (and, for the LKJ
+# latent's heavy-tailed weights, over serving draws), event_ic_seeds.py
+# prints their spread.  The MultivariateNormal posterior's mean is
+# 4 / 2.04 per coordinate; the Dirichlet one's (2, 2, 3) / 7; the LKJ
+# latent's is held to prior IS's at 1,000,000 traces
+EVENT_IC = {
+    "mvn": {"observe": {"obs": 4.0}, "seed": 7, "train_traces": 8192, "mean": [4.0 / 2.04] * 2, "tol": 0.3,
+            "ess_over_prior": 3.0, "checked": ("batched_mean",)},
+    "dirichlet": {"observe": {"obs": 2}, "seed": 7, "train_traces": 3072, "mean": [2 / 7, 2 / 7, 3 / 7],
+                  "tol": 0.08, "ess_floor": 0.3,
+                  "checked": ("batched_mean", "lockstep_mean", "batched_ess", "lockstep_ess")},
+    "lkj": {"observe": {"y": [2.2, 2.18]}, "seed": 0, "train_traces": 4096, "tol": 0.15, "ess_floor": 0.05,
+            "checked": ("batched_mean", "lockstep_mean")},
+}
+EVENT_IC_RECIPE = {"batch_size": 256, "learning_rate": 0.003, "observe_dim": 16, "lockstep_traces": 1024,
+                   "lockstep_warm_up": 256}
+# prior IS of the conjugate models of tests/test_distributions_extra.py:
+# 115-171 (a flat Dirichlet with three Categorical observes (2, 1, 0):
+# Dir(3, 2, 1); N(0, I) with y = (2, 0) ~ N(x, I): N((1, 0), I/2)) at
+# 1,000,000 traces batched and the JAX tests' 2,000 on the interpreter
+DIRCAT = {"observe": {"o0": 0, "o1": 0, "o2": 1}, "mean": [0.5, 1 / 3, 1 / 6], "tol": 0.06}
+MVN_CONJUGATE = {"observe": {"y": [2.0, 0.0]}, "mean": [1.0, 0.0], "variance": [0.5, 0.5], "tol": 0.12}
+CONJUGATE_INTERPRETER_TRACES = 2000
+EVENT_DRAW_COUNT = 1_000_000
 
 PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
 
@@ -1267,6 +1323,9 @@ def serve_batched(device, model, num_traces, label, observe=OBSERVE, kernels=("m
     reset_launch_counts()
     sync(device)
     if device == "cuda":
+        # the peak counts what is alive: the networks of ended phases (a
+        # model and its network refer to each other) are collected first
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     post = run()
@@ -1580,6 +1639,7 @@ def phase_interpreter_ic(device, model, label, warm_up, num_traces, lockstep=Non
     reset_launch_counts()
     sync(device)
     if device == "cuda":
+        gc.collect()  # as serve_batched
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     post = model.posterior_results(
@@ -1689,7 +1749,8 @@ def lockstep_round_vs_sequential(net, observe, traces, workers=64, seed=0):
             check(ref is not r.variable.distribution, "lockstep round check: the network has no proposal for a site")
             value = shim.sample()
             log_p, log_q = shim.pair_of(value)
-            note("log_q", log_q, float(ref.log_prob(value.reshape(1), sum=True)))
+            one = value.reshape((1,) + tuple(r.variable.distribution.event_shape))  # a batch of one
+            note("log_q", log_q, float(ref.log_prob(one, sum=True)))
             note("log_p", log_p, float(r.variable.distribution.log_prob(value, sum=True)))
             for _ in range(4):
                 probe = ref.sample(gen)
@@ -2652,6 +2713,274 @@ def phase_geometric_prior_is(device, num_traces=GEOMETRIC["batched_traces"],
     return launches, i_launches
 
 
+def event_models():
+    """The event-shaped latents' models by name (EVENT_IC), their
+    coordinates read as ``z[..., i]`` so one body runs on both tiers."""
+    import numpy as np
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Categorical, Dirichlet, LKJCholesky, MultivariateNormal, Normal
+
+    class MVNLatent(pp.Model):
+        def forward(self):
+            z = pp.sample(MultivariateNormal(np.zeros(2), covariance_matrix=np.eye(2)))
+            pp.observe(Normal(z[..., 0] + z[..., 1], 0.2), name="obs")
+            return z
+
+    class DirichletLatent(pp.Model):
+        def forward(self):
+            p = pp.sample(Dirichlet(np.ones(3) * 2.0))
+            pp.observe(Categorical(probs=p), name="obs")
+            return p
+
+    class LKJLatent(pp.Model):
+        def forward(self):
+            L = pp.sample(LKJCholesky(2, 1.0))
+            pp.observe(MultivariateNormal(np.zeros(2), scale_tril=L), name="y")
+            return L[..., 1, 0]
+
+    return {"mvn": MVNLatent, "dirichlet": DirichletLatent, "lkj": LKJLatent}
+
+
+def dircat_model():
+    """p ~ Dirichlet(1, 1, 1); o0, o1, o2 ~ Categorical(p)."""
+    import numpy as np
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Categorical, Dirichlet
+
+    class DirCat(pp.Model):
+        def forward(self):
+            p = pp.sample(Dirichlet(np.ones(3)))
+            for name in DIRCAT["observe"]:
+                pp.observe(Categorical(probs=p), name=name)
+            return p
+
+    return DirCat(name="Dirichlet-Categorical")
+
+
+def mvn_conjugate_model():
+    """x ~ N(0, I_2); y ~ N(x, I_2)."""
+    import numpy as np
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import MultivariateNormal
+
+    class MVNConjugate(pp.Model):
+        def forward(self):
+            x = pp.sample(MultivariateNormal(np.zeros(2), covariance_matrix=np.eye(2)))
+            pp.observe(MultivariateNormal(x, covariance_matrix=np.eye(2)), name="y")
+            return x
+
+    return MVNConjugate(name="MVN conjugate")
+
+
+def event_distributions(device):
+    """The new classes at the parameters their draws are checked at."""
+    import torch
+    from pyprob_tpu_torch import distributions as D
+
+    def t(v):
+        return torch.tensor(v, device=device)
+
+    return {
+        "Dirichlet": D.Dirichlet(t([2.0, 0.5, 1.0])),
+        "Dirichlet_small_alpha": D.Dirichlet(t([1e-4, 1e-4, 1e-4])),
+        "Multinomial": D.Multinomial(t(10.0), probs=t([0.2, 0.3, 0.5])),
+        "LKJCholesky": D.LKJCholesky(3, t(1.5)),
+        "LKJCholeskyCPCNormal": D.LKJCholeskyCPCNormal(t([0.3, -0.2, 0.1]), t([-0.5, 0.0, -1.0]), 3),
+    }
+
+
+def phase_event_distributions(device, n=EVENT_DRAW_COUNT):
+    """The event-shaped classes' ``n`` draws on the card from a seeded
+    generator (one seed, one draw), none NaN or ±inf: each component's
+    mean and variance within 5 standard errors of the distribution's own
+    (Dirichlet, Multinomial, whose rows also sum to the count); LKJ(3, 1.5)'s
+    implied correlations against their marginal 2 Beta(2, 2) − 1 (mean 0,
+    variance 1/5), its rows of unit norm within 1e-5; the CPC proposal's
+    partial correlations atanh'd back to Normals with its loc and scale;
+    the Dirichlet at α = 1e-4 with no NaN row, every row summing to 1
+    within 1e-5.  ``log_prob`` of 4,096 draws on the card against the CPU
+    within 1e-5 (1 + |cpu|), with the same ±inf entries."""
+    import torch
+    from pyprob_tpu_torch.distributions.lkj import _chol_to_cpc
+
+    def within(x, expected, what):
+        x = x.double().reshape(x.shape[0], -1)
+        se = x.std(0) / math.sqrt(x.shape[0])
+        err = (x.mean(0) - torch.as_tensor(expected, dtype=torch.float64, device=x.device).reshape(-1)).abs()
+        check(bool((err <= 5 * se).all()), f"{what}: off by {err.tolist()}, standard errors {se.tolist()}")
+
+    out = {}
+    cpu = event_distributions("cpu")
+    for name, d in event_distributions(device).items():
+        draws = [d.sample(torch.Generator(device=device).manual_seed(7), (n,)) for _ in range(2)]
+        check(torch.equal(*draws), f"{name}: one seed gave two draws")
+        x = draws[0]
+        check(x.shape == (n,) + tuple(d.event_shape), f"{name}: draws of shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{name}: NaN or ±inf draws")
+        line = {}
+        if name.startswith("Dirichlet"):
+            row_err = float((x.double().sum(-1) - 1).abs().max())
+            check(row_err <= 1e-5, f"{name}: a row sums to 1 ± {row_err}")
+            line["row_sum_max_abs_err"] = row_err
+            line["zero_components"] = int((x == 0).sum())
+        if name in ("Dirichlet", "Multinomial"):
+            within(x, d.mean, f"{name} mean")
+            within((x.double() - d.mean.double()) ** 2, d.variance, f"{name} variance")
+            if name == "Multinomial":
+                check(bool((x.sum(-1) == 10).all()), f"{name}: counts do not sum to 10")
+        if name == "LKJCholesky":
+            norm_err = float((x.double().pow(2).sum(-1) - 1).abs().max())
+            check(norm_err <= 1e-5, f"{name}: a row's norm off by {norm_err}")
+            W = x @ x.mT
+            r = torch.stack([W[:, 1, 0], W[:, 2, 0], W[:, 2, 1]], -1)
+            within(r, [0.0] * 3, f"{name} correlations' mean")
+            within(r.double() ** 2, [0.2] * 3, f"{name} correlations' variance")
+            line["row_norm_max_abs_err"] = norm_err
+        if name == "LKJCholeskyCPCNormal":
+            z = _chol_to_cpc(x.double(), 3)
+            loc, scale = d.loc.double(), torch.exp(d.log_scale.double())
+            within(z, loc, f"{name} partial correlations' mean")
+            within((z - loc) ** 2, scale**2, f"{name} partial correlations' variance")
+        lp = d.log_prob(x[:4096]).cpu()
+        ref = cpu[name].log_prob(x[:4096].cpu())
+        check(torch.equal(torch.isinf(lp), torch.isinf(ref)) and torch.equal(lp == math.inf, ref == math.inf),
+              f"{name}: log_prob's ±inf entries on the card differ from the CPU's")
+        fin = torch.isfinite(ref)
+        err = float(((lp[fin] - ref[fin]).abs() - 1e-5 * (1 + ref[fin].abs())).max()) if bool(fin.any()) else 0.0
+        check(err <= 0, f"{name}: log_prob on the card vs the CPU off by {err} past 1e-5 (1 + |cpu|)")
+        line["log_prob_max_abs_err"] = float((lp[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+        line["log_prob_inf_entries"] = int(torch.isinf(lp).sum())
+        out[name] = line
+    emit({"phase": "event_distributions", "draws": n, **out})
+
+
+def phase_lkj_cpc_density(device, n=EVENT_DRAW_COUNT):
+    """The CPC proposal's density is exact over Cholesky factors: the
+    importance weights LKJCholesky(3, 1.5) / LKJCholeskyCPCNormal(0, 0) of
+    ``n`` proposal draws on the card average 1 within 0.1
+    (tests/test_proposals_extended.py:364-385)."""
+    import torch
+    from pyprob_tpu_torch import distributions as D
+
+    q = D.LKJCholeskyCPCNormal(torch.zeros(3, device=device), torch.zeros(3, device=device), 3)
+    p = D.LKJCholesky(3, torch.tensor(1.5, device=device))
+    L = q.sample(torch.Generator(device=device).manual_seed(5), (n,))
+    lw = (p.log_prob(L) - q.log_prob(L)).double()
+    check(bool(torch.isfinite(lw).all()), "lkj_cpc_density: non-finite weights")
+    z = float(torch.exp(torch.logsumexp(lw, 0) - math.log(n)))
+    check(abs(z - 1.0) < 0.1, f"lkj_cpc_density: mean weight {z}")
+    emit({"phase": "lkj_cpc_density", "draws": n, "mean_weight": z, "tolerance": 0.1,
+          "ess_fraction": float(torch.exp(2 * torch.logsumexp(lw, 0) - torch.logsumexp(2 * lw, 0))) / n})
+
+
+def event_ic_train_kwargs(name, network):
+    import pyprob_tpu_torch as pp
+
+    r = EVENT_IC_RECIPE
+    return dict(num_traces=EVENT_IC[name]["train_traces"],
+                observe_embeddings={k: {"dim": r["observe_dim"]} for k in EVENT_IC[name]["observe"]},
+                inference_network=getattr(pp.InferenceNetwork, network),
+                batch_size=r["batch_size"], learning_rate_init=r["learning_rate"])
+
+
+def event_ic_criteria(name, post, num_traces, prior):
+    """The JAX test's criteria on one posterior, as {criterion: (value,
+    limit, met)}: the mean (within ``tol`` of the truth, or for the LKJ
+    latent of prior IS's mean) and the ESS fraction (above ``ess_floor``,
+    or above ``ess_over_prior`` times prior IS's)."""
+    spec = EVENT_IC[name]
+    mean = np.asarray(post.mean, dtype=np.float64).reshape(-1)
+    truth = np.asarray(spec["mean"] if "mean" in spec else prior.mean, dtype=np.float64).reshape(-1)
+    err = float(np.abs(mean - truth).max())
+    ess = post.effective_sample_size / num_traces
+    if "ess_floor" in spec:
+        floor = spec["ess_floor"]
+    else:
+        floor = spec["ess_over_prior"] * prior.effective_sample_size / prior.length
+    return {"mean": (mean.tolist(), truth.tolist(), err <= spec["tol"]),
+            "ess": (ess, floor, ess > floor)}
+
+
+def phase_event_ic(device, name, network, num_traces=NUM_TRACES):
+    """IC on an event-shaped latent (EVENT_IC[name]) with the JAX test's
+    recipe: seeded, prior IS on the batched tier (the LKJ mean's reference
+    and the MultivariateNormal ESS floor), the network trained, served on
+    the batched tier (a warm-up run, then ``num_traces`` timed) and by
+    lockstep (256 warm-up traces, then the JAX tests' 1,024 timed), the
+    JAX test's criteria on both, those in ``checked`` enforced.  Prints the
+    training and serving traces/s, kernel 3's launches and the peak device
+    memory (< 10 GiB).  Returns the prior IS, training, batched-serving and
+    lockstep launches."""
+    import pyprob_tpu_torch as pp
+
+    spec, r = EVENT_IC[name], EVENT_IC_RECIPE
+    phase = f"{name}_ic_{network.lower()}"
+    observe = spec["observe"]
+    model = event_models()[name]()
+    pp.seed(spec["seed"])
+    prior, prior_seconds, prior_launches, _ = serve_batched(device, model, num_traces, phase + " prior IS", observe,
+                                                            kernels=(), guided=False)
+    launches, train_line = train_phase(device, phase + "_train", model, event_ic_train_kwargs(name, network))
+    heads = model._inference_network._head_meta
+    kind = {"mvn": "mvn", "dirichlet": "dirichlet", "lkj": "lkj_cpc_normal"}[name]
+    check([m["kind"] for m in heads.values()] == [kind], f"{phase}: heads {heads}")
+    post, seconds, serve_launches, peak_gib = serve_batched(device, model, num_traces, phase, observe, kernels=())
+    n_lock = r["lockstep_traces"]
+    lpost, lseconds, lock_launches, lpeak_gib, rounds = phase_interpreter_ic(
+        device, model, phase + " lockstep", r["lockstep_warm_up"], n_lock, observe=observe)
+    results = {f"{tier}_{c}": v for tier, p, n in (("batched", post, num_traces), ("lockstep", lpost, n_lock))
+               for c, v in event_ic_criteria(name, p, n, prior).items()}
+    for key in spec["checked"]:
+        check(results[key][2], f"{phase}: {key} {results[key][0]} against {results[key][1]}")
+    emit({
+        "phase": phase, "network": model._inference_network._network_type, "train": train_line,
+        "traces": num_traces, "seconds": seconds, "traces_per_s": num_traces / seconds,
+        "mean": results["batched_mean"][0], "ess_fraction": results["batched_ess"][0],
+        "prior_is_mean": np.asarray(prior.mean, dtype=np.float64).reshape(-1).tolist(),
+        "prior_is_ess_fraction": prior.effective_sample_size / num_traces,
+        "prior_is_traces_per_s": num_traces / prior_seconds,
+        "lockstep": {"traces": n_lock, "seconds": lseconds, "traces_per_s": n_lock / lseconds,
+                     "mean": results["lockstep_mean"][0], "ess_fraction": results["lockstep_ess"][0],
+                     **(rounds or {}), "peak_memory_gib": lpeak_gib},
+        "criteria": {"tolerance": spec["tol"], **{k: {"value": v[0], "limit": v[1]} for k, v in results.items()}},
+        "criteria_met": {k: v[2] for k, v in results.items()}, "checked": list(spec["checked"]),
+        "kernel3_launches": serve_launches["log_weight_stats"], "peak_memory_gib": peak_gib,
+        "launches": serve_launches,
+    })
+    return prior_launches, launches, serve_launches, lock_launches
+
+
+def phase_conjugate_prior_is(device, phase, model, spec, num_traces=NUM_TRACES,
+                             interpreter_traces=CONJUGATE_INTERPRETER_TRACES):
+    """Prior IS of a conjugate model with a vector latent on both tiers:
+    the mean (and the variance where ``spec`` has it) within ``spec["tol"]``
+    of the analytic posterior's, per coordinate.  Returns the batched
+    run's launches."""
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, phase, spec["observe"],
+                                                      kernels=(), guided=False)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ipost = model.posterior_results(interpreter_traces, observe=spec["observe"], vectorized=False)
+    iseconds = time.perf_counter() - t0
+    line = {}
+    for tier, p in (("batched", post), ("interpreter", ipost)):
+        moments = {"mean": np.asarray(p.mean, dtype=np.float64)}
+        if "variance" in spec:
+            moments["variance"] = np.asarray(p.variance, dtype=np.float64)
+        for key, value in moments.items():
+            err = float(np.abs(value - np.asarray(spec[key])).max())
+            check(value.shape == (len(spec[key]),) and err <= spec["tol"], f"{phase} ({tier}): {key} {value.tolist()}")
+            line[f"{tier}_{key}"] = value.tolist()
+    emit({
+        "phase": phase, "traces": num_traces, "seconds": seconds, "traces_per_s": num_traces / seconds,
+        "interpreter_traces": interpreter_traces, "interpreter_traces_per_s": interpreter_traces / iseconds,
+        **line, "truth": {k: spec[k] for k in ("mean", "variance") if k in spec}, "tolerance": spec["tol"],
+        "ess_fraction": post.effective_sample_size / num_traces, "peak_memory_gib": peak_gib,
+        "launches": launches,
+    })
+    return launches
+
+
 def phase_new_path_kernel_shapes(path, floor_ms):
     """Kernels 2 and 2b held against their plain versions and timed at every
     row count the new phases launched kernel 2 at (the Beta head's
@@ -3229,6 +3558,21 @@ def main():
     new_path["tobit_prior_is"] = phase_tobit_prior_is("cuda")
     new_path["zip_prior_is"] = phase_zip_prior_is("cuda")
     new_path["geometric_prior_is"], new_path["geometric_interpreter_is"] = phase_geometric_prior_is("cuda")
+    # the event-shaped slice: the new classes' draws and densities, IC on
+    # MultivariateNormal, Dirichlet and LKJCholesky latents on both tiers
+    # and in lockstep, prior IS of the conjugate vector models (kernel 3 in
+    # every posterior)
+    phase_event_distributions("cuda")
+    phase_lkj_cpc_density("cuda")
+    for name, networks in (("mvn", ("FEEDFORWARD", "LSTM")), ("dirichlet", ("FEEDFORWARD", "LSTM")),
+                           ("lkj", ("FEEDFORWARD",))):
+        for network in networks:
+            key = f"{name}_ic_{network.lower()}"
+            (new_path[key + "_prior_is"], new_path[key + "_train"], new_path[key],
+             new_path[key + "_lockstep"]) = phase_event_ic("cuda", name, network)
+    new_path["dircat_prior_is"] = phase_conjugate_prior_is("cuda", "dircat_prior_is", dircat_model(), DIRCAT)
+    new_path["mvn_conjugate_prior_is"] = phase_conjugate_prior_is(
+        "cuda", "mvn_conjugate_prior_is", mvn_conjugate_model(), MVN_CONJUGATE)
     phase_new_path_kernel_shapes(new_path, floor_ms)
     path.update(new_path)
     for N, num_traces in GP_RUNS:

@@ -2,9 +2,9 @@
 Normal, Uniform, Categorical, Bernoulli, Binomial, Poisson, the
 positive-support family, Beta, VonMises, TruncatedNormal, the heavy-tailed
 family (StudentT, Laplace, Cauchy, Logistic, Gumbel), Geometric,
-NegativeBinomial, the Censored and ZeroInflated observation wrappers,
-MultivariateNormal, Mixture, Factor and Empirical.  Dirichlet,
-Multinomial and LKJCholesky come with the event-shaped slice.
+NegativeBinomial, the Censored and ZeroInflated observation wrappers, the
+event-shaped MultivariateNormal, Dirichlet, Multinomial, LKJCholesky and
+LKJCholeskyCPCNormal, Mixture, Factor and Empirical.
 """
 
 from .distribution import Distribution
@@ -22,6 +22,9 @@ from .von_mises import VonMises
 from .weibull import Weibull
 from .truncated_normal import TruncatedNormal
 from .multivariate_normal import MultivariateNormal
+from .dirichlet import Dirichlet
+from .multinomial import Multinomial
+from .lkj import LKJCholesky, LKJCholeskyCPCNormal
 from .half_cauchy import HalfCauchy
 from .half_normal import HalfNormal
 from .chi2 import Chi2
@@ -56,6 +59,10 @@ __all__ = [
     "Weibull",
     "TruncatedNormal",
     "MultivariateNormal",
+    "Dirichlet",
+    "Multinomial",
+    "LKJCholesky",
+    "LKJCholeskyCPCNormal",
     "HalfCauchy",
     "HalfNormal",
     "Chi2",

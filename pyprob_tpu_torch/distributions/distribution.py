@@ -54,6 +54,9 @@ class Distribution:
     # per parameter, how many trailing dims are event dims (the rest are
     # batch dims); None means 0 for every parameter
     _param_event_dims = None
+    # attributes that are not parameters but fix the distribution's shape
+    # (LKJCholesky's dim), carried by ``_with_leaves``
+    _aux_names: tuple = ()
 
     def __init__(self, name, address_suffix="", batch_shape=()):
         self._name = name
@@ -138,6 +141,8 @@ class Distribution:
         leaves); the wrappers, whose leaves begin with their base
         distribution's, override it."""
         d = type(self).__new__(type(self))
+        for n in self._aux_names:
+            setattr(d, n, getattr(self, n))
         for n, leaf in zip(self._param_names, leaves):
             setattr(d, "_" + n, leaf)
         d._finish_init()

@@ -26,8 +26,8 @@ generator seeded from the round's request seeds, the rows in seed order),
 scores it under the proposal (the mixture kernels: kernel 2 for the
 truncated-Normal heads of Uniform, Beta, VonMises and Poisson priors,
 kernel 1 for Normal heads) and under the prior, and packs the
-values, both log-densities and the heads' outputs into one tensor, copied
-to the host once.  A worker's ``state.sample`` takes the precomputed pair
+values (an event-shaped one in its D or d·d columns), both log-densities
+and the heads' outputs into one tensor, copied to the host once.  A worker's ``state.sample`` takes the precomputed pair
 through ``_ProposalShim.pair_of``; a value the round did not draw (a
 rejection retry's draw from the prior half of the defensive mixture) is
 scored by the row's proposal rebuilt on the host from the head's output.
@@ -45,6 +45,7 @@ rows, an XLA compile workaround.
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 import warnings
@@ -116,16 +117,18 @@ class _ProposalShim:
     the value and scored it, so ``sample`` and the scores of that value
     are the precomputed ones.  Any other value is scored by the row's
     proposal, rebuilt on the host from the head's output (row ``row`` of
-    the round's host copy, from column 3)."""
+    the round's host copy, from column ``head_col``: the value's columns
+    and the two scores come first)."""
 
-    __slots__ = ("_value", "_plp", "_prior_lp", "_host", "_row", "_prior", "_meta", "_dist")
+    __slots__ = ("_value", "_plp", "_prior_lp", "_host", "_row", "_head_col", "_prior", "_meta", "_dist")
 
-    def __init__(self, value, plp, prior_lp, host, row, prior, meta):
+    def __init__(self, value, plp, prior_lp, host, row, head_col, prior, meta):
         self._value = value
         self._plp = plp
         self._prior_lp = prior_lp
         self._host = host
         self._row = row
+        self._head_col = head_col
         self._prior = prior  # the site's prior distribution
         self._meta = meta
         self._dist = None
@@ -153,9 +156,10 @@ class _ProposalShim:
             return torch.tensor(self._plp)
         if self._dist is None:
             prior = {k: v.reshape(1, -1) for k, v in prior_param_arrays(self._prior).items()}
-            out = self._host[self._row : self._row + 1, 3:]
+            out = self._host[self._row : self._row + 1, self._head_col :]
             self._dist = head_distribution(self._meta, out, prior)
-        return self._dist.log_prob(torch.as_tensor(value).reshape(1), sum=sum)
+        event_shape = tuple(self._prior.event_shape)
+        return self._dist.log_prob(torch.as_tensor(value).reshape((1,) + event_shape), sum=sum)
 
 
 class LockstepCoordinator:
@@ -379,15 +383,20 @@ class LockstepCoordinator:
         values = proposal.sample(self._generator)
         plp = proposal.log_prob(values)
         prior_lp = prior_dist.log_prob(values)
-        host = torch.cat([values[:, None].to(out.dtype), plp[:, None], prior_lp[:, None], out], dim=1).cpu()
-        scores = host[:, 1:3].tolist()
+        # a value takes E columns (its event's elements), then the two scores
+        event_shape = tuple(dist0.event_shape)
+        E = math.prod(event_shape)
+        flat = values.reshape(B, E).to(out.dtype)
+        host = torch.cat([flat, plp[:, None], prior_lp[:, None], out], dim=1).cpu()
+        scores = host[:, E : E + 2].tolist()
         # the values in the proposal's own dtype (a categorical head's are
         # integer indices, exact in float32)
-        for row, (r, value) in enumerate(zip(items, host[:, 0].to(values.dtype).unbind())):
+        host_values = host[:, :E].to(values.dtype).reshape((B,) + event_shape)
+        for row, (r, value) in enumerate(zip(items, host_values.unbind())):
             dist = r.variable.distribution
             if dist.batch_shape != ():
-                value = value.reshape(dist.batch_shape)
-            r.out = _ProposalShim(value, scores[row][0], scores[row][1], host, row, dist, heads["meta"])
+                value = value.reshape(tuple(dist.batch_shape) + event_shape)
+            r.out = _ProposalShim(value, scores[row][0], scores[row][1], host, row, E + 2, dist, heads["meta"])
             r.proxy._fresh = False
 
     def _lstm_rows(self, idx, prev_values, prev_group):

@@ -28,7 +28,9 @@ pow2 buckets of T, B and the active count, and its padded rows, bound XLA
 compiles and are not ported.  The value equals the per-type loss's and so
 does every gradient, within float32 round-off; batches that are not
 table-uniform (mixed head structures, observations of different widths)
-give None and take the per-type loss.
+and batches with an event-shaped head (MultivariateNormal, Dirichlet,
+LKJCholesky sites, as in the JAX package) give None and take the per-type
+loss.
 """
 
 from __future__ import annotations
@@ -172,6 +174,8 @@ def pack_batch(net, registry, batch):
             ai, di = registry.a_of.get(ak), registry.d_of.get(v.distribution.name)
             if hk is None or sk is None or ai is None or di is None:
                 return None  # an unknown address: the per-type loss raises
+            if params["proposal"][ak]["meta"].get("event_dim") is not None:
+                return None  # an event-shaped head: the per-type loss scores it
             if head_gkey is None:
                 head_gkey, semb_gkey = hk[0], sk[0]
             elif hk[0] != head_gkey or sk[0] != semb_gkey:

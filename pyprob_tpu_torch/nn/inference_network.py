@@ -218,7 +218,12 @@ class InferenceNetwork:
             m["embedding"] = ObserveEmbedding[getattr(m["embedding"], "name", m["embedding"])]
             self._observe_meta[name] = m
         self._observe_embedding_dim = meta["observe_embedding_dim"]
-        self._head_meta = {a: dict(m) for a, m in meta["head_meta"].items()}
+        # the JAX package keeps a head's event dimension in its parameters'
+        # metadata only
+        self._head_meta = {
+            a: {**m, "event_dim": self._params["proposal"][a]["meta"].get("event_dim")}
+            for a, m in meta["head_meta"].items()
+        }
         self._head_train_iterations = {a: 0 for a in self._head_meta}
         self._layers_initialized = True
 
@@ -670,7 +675,9 @@ class InferenceNetwork:
             else:
                 # a repeated name gives its sequence, as Trace.named_value
                 arr = torch.stack([outputs["values"][a] for a in addrs_n], dim=1)
-            obs[name] = arr.reshape(batch_size, -1)
+            # float rows, whatever the observe's type (a categorical one's
+            # draws are integer indices)
+            obs[name] = arr.reshape(batch_size, -1).to(util.dtype())
 
         def pack_prior(v):
             # per-row parameters keep their rows, flattened to [B, P];

@@ -8,7 +8,8 @@ loss (``_make_loss_for``) applies, per controlled site of a trace type,
 one head to the batch's observe embeddings and scores the batch's values
 under its proposal: kernel 1 forward and kernel 1b backward on the card for
 Normal heads, kernels 2 and 2b for the truncated-Normal heads (Uniform,
-Beta, VonMises and Poisson priors).  A materialized batch of
+Beta, VonMises and Poisson priors); the event-shaped heads' values are
+``[B, D]`` or ``[B, d, d]``.  A materialized batch of
 several trace types takes one such loss per type (the gather-table loss
 is the LSTM's).  On the batched tier the proposal step applies a head once
 per site to the run's one observe-embedding row and expands its output
@@ -31,6 +32,7 @@ from ..vectorized import _draw
 from .inference_network import InferenceNetwork
 from .layers import mlp_apply
 from .proposals import (
+    event_dim_for,
     head_apply,
     head_distribution,
     head_from_numpy,
@@ -45,7 +47,7 @@ class InferenceNetworkFeedForward(InferenceNetwork):
     def __init__(self, proposal_mixture_components=10, *args, **kwargs):
         super().__init__(network_type="InferenceNetworkFeedForward", *args, **kwargs)
         self._params["proposal"] = {}
-        self._head_meta = {}  # address -> {"kind", "num_categories"}
+        self._head_meta = {}  # address -> {"kind", "num_categories", "event_dim"}
         self._proposal_mixture_components = proposal_mixture_components
 
     def _subclass_state(self):
@@ -76,12 +78,13 @@ class InferenceNetworkFeedForward(InferenceNetwork):
                 if kind is None:
                     raise RuntimeError(f"Distribution currently unsupported: {distribution.name}")
                 num_categories = distribution.num_categories if kind == "categorical" else None
+                event_dim = event_dim_for(distribution)
                 self._params["proposal"][address] = head_init(
                     g, kind, self._observe_embedding_dim, device,
                     mixture_components=self._proposal_mixture_components,
-                    num_categories=num_categories,
+                    num_categories=num_categories, event_dim=event_dim,
                 )
-                self._head_meta[address] = {"kind": kind, "num_categories": num_categories}
+                self._head_meta[address] = {"kind": kind, "num_categories": num_categories, "event_dim": event_dim}
                 self._head_train_iterations.setdefault(address, 0)
                 layers_changed = True
                 util.log_print(
@@ -206,8 +209,9 @@ class InferenceNetworkFeedForward(InferenceNetwork):
 
         def proposal_step(site, distribution, generator, observed, forced_value=None,
                           defensive=None):
-            """Propose (or, given ``forced_value`` [n], score) the values of
-            one site for the whole batch: returns ([n] values, [n] log q).
+            """Propose (or, given ``forced_value`` [n, *event], score) the
+            values of one site for the whole batch: returns ([n, *event]
+            values, [n] log q).
             The head runs once on the observe embedding's row and its output
             is expanded over the batch (the prior's parameters may differ
             per particle).  ``defensive=π``: each lane draws from q with
@@ -222,12 +226,13 @@ class InferenceNetworkFeedForward(InferenceNetwork):
             out = mlp_apply(head["ff"], _emb(observed), activation=torch.relu, activation_last=None)
             prior = {k: util.to_tensor(v, device) for k, v in prior_param_arrays(distribution).items()}
             d = head_distribution(head["meta"], out.expand(n, -1), prior)
+            ev = tuple(distribution.event_shape)
             if forced_value is not None:
-                value = util.to_tensor(forced_value, device).reshape(n)
+                value = util.to_tensor(forced_value, device).reshape((n,) + ev)
             elif defensive is not None:
                 xq = d.sample(generator)
                 xp = _draw(distribution, n, generator)
-                u = torch.rand((n,), generator=generator, dtype=util.dtype(), device=device)
+                u = torch.rand((n,) + (1,) * len(ev), generator=generator, dtype=util.dtype(), device=device)
                 value = torch.where(u < defensive, xq, xp)
             else:
                 value = d.sample(generator)

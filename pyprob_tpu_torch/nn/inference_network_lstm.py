@@ -3,7 +3,9 @@
 
 Per-address sample embeddings, learned address embeddings and
 distribution-type embeddings feed an LSTM core whose features drive
-per-address proposal heads.  On the batched tier the proposal step runs
+per-address proposal heads.  An event-shaped site (MultivariateNormal,
+Dirichlet, LKJCholesky) has ``[D]`` or ``[d, d]`` values, and its sample
+embedding reads them flattened.  On the batched tier the proposal step runs
 once per site over the whole ``[N]`` particle batch: the observe embedding
 is computed once per run and expanded, the LSTM state is ``[depth, N, H]``,
 and the head's mixture is scored by the mixture kernels.  For the retries
@@ -49,6 +51,7 @@ from .layers import (
 )
 from . import gather_loss as gl
 from .proposals import (
+    event_dim_for,
     head_apply,
     head_distribution,
     head_from_numpy,
@@ -152,12 +155,14 @@ class InferenceNetworkLSTM(InferenceNetwork):
                             f"Distribution currently unsupported: {distribution.name}"
                         )
                     # a categorical site's head scores its categories, and
-                    # its sample embedding reads the one-hot value
+                    # its sample embedding reads the one-hot value; an
+                    # event-shaped site's reads the flattened value
                     num_categories = distribution.num_categories if kind == "categorical" else None
+                    event_dim = event_dim_for(distribution)
                     self._params["proposal"][address] = head_init(
                         g, kind, self._lstm_dim, device,
                         mixture_components=self._proposal_mixture_components,
-                        num_categories=num_categories,
+                        num_categories=num_categories, event_dim=event_dim,
                     )
                     value_shape = tuple(np.shape(variable.value)) or (1,)
                     self._params["sample_embedding"][address] = mlp_init(
@@ -167,6 +172,7 @@ class InferenceNetworkLSTM(InferenceNetwork):
                     self._head_meta[address] = {
                         "kind": kind,
                         "num_categories": num_categories,
+                        "event_dim": event_dim,
                         "dist_name": distribution.name,
                     }
                     self._head_train_iterations.setdefault(address, 0)
@@ -430,11 +436,11 @@ class InferenceNetworkLSTM(InferenceNetwork):
 
         def proposal_step(site, distribution, generator, observed, forced_value=None,
                           defensive=None):
-            """Propose (or, given ``forced_value`` [n], score) the values of
-            one site for the whole batch: returns ([n] values, [n] log q).
-            ``defensive=π``: each lane draws from q with probability π, else
-            from the prior, and is scored against the mixture π·q + (1−π)·p
-            (rejection_sample retries)."""
+            """Propose (or, given ``forced_value`` [n, *event], score) the
+            values of one site for the whole batch: returns ([n, *event]
+            values, [n] log q).  ``defensive=π``: each lane draws from q
+            with probability π, else from the prior, and is scored against
+            the mixture π·q + (1−π)·p (rejection_sample retries)."""
             n = state["n"]
             addr = site.address
             if addr not in head_meta:
@@ -472,12 +478,13 @@ class InferenceNetworkLSTM(InferenceNetwork):
                 for k, v in prior_param_arrays(distribution).items()
             }
             d = head_apply(params["proposal"][addr], out, prior)
+            ev = tuple(distribution.event_shape)
             if forced_value is not None:
-                value = util.to_tensor(forced_value, device).reshape(n)
+                value = util.to_tensor(forced_value, device).reshape((n,) + ev)
             elif defensive is not None:
                 xq = d.sample(generator)
                 xp = _draw(distribution, n, generator)
-                u = torch.rand((n,), generator=generator, dtype=util.dtype(), device=device)
+                u = torch.rand((n,) + (1,) * len(ev), generator=generator, dtype=util.dtype(), device=device)
                 value = torch.where(u < defensive, xq, xp)
             else:
                 value = d.sample(generator)

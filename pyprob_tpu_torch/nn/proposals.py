@@ -22,15 +22,29 @@ parameters to a batched proposal distribution.  Ported so far:
   per component of ``meta["df_floor"]`` (0.5 for new heads, 1.0 for a
   carried head that does not record it) + softplus;
 * Categorical prior -> ``categorical`` over the site's categories;
-* Bernoulli prior -> ``bernoulli``.
+* Bernoulli prior -> ``bernoulli``;
+* MultivariateNormal prior -> ``mvn``: a full-covariance Normal whose mean
+  is the prior's plus L_prior·raw and whose scale is L_prior·M, M lower
+  triangular with diagonal exp(clip(raw, ±10)): a zeroed head proposes
+  the prior itself;
+* Dirichlet prior -> ``dirichlet``: α = α_prior·exp(clip(raw, ±10)) + 1e-6;
+* LKJCholesky prior -> ``lkj_cpc_normal``: Normals on the canonical
+  partial correlations (``LKJCholeskyCPCNormal``), log-scales clipped to
+  [−8, 4].
 
-Geometric, NegativeBinomial, Censored and ZeroInflated have no head, as in
-the JAX package.  The mixture heads build their ``[B, K]`` parameter
-tensors once; the truncated-Normal ones hand them, with one ``low`` and
-one ``high`` tensor shared by every component, to the truncated mixture's
-kernel.  The LogNormal and StudentT mixtures are scored in plain torch, as
-in the JAX package.  The event-shaped head kinds raise with the slice that
-brings them.
+The reference's alternative heads ``normal_normal`` (one Normal),
+``uniform_beta`` (one Beta on the prior's bounds) and
+``uniform_beta_mixture`` (K of them) are never picked by
+``head_kind_for`` but are built by ``head_init`` and ``head_apply``.  The
+event-shaped heads take an ``event_dim`` (D for the MVN and Dirichlet
+heads, d for the LKJ head) and read their prior parameters as rows of
+``[B, D]`` or ``[B, D, D]``, whatever batch the prior's parameters had.
+Geometric, NegativeBinomial, Multinomial, Censored and ZeroInflated have
+no head, as in the JAX package.  The mixture heads build their ``[B, K]``
+parameter tensors once; the truncated-Normal ones hand them, with one
+``low`` and one ``high`` tensor shared by every component, to the
+truncated mixture's kernel.  The LogNormal, StudentT and Beta mixtures are
+scored in plain torch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,16 +59,20 @@ from ..distributions import (
     Categorical,
     Cauchy,
     Chi2,
+    Dirichlet,
     Exponential,
     Gamma,
     Gumbel,
     HalfCauchy,
     HalfNormal,
     InverseGamma,
+    LKJCholesky,
+    LKJCholeskyCPCNormal,
     Laplace,
     Logistic,
     LogNormal,
     Mixture,
+    MultivariateNormal,
     Normal,
     Pareto,
     Poisson,
@@ -86,16 +104,15 @@ _STUDENTT_PRIORS = (StudentT, Laplace, Cauchy, Logistic, Gumbel)
 # the df floor a new StudentT-mixture head records in its meta: the head can
 # learn tails heavier than a Cauchy prior's (df 1)
 _DF_FLOOR = 0.5
-# kinds whose MLP emits means, stddevs and mixing logits, K each (the
-# StudentT mixture also K dfs)
+# kinds whose MLP emits K each of two parameters and the mixing logits
 _MIXTURE_KINDS = (
     "normal_mixture",
     "uniform_truncated_normal_mixture",
     "poisson_truncated_normal_mixture",
+    "uniform_beta_mixture",
     "positive_lognormal_mixture",
-    "studentt_mixture",
 )
-_PORTED_KINDS = _MIXTURE_KINDS + ("categorical", "bernoulli")
+_EVENT_KINDS = ("mvn", "dirichlet", "lkj_cpc_normal")
 
 
 def head_kind_for(distribution):
@@ -115,6 +132,23 @@ def head_kind_for(distribution):
         return "positive_lognormal_mixture"
     if isinstance(distribution, _STUDENTT_PRIORS):
         return "studentt_mixture"
+    if isinstance(distribution, MultivariateNormal):
+        return "mvn"
+    if isinstance(distribution, Dirichlet):
+        return "dirichlet"
+    if isinstance(distribution, LKJCholesky):
+        return "lkj_cpc_normal"
+    return None
+
+
+def event_dim_for(distribution):
+    """The event dimension an event-shaped head is built for (None for the
+    scalar heads): D of a MultivariateNormal or Dirichlet, d of an
+    LKJCholesky."""
+    if isinstance(distribution, (MultivariateNormal, Dirichlet)):
+        return int(distribution.event_shape[0])
+    if isinstance(distribution, LKJCholesky):
+        return distribution.dim
     return None
 
 
@@ -188,49 +222,59 @@ def prior_param_arrays(distribution):
     if isinstance(distribution, _STUDENTT_PRIORS):
         loc, scale = _location_scale_ref(distribution)
         return {"loc": loc, "scale": scale}
-    return {}
+    if isinstance(distribution, MultivariateNormal):
+        return {"loc": distribution.loc, "scale_tril": distribution.scale_tril}
+    if isinstance(distribution, Dirichlet):
+        return {"concentration": distribution.concentration}
+    return {}  # LKJCholesky: the CPC-normal head reads no prior parameter
 
 
-def _check_kind(kind):
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"proposal head {kind!r} is not ported yet; it comes with the event-shaped "
-            "slice of the distributions: the MultivariateNormal, Dirichlet and LKJ heads, "
-            "and the reference's alternative Beta heads"
-        )
-
-
-def head_init(generator, kind, input_dim, device, mixture_components=10, num_categories=None):
-    _check_kind(kind)
+def head_init(generator, kind, input_dim, device, mixture_components=10, num_categories=None,
+              event_dim=None):
     meta = {"kind": kind, "mixture_components": mixture_components}
-    if kind == "categorical":
+    if kind in _MIXTURE_KINDS:
+        out_dim = 3 * mixture_components
+    elif kind == "studentt_mixture":
+        # means, log-scales, mixing logits and dfs, K each
+        out_dim = 4 * mixture_components
+        meta["df_floor"] = _DF_FLOOR
+    elif kind in ("normal_normal", "uniform_beta"):
+        out_dim = 2
+    elif kind == "categorical":
         if num_categories is None:
             raise ValueError("a categorical head needs num_categories")
         out_dim = num_categories
         meta["num_categories"] = num_categories
     elif kind == "bernoulli":
         out_dim = 1
-    elif kind == "studentt_mixture":
-        # means, log-scales, mixing logits and dfs, K each
-        out_dim = 4 * mixture_components
-        meta["df_floor"] = _DF_FLOOR
+    elif kind in _EVENT_KINDS:
+        if event_dim is None:
+            raise ValueError(f"a {kind} head needs event_dim")
+        D = event_dim
+        # mvn: residual mean D, Cholesky diagonal D, strict lower triangle
+        # D(D-1)/2; lkj: means and log-scales of the D(D-1)/2 partial
+        # correlations
+        out_dim = {"mvn": D + D * (D + 1) // 2, "dirichlet": D, "lkj_cpc_normal": D * (D - 1)}[kind]
+        meta["event_dim"] = event_dim
     else:
-        out_dim = 3 * mixture_components
+        raise ValueError(f"Unknown proposal head kind: {kind}")
     return {
         "ff": mlp_init(generator, (input_dim,), (out_dim,), device, num_layers=2),
         "meta": meta,
     }
 
 
-def _rows(prior_param, B):
-    """A prior parameter (a scalar or one value per row) as ``[B]``."""
-    return prior_param.reshape(-1).expand(B)
+def _rows(prior_param, B, event_shape=()):
+    """A prior parameter (shared, or one value per row) as ``[B]`` +
+    ``event_shape``."""
+    return prior_param.reshape((-1,) + event_shape).expand((B,) + event_shape)
 
 
 def head_apply(params, x, prior_params):
-    """x: [B, H] features; prior_params: dict of scalars or [B] tensors.
-    Returns a proposal distribution with batch shape (B,)."""
-    _check_kind(params["meta"]["kind"])
+    """x: [B, H] features; prior_params: dict of the prior's parameters,
+    shared or one a row, in any shape with their elements in row order
+    (``[B]``, ``[B, 1]``, ``[D]``, ``[B, D·D]``, ...).  Returns a proposal
+    distribution with batch shape (B,)."""
     out = mlp_apply(params["ff"], x, activation=torch.relu, activation_last=None)
     return head_distribution(params["meta"], out, prior_params)
 
@@ -240,8 +284,17 @@ def head_distribution(meta, out, prior_params):
     gathered heads of the gather loss and of lockstep rounds apply their
     MLPs themselves)."""
     kind = meta["kind"]
-    _check_kind(kind)
     B = out.shape[0]
+    if kind in _EVENT_KINDS:
+        return _event_head_distribution(kind, meta["event_dim"], out, prior_params)
+    if kind == "normal_normal":
+        prior_mean = _rows(prior_params["mean"], B)
+        prior_std = _rows(prior_params["stddev"], B)
+        return Normal(prior_mean + out[:, 0] * prior_std, torch.exp(out[:, 1]) * prior_std)
+    if kind == "uniform_beta":
+        low, high = _rows(prior_params["low"], B), _rows(prior_params["high"], B)
+        softplus = torch.nn.functional.softplus
+        return Beta(1.0 + softplus(out[:, 0]), 1.0 + softplus(out[:, 1]), low=low, high=high)
     if kind == "categorical":
         return Categorical(probs=torch.softmax(out, dim=1) + _EPSILON)
     if kind == "bernoulli":
@@ -268,12 +321,19 @@ def head_distribution(meta, out, prior_params):
         means = log_loc + out[:, :K] * log_scale
         stddevs = torch.exp(out[:, K : 2 * K]) * log_scale
         return Mixture([LogNormal(means[:, i], stddevs[:, i]) for i in range(K)], probs=coeffs)
+    if kind == "uniform_beta_mixture":
+        low, high = _rows(prior_params["low"], B), _rows(prior_params["high"], B)
+        c1s = 1.0 + torch.nn.functional.softplus(out[:, :K])
+        c0s = 1.0 + torch.nn.functional.softplus(out[:, K : 2 * K])
+        return Mixture([Beta(c1s[:, i], c0s[:, i], low=low, high=high) for i in range(K)], probs=coeffs)
     if kind == "poisson_truncated_normal_mixture":
         low = out.new_full((B,), _POISSON_LOW)
         high = out.new_full((B,), _POISSON_HIGH)
         means = low[:, None] + torch.sigmoid(out[:, :K]) * (high - low)[:, None]
         stddevs = torch.exp(out[:, K : 2 * K])
         return Mixture._from_truncated_normal_params(means, stddevs, coeffs, low, high)
+    if kind != "uniform_truncated_normal_mixture":
+        raise ValueError(f"Unknown proposal head kind: {kind}")
     low = _rows(prior_params["low"], B)
     high = _rows(prior_params["high"], B)
     width = (high - low)[:, None]
@@ -282,15 +342,36 @@ def head_distribution(meta, out, prior_params):
     return Mixture._from_truncated_normal_params(means, stddevs, coeffs, low, high)
 
 
+def _event_head_distribution(kind, D, out, prior_params):
+    B = out.shape[0]
+    if kind == "mvn":
+        loc = _rows(prior_params["loc"], B, (D,))
+        L_prior = _rows(prior_params["scale_tril"], B, (D, D))
+        mean = loc + torch.matmul(L_prior, out[:, :D, None])[..., 0]
+        # M's strict lower triangle in row-major order, then its diagonal
+        rows, cols = torch.tril_indices(D, D, offset=-1, device=out.device)
+        diag = torch.arange(D, device=out.device)
+        at = torch.cat([rows * D + cols, diag * (D + 1)])
+        entries = torch.cat([out[:, 2 * D :], torch.exp(torch.clamp(out[:, D : 2 * D], -10.0, 10.0))], dim=1)
+        M = out.new_zeros((B, D * D)).index_copy(1, at, entries).reshape(B, D, D)
+        return MultivariateNormal(mean, scale_tril=torch.matmul(L_prior, M))
+    if kind == "dirichlet":
+        conc = _rows(prior_params["concentration"], B, (D,))
+        return Dirichlet(conc * torch.exp(torch.clamp(out[:, :D], -10.0, 10.0)) + _EPSILON)
+    k = D * (D - 1) // 2
+    return LKJCholeskyCPCNormal(out[:, :k], torch.clamp(out[:, k:], -8.0, 4.0), dim=D)
+
+
 def head_from_numpy(p, device):
     """A head from the JAX package's parameters (``Static`` unwrapped)."""
     meta = dict(p["meta"])
-    _check_kind(meta["kind"])
     out = {"kind": meta["kind"], "mixture_components": meta["mixture_components"]}
     if meta["kind"] == "categorical":
         out["num_categories"] = meta["num_categories"]
     if meta["kind"] == "studentt_mixture" and "df_floor" in meta:
         out["df_floor"] = meta["df_floor"]
+    if meta["kind"] in _EVENT_KINDS:
+        out["event_dim"] = meta["event_dim"]
     return {"ff": mlp_from_numpy(p["ff"], device), "meta": out}
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``pyprob_tpu/vectorized.py``.  The JAX package traces
 ``forward`` once under ``jax.vmap``; here ``forward`` runs once per chunk
 of particles with a handler installed in ``state`` that draws an explicit
-``[N]`` tensor at every ``sample`` site and accumulates ``[N]`` log-weights
-on the device.  Data-dependent Python control flow on those tensors fails
+``[N]`` tensor at every ``sample`` site (``[N, D]`` or ``[N, d, d]`` for an
+event-shaped distribution; a model reads its coordinates as ``z[..., i]``)
+and accumulates ``[N]`` log-weights on the device.  Data-dependent Python control flow on those tensors fails
 as it fails under ``vmap``: such a model raises ``NotImplementedError``
 here, and with ``vectorized=None`` the entry points mark its class
 (``_TraceabilityCache``) and run it on the interpreter tier.  Rejection loops written with

@@ -4,8 +4,9 @@ The Gaussian-unknown-mean body and its Marsaglia variants (the prior drawn
 by the polar method inside ``rejection_sample``, and in a plain while loop
 that branches on ``float`` of the sampled values), pyprob's HMM, the
 Beta–Bernoulli and Gamma–Poisson models, the Laplace-prior model (and its
-interpreter-only copy) and the Beta–NegativeBinomial model are defined
-once here and both
+interpreter-only copy), the Beta–NegativeBinomial model and the
+event-shaped latents (MultivariateNormal, Dirichlet, LKJCholesky) and
+conjugate models are defined once here and both
 packages' models call them: an address embeds the source line of
 its ``sample`` call and the function-name chain, so the two packages'
 sites get equal addresses and carried proposal heads land on the right
@@ -233,6 +234,105 @@ class TorchNB(pyprob_tpu_torch.Model):
         return nb_body(pyprob_tpu_torch)
 
 
+# the event-shaped latents of tests/test_proposals_extended.py:231-410 and
+# the conjugate models of tests/test_distributions_extra.py:115-134, their
+# coordinates read as z[..., i] so one body runs on both packages' tiers.
+# z ~ N(0, I_2), obs ~ N(z0 + z1, 0.2) = 4: the posterior mean is 1.961 per
+# coordinate
+MVN_LATENT_OBSERVE = {"obs": 4.0}
+
+
+def mvn_latent_body(pp):
+    z = pp.sample(pp.distributions.MultivariateNormal(np.zeros(2), covariance_matrix=np.eye(2)))
+    pp.observe(pp.distributions.Normal(z[..., 0] + z[..., 1], 0.2), name="obs")
+    return z
+
+
+# p ~ Dir(2, 2, 2), obs ~ Categorical(p) = 2: the posterior is Dir(2, 2, 3)
+DIRICHLET_LATENT_OBSERVE = {"obs": 2}
+
+
+def dirichlet_latent_body(pp):
+    p = pp.sample(pp.distributions.Dirichlet(np.ones(3) * 2.0))
+    pp.observe(pp.distributions.Categorical(probs=p), name="obs")
+    return p
+
+
+# L ~ LKJCholesky(2, 1), y ~ N(0, L Lᵀ) = (2.2, 2.18): the result is the
+# correlation L[1, 0]
+LKJ_LATENT_OBSERVE = {"y": np.array([2.2, 2.18])}
+
+
+def lkj_latent_body(pp):
+    L = pp.sample(pp.distributions.LKJCholesky(2, 1.0))
+    pp.observe(pp.distributions.MultivariateNormal(np.zeros(2), scale_tril=L), name="y")
+    return L[..., 1, 0]
+
+
+def dircat_body(pp):
+    p = pp.sample(pp.distributions.Dirichlet(np.ones(3)))
+    likelihood = pp.distributions.Categorical(probs=p)
+    for name in ("o0", "o1", "o2"):
+        pp.observe(likelihood, name=name)
+    return p
+
+
+def mvn_conjugate_body(pp):
+    x = pp.sample(pp.distributions.MultivariateNormal(np.zeros(2), covariance_matrix=np.eye(2)))
+    pp.observe(pp.distributions.MultivariateNormal(x, covariance_matrix=np.eye(2)), name="y")
+    return x
+
+
+class JaxMVNLatent(pyprob_tpu.Model):
+    def forward(self):
+        return mvn_latent_body(pyprob_tpu)
+
+
+class TorchMVNLatent(pyprob_tpu_torch.Model):
+    def forward(self):
+        return mvn_latent_body(pyprob_tpu_torch)
+
+
+class JaxDirichletLatent(pyprob_tpu.Model):
+    def forward(self):
+        return dirichlet_latent_body(pyprob_tpu)
+
+
+class TorchDirichletLatent(pyprob_tpu_torch.Model):
+    def forward(self):
+        return dirichlet_latent_body(pyprob_tpu_torch)
+
+
+class JaxLKJLatent(pyprob_tpu.Model):
+    def forward(self):
+        return lkj_latent_body(pyprob_tpu)
+
+
+class TorchLKJLatent(pyprob_tpu_torch.Model):
+    def forward(self):
+        return lkj_latent_body(pyprob_tpu_torch)
+
+
+class JaxDirCat(pyprob_tpu.Model):
+    def forward(self):
+        return dircat_body(pyprob_tpu)
+
+
+class TorchDirCat(pyprob_tpu_torch.Model):
+    def forward(self):
+        return dircat_body(pyprob_tpu_torch)
+
+
+class JaxMVNConjugate(pyprob_tpu.Model):
+    def forward(self):
+        return mvn_conjugate_body(pyprob_tpu)
+
+
+class TorchMVNConjugate(pyprob_tpu_torch.Model):
+    def forward(self):
+        return mvn_conjugate_body(pyprob_tpu_torch)
+
+
 def _port_distribution(d):
     """A JAX package distribution as the port's, its parameters on the CPU."""
     if d is None:
@@ -248,7 +348,10 @@ def _port_distribution(d):
     if name == "ZeroInflated":
         return D.ZeroInflated(_port_distribution(d.base), gate=f(d.gate))
     cls = getattr(D, name)
-    return cls.__new__(cls)._with_leaves([f(getattr(d, "_" + n)) for n in d._param_names])
+    blank = cls.__new__(cls)
+    if name.startswith("LKJCholesky"):
+        blank._dim = d.dim
+    return blank._with_leaves([f(getattr(d, "_" + n)) for n in d._param_names])
 
 
 def port_trace(jtrace):
@@ -283,14 +386,16 @@ def _embeddings(observe_dim, observe_names):
 
 
 def jax_network(model, lstm_dim=16, mixture_components=3, observe_dim=4, seed=7, vectorized=None,
-                observe_names=("obs0", "obs1")):
+                observe_names=("obs0", "obs1"), observe_embeddings=None):
     """An untrained pyprob_tpu LSTM network for ``model``: constructor plus
     layer pre-generation on two prior traces (``vectorized`` picks the
-    tier that draws them)."""
+    tier that draws them).  Prior traces hold no observed values, so an
+    observe of more than one element needs ``observe_embeddings`` with its
+    ``reshape``."""
     pyprob_tpu.seed(seed)
     net = JaxLSTM(
         model=model,
-        observe_embeddings=_embeddings(observe_dim, observe_names),
+        observe_embeddings=observe_embeddings or _embeddings(observe_dim, observe_names),
         lstm_dim=lstm_dim,
         proposal_mixture_components=mixture_components,
     )
@@ -320,14 +425,14 @@ def carry(jnet, model):
 
 
 def jax_ff_network(model, mixture_components=3, observe_dim=4, seed=7, vectorized=None,
-                   observe_names=("obs0", "obs1")):
+                   observe_names=("obs0", "obs1"), observe_embeddings=None):
     """An untrained pyprob_tpu feedforward network for ``model``, its heads
     grown from two prior traces (``vectorized`` picks the tier that draws
-    them)."""
+    them; ``observe_embeddings`` as for ``jax_network``)."""
     pyprob_tpu.seed(seed)
     net = JaxFF(
         model=model,
-        observe_embeddings=_embeddings(observe_dim, observe_names),
+        observe_embeddings=observe_embeddings or _embeddings(observe_dim, observe_names),
         proposal_mixture_components=mixture_components,
     )
     net._pre_generate_layers(model.prior(num_traces=2, vectorized=vectorized).get_values())

@@ -1,6 +1,8 @@
 """The port's proposal heads for Categorical, Bernoulli, Poisson, Beta,
 VonMises, the positive-support priors and the heavy-tailed priors against
-the JAX package's (``pyprob_tpu/nn/proposals.py``), on the CPU.
+the JAX package's (``pyprob_tpu/nn/proposals.py``), on the CPU (the
+event-shaped and alternative heads are in
+``tests/test_torch_event_shaped.py``).
 
 ``head_kind_for`` and ``prior_param_arrays`` for every ported class, and
 for the four classes with no head; each head kind's ``head_apply`` on a
@@ -214,11 +216,20 @@ def test_head_loss_gradients_match(case):
 
 
 def test_unported_head_kinds_name_their_slice():
-    for kind in ("mvn", "dirichlet", "lkj_cpc_normal", "uniform_beta_mixture"):
-        with pytest.raises(NotImplementedError, match="event-shaped slice of the distributions"):
-            TP.head_init(torch.Generator(), kind, 4, "cpu")
+    """Every head kind of the JAX package is ported
+    (``tests/test_torch_event_shaped.py`` holds the event-shaped and
+    alternative heads): an unknown kind raises ValueError, as the JAX
+    package's ``head_init`` does, and so do a categorical head without
+    ``num_categories`` and an event-shaped head without ``event_dim``."""
+    with pytest.raises(ValueError, match="Unknown proposal head kind"):
+        TP.head_init(torch.Generator(), "no_such_kind", 4, "cpu")
+    with pytest.raises(ValueError, match="Unknown proposal head kind"):
+        TP.head_distribution({"kind": "no_such_kind", "mixture_components": 3}, torch.zeros((2, 9)), {})
     with pytest.raises(ValueError, match="num_categories"):
         TP.head_init(torch.Generator(), "categorical", 4, "cpu")
+    for kind in ("mvn", "dirichlet", "lkj_cpc_normal"):
+        with pytest.raises(ValueError, match="event_dim"):
+            TP.head_init(torch.Generator(), kind, 4, "cpu")
 
 
 def test_log_space_moments_are_exact():
