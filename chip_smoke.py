@@ -220,12 +220,15 @@ Phases, each printing one JSON line:
     MultivariateNormal latent (the mvn head) and a Dirichlet latent (the
     dirichlet head), each with the feedforward network and the LSTM, and
     an LKJCholesky latent (the lkj_cpc_normal head, feedforward), each
-    trained with its JAX test's recipe (seed, traces, batch 256, lr 0.003,
-    16-d observe embeddings), served at 1,000,000 traces on the batched
-    tier and by lockstep at 1,024, beside prior IS at 1,000,000: the JAX
-    test's mean and ESS criteria on both tiers, those that are not a
-    lottery over training seeds enforced (EVENT_IC), the training and
-    serving traces/s, kernel 3's launches and the peak device memory;
+    trained with its JAX test's recipe (traces, batch 256, lr 0.003,
+    16-d observe embeddings) from the test's seed and the seven after
+    it: each of the JAX test's mean and ESS criteria, on the batched tier
+    and by lockstep at the test's counts, met by as many seeds as the JAX
+    package meets it on eight, less four, and one at least (EVENT_IC,
+    EVENT_IC_JAX_MET); the first seed's network also served at 1,000,000
+    traces beside prior IS at 1,000,000, its mean held to the truth and
+    its ESS fraction printed; the training and serving traces/s, kernel
+    3's launches and the peak device memory;
 42. Dirichlet-Categorical and conjugate MultivariateNormal prior IS
     (tests/test_distributions_extra.py:115-171) at 1,000,000 traces
     batched and 2,000 on the interpreter, within 0.06 and 0.12;
@@ -241,7 +244,6 @@ the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 raises and the script exits non-zero without that line.
 """
 
-import gc
 import json
 import math
 import re
@@ -431,25 +433,40 @@ GEOMETRIC = {"observe": {"y": 2.0}, "batched_traces": 1_000_000, "interpreter_tr
 # LKJCholesky latent with the JAX tests' recipes
 # (tests/test_proposals_extended.py:303-339, 342-361, 388-410: 16-d observe
 # embeddings, batch 256, lr 0.003; the LKJ latent with the default
-# feedforward network), served at 1,000,000 traces on the batched tier and
-# by lockstep at the JAX tests' 1,024.  ``checked`` lists the JAX tests'
-# criteria that fail the run; the others are printed with their outcome:
-# for this recipe they are a lottery over training seeds (and, for the LKJ
-# latent's heavy-tailed weights, over serving draws), event_ic_seeds.py
-# prints their spread.  The MultivariateNormal posterior's mean is
-# 4 / 2.04 per coordinate; the Dirichlet one's (2, 2, 3) / 7; the LKJ
-# latent's is held to prior IS's at 1,000,000 traces
+# feedforward network), each of the JAX test's criteria judged at the
+# test's counts: served at ``traces`` on the batched tier and at 1,024 by
+# lockstep, the reference prior IS at ``base_traces`` (the
+# MultivariateNormal ESS floor, the LKJ mean).  The MultivariateNormal
+# posterior's mean is 4 / 2.04 per coordinate; the Dirichlet one's
+# (2, 2, 3) / 7
 EVENT_IC = {
-    "mvn": {"observe": {"obs": 4.0}, "seed": 7, "train_traces": 8192, "mean": [4.0 / 2.04] * 2, "tol": 0.3,
-            "ess_over_prior": 3.0, "checked": ("batched_mean",)},
-    "dirichlet": {"observe": {"obs": 2}, "seed": 7, "train_traces": 3072, "mean": [2 / 7, 2 / 7, 3 / 7],
-                  "tol": 0.08, "ess_floor": 0.3,
-                  "checked": ("batched_mean", "lockstep_mean", "batched_ess", "lockstep_ess")},
-    "lkj": {"observe": {"y": [2.2, 2.18]}, "seed": 0, "train_traces": 4096, "tol": 0.15, "ess_floor": 0.05,
-            "checked": ("batched_mean", "lockstep_mean")},
+    "mvn": {"observe": {"obs": 4.0}, "seed": 7, "train_traces": 8192, "traces": 4096, "base_traces": 4096,
+            "mean": [4.0 / 2.04] * 2, "tol": 0.3, "ess_over_prior": 3.0},
+    "dirichlet": {"observe": {"obs": 2}, "seed": 7, "train_traces": 3072, "traces": 1024,
+                  "mean": [2 / 7, 2 / 7, 3 / 7], "tol": 0.08, "ess_floor": 0.3},
+    "lkj": {"observe": {"y": [2.2, 2.18]}, "seed": 0, "train_traces": 4096, "traces": 1024, "base_traces": 2048,
+            "tol": 0.15, "ess_floor": 0.05},
 }
 EVENT_IC_RECIPE = {"batch_size": 256, "learning_rate": 0.003, "observe_dim": 16, "lockstep_traces": 1024,
-                   "lockstep_warm_up": 256}
+                   "lockstep_warm_up": 256, "seeds": 8}
+# One trained network is a draw: with these short recipes (12-32 Adam
+# steps) the JAX package itself misses some criteria on some seeds.  So
+# each recipe is trained from the JAX test's seed and the seven after it,
+# and each criterion must be met by at least as many of the eight as the
+# JAX package meets it on its eight, less four, and by one at least (a
+# recipe that meets a criterion at the JAX package's rate falls further
+# short with probability under 3%, 10% for the MultivariateNormal FF
+# network's batched ESS, which the JAX package meets on 2 of 8; a ruined
+# head meets none).  The JAX package's counts, batched mean and ESS, then
+# lockstep's (the JAX tests' ``vectorized=False``), from
+# ``python tests/event_ic_reference.py --seeds 8`` on the CPU
+EVENT_IC_JAX_MET = {
+    "mvn_ic_feedforward": {"batched_mean": 7, "batched_ess": 2, "lockstep_mean": 5, "lockstep_ess": 3},
+    "mvn_ic_lstm": {"batched_mean": 8, "batched_ess": 6, "lockstep_mean": 7, "lockstep_ess": 7},
+    "dirichlet_ic_feedforward": {"batched_mean": 8, "batched_ess": 8, "lockstep_mean": 8, "lockstep_ess": 8},
+    "dirichlet_ic_lstm": {"batched_mean": 8, "batched_ess": 8, "lockstep_mean": 8, "lockstep_ess": 8},
+    "lkj_ic_feedforward": {"batched_mean": 8, "batched_ess": 7, "lockstep_mean": 8, "lockstep_ess": 7},
+}
 # prior IS of the conjugate models of tests/test_distributions_extra.py:
 # 115-171 (a flat Dirichlet with three Categorical observes (2, 1, 0):
 # Dir(3, 2, 1); N(0, I) with y = (2, 0) ~ N(x, I): N((1, 0), I/2)) at
@@ -1323,9 +1340,6 @@ def serve_batched(device, model, num_traces, label, observe=OBSERVE, kernels=("m
     reset_launch_counts()
     sync(device)
     if device == "cuda":
-        # the peak counts what is alive: the networks of ended phases (a
-        # model and its network refer to each other) are collected first
-        gc.collect()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     post = run()
@@ -1639,7 +1653,6 @@ def phase_interpreter_ic(device, model, label, warm_up, num_traces, lockstep=Non
     reset_launch_counts()
     sync(device)
     if device == "cuda":
-        gc.collect()  # as serve_batched
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     post = model.posterior_results(
@@ -2883,71 +2896,102 @@ def event_ic_train_kwargs(name, network):
                 batch_size=r["batch_size"], learning_rate_init=r["learning_rate"])
 
 
-def event_ic_criteria(name, post, num_traces, prior):
+def event_ic_criteria(name, post, num_traces, base):
     """The JAX test's criteria on one posterior, as {criterion: (value,
     limit, met)}: the mean (within ``tol`` of the truth, or for the LKJ
-    latent of prior IS's mean) and the ESS fraction (above ``ess_floor``,
-    or above ``ess_over_prior`` times prior IS's)."""
+    latent of ``base``'s, a prior IS) and the ESS fraction (above
+    ``ess_floor``, or above ``ess_over_prior`` times ``base``'s)."""
     spec = EVENT_IC[name]
     mean = np.asarray(post.mean, dtype=np.float64).reshape(-1)
-    truth = np.asarray(spec["mean"] if "mean" in spec else prior.mean, dtype=np.float64).reshape(-1)
+    truth = np.asarray(spec["mean"] if "mean" in spec else base.mean, dtype=np.float64).reshape(-1)
     err = float(np.abs(mean - truth).max())
     ess = post.effective_sample_size / num_traces
     if "ess_floor" in spec:
         floor = spec["ess_floor"]
     else:
-        floor = spec["ess_over_prior"] * prior.effective_sample_size / prior.length
+        floor = spec["ess_over_prior"] * base.effective_sample_size / base.length
     return {"mean": (mean.tolist(), truth.tolist(), err <= spec["tol"]),
             "ess": (ess, floor, ess > floor)}
 
 
-def phase_event_ic(device, name, network, num_traces=NUM_TRACES):
+def counted(device, fn):
+    """``fn()`` with the kernels' launches counted: (result, launches)."""
+    reset_launch_counts()
+    sync(device)
+    out = fn()
+    sync(device)
+    return out, launch_counts()
+
+
+def phase_event_ic(device, name, network, num_traces=NUM_TRACES, seeds=EVENT_IC_RECIPE["seeds"]):
     """IC on an event-shaped latent (EVENT_IC[name]) with the JAX test's
-    recipe: seeded, prior IS on the batched tier (the LKJ mean's reference
-    and the MultivariateNormal ESS floor), the network trained, served on
-    the batched tier (a warm-up run, then ``num_traces`` timed) and by
-    lockstep (256 warm-up traces, then the JAX tests' 1,024 timed), the
-    JAX test's criteria on both, those in ``checked`` enforced.  Prints the
-    training and serving traces/s, kernel 3's launches and the peak device
-    memory (< 10 GiB).  Returns the prior IS, training, batched-serving and
-    lockstep launches."""
+    recipe, trained from ``seeds`` seeds in turn (the JAX test's first):
+    the reference prior IS, the network trained, served at the JAX test's
+    counts on the batched tier and by lockstep, each of the test's criteria
+    met by as many seeds as EVENT_IC_JAX_MET asks.  The first seed's
+    network is also served at ``num_traces`` on the batched tier beside
+    prior IS at ``num_traces`` (a warm-up run, then a timed one each), its
+    mean held to the truth (the LKJ latent's to prior IS's) and its ESS
+    fraction printed, and by lockstep after 256 warm-up traces.  Prints
+    the training and serving traces/s, kernel 3's launches and the peak
+    device memory (< 10 GiB).  Returns the launches by sub-phase."""
     import pyprob_tpu_torch as pp
 
     spec, r = EVENT_IC[name], EVENT_IC_RECIPE
     phase = f"{name}_ic_{network.lower()}"
-    observe = spec["observe"]
-    model = event_models()[name]()
-    pp.seed(spec["seed"])
-    prior, prior_seconds, prior_launches, _ = serve_batched(device, model, num_traces, phase + " prior IS", observe,
-                                                            kernels=(), guided=False)
-    launches, train_line = train_phase(device, phase + "_train", model, event_ic_train_kwargs(name, network))
-    heads = model._inference_network._head_meta
+    observe, n, n_lock = spec["observe"], spec["traces"], r["lockstep_traces"]
     kind = {"mvn": "mvn", "dirichlet": "dirichlet", "lkj": "lkj_cpc_normal"}[name]
-    check([m["kind"] for m in heads.values()] == [kind], f"{phase}: heads {heads}")
-    post, seconds, serve_launches, peak_gib = serve_batched(device, model, num_traces, phase, observe, kernels=())
-    n_lock = r["lockstep_traces"]
-    lpost, lseconds, lock_launches, lpeak_gib, rounds = phase_interpreter_ic(
-        device, model, phase + " lockstep", r["lockstep_warm_up"], n_lock, observe=observe)
-    results = {f"{tier}_{c}": v for tier, p, n in (("batched", post, num_traces), ("lockstep", lpost, n_lock))
-               for c, v in event_ic_criteria(name, p, n, prior).items()}
-    for key in spec["checked"]:
-        check(results[key][2], f"{phase}: {key} {results[key][0]} against {results[key][1]}")
-    emit({
-        "phase": phase, "network": model._inference_network._network_type, "train": train_line,
-        "traces": num_traces, "seconds": seconds, "traces_per_s": num_traces / seconds,
-        "mean": results["batched_mean"][0], "ess_fraction": results["batched_ess"][0],
-        "prior_is_mean": np.asarray(prior.mean, dtype=np.float64).reshape(-1).tolist(),
-        "prior_is_ess_fraction": prior.effective_sample_size / num_traces,
-        "prior_is_traces_per_s": num_traces / prior_seconds,
-        "lockstep": {"traces": n_lock, "seconds": lseconds, "traces_per_s": n_lock / lseconds,
-                     "mean": results["lockstep_mean"][0], "ess_fraction": results["lockstep_ess"][0],
-                     **(rounds or {}), "peak_memory_gib": lpeak_gib},
-        "criteria": {"tolerance": spec["tol"], **{k: {"value": v[0], "limit": v[1]} for k, v in results.items()}},
-        "criteria_met": {k: v[2] for k, v in results.items()}, "checked": list(spec["checked"]),
-        "kernel3_launches": serve_launches["log_weight_stats"], "peak_memory_gib": peak_gib,
-        "launches": serve_launches,
-    })
-    return prior_launches, launches, serve_launches, lock_launches
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    launches, by_seed = {}, []
+    for i in range(seeds):
+        seed = spec["seed"] + i
+        key = phase if i == 0 else f"{phase}_seed{seed}"
+        model = event_models()[name]()
+        pp.seed(seed)
+        if i == 0:
+            prior, prior_seconds, launches[key + "_prior_is"], _ = serve_batched(
+                device, model, num_traces, phase + " prior IS", observe, kernels=(), guided=False)
+        base = None
+        if "base_traces" in spec:
+            base, launches[key + "_base"] = counted(device, lambda: model.posterior_results(
+                spec["base_traces"], observe=observe, vectorized=True))
+        launches[key + "_train"], train_line = train_phase(device, key + "_train", model,
+                                                           event_ic_train_kwargs(name, network))
+        heads = model._inference_network._head_meta
+        check([m["kind"] for m in heads.values()] == [kind], f"{phase}: heads {heads}")
+        post, launches[key + "_jax_count"] = counted(device, lambda: model.posterior_results(
+            n, observe=observe, vectorized=True, inference_engine=engine))
+        lpost, lseconds, launches[key + "_lockstep"], lpeak_gib, rounds = phase_interpreter_ic(
+            device, model, key + " lockstep", r["lockstep_warm_up"] if i == 0 else 0, n_lock, observe=observe)
+        results = {f"{tier}_{c}": v for tier, p, count in (("batched", post, n), ("lockstep", lpost, n_lock))
+                   for c, v in event_ic_criteria(name, p, count, base).items()}
+        by_seed.append({"seed": seed, "final_loss": train_line["final_loss"],
+                        **{k: {"value": v[0], "limit": v[1], "met": v[2]} for k, v in results.items()}})
+        if i > 0:
+            continue
+        big, seconds, launches[key], peak_gib = serve_batched(device, model, num_traces, phase, observe, kernels=())
+        big_mean, truth, mean_met = event_ic_criteria(name, big, num_traces, prior)["mean"]
+        check(mean_met, f"{phase}: mean {big_mean} at {num_traces} traces against {truth}")
+        first = {
+            "train": train_line, "traces": num_traces, "seconds": seconds, "traces_per_s": num_traces / seconds,
+            "mean": big_mean, "ess_fraction": big.effective_sample_size / num_traces,
+            "prior_is_mean": np.asarray(prior.mean, dtype=np.float64).reshape(-1).tolist(),
+            "prior_is_ess_fraction": prior.effective_sample_size / num_traces,
+            "prior_is_traces_per_s": num_traces / prior_seconds,
+            "lockstep": {"traces": n_lock, "seconds": lseconds, "traces_per_s": n_lock / lseconds,
+                         **(rounds or {}), "peak_memory_gib": lpeak_gib},
+            "kernel3_launches": launches[key]["log_weight_stats"], "peak_memory_gib": peak_gib,
+            "launches": launches[key],
+        }
+    met = {k: sum(line[k]["met"] for line in by_seed) for k in EVENT_IC_JAX_MET[phase]}
+    needed = {k: max(1, round(c * seeds / 8) - 4) for k, c in EVENT_IC_JAX_MET[phase].items()}
+    emit({"phase": phase, "network": network, **first, "criteria": {
+        "traces": n, "lockstep_traces": n_lock, "base_traces": spec.get("base_traces"), "tolerance": spec["tol"],
+        "seeds_met": met, "seeds_needed": needed, "jax_seeds_met_of_8": EVENT_IC_JAX_MET[phase],
+        "by_seed": by_seed}})
+    for k in met:
+        check(met[k] >= needed[k], f"{phase}: {k} met by {met[k]} of {seeds} seeds, {needed[k]} needed")
+    return launches
 
 
 def phase_conjugate_prior_is(device, phase, model, spec, num_traces=NUM_TRACES,
@@ -3567,9 +3611,7 @@ def main():
     for name, networks in (("mvn", ("FEEDFORWARD", "LSTM")), ("dirichlet", ("FEEDFORWARD", "LSTM")),
                            ("lkj", ("FEEDFORWARD",))):
         for network in networks:
-            key = f"{name}_ic_{network.lower()}"
-            (new_path[key + "_prior_is"], new_path[key + "_train"], new_path[key],
-             new_path[key + "_lockstep"]) = phase_event_ic("cuda", name, network)
+            new_path.update(phase_event_ic("cuda", name, network))
     new_path["dircat_prior_is"] = phase_conjugate_prior_is("cuda", "dircat_prior_is", dircat_model(), DIRCAT)
     new_path["mvn_conjugate_prior_is"] = phase_conjugate_prior_is(
         "cuda", "mvn_conjugate_prior_is", mvn_conjugate_model(), MVN_CONJUGATE)

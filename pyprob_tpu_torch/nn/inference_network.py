@@ -218,12 +218,7 @@ class InferenceNetwork:
             m["embedding"] = ObserveEmbedding[getattr(m["embedding"], "name", m["embedding"])]
             self._observe_meta[name] = m
         self._observe_embedding_dim = meta["observe_embedding_dim"]
-        # the JAX package keeps a head's event dimension in its parameters'
-        # metadata only
-        self._head_meta = {
-            a: {**m, "event_dim": self._params["proposal"][a]["meta"].get("event_dim")}
-            for a, m in meta["head_meta"].items()
-        }
+        self._head_meta = {a: dict(m) for a, m in meta["head_meta"].items()}
         self._head_train_iterations = {a: 0 for a in self._head_meta}
         self._layers_initialized = True
 

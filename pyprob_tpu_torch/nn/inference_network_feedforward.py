@@ -47,7 +47,7 @@ class InferenceNetworkFeedForward(InferenceNetwork):
     def __init__(self, proposal_mixture_components=10, *args, **kwargs):
         super().__init__(network_type="InferenceNetworkFeedForward", *args, **kwargs)
         self._params["proposal"] = {}
-        self._head_meta = {}  # address -> {"kind", "num_categories", "event_dim"}
+        self._head_meta = {}  # address -> {"kind", "num_categories"}
         self._proposal_mixture_components = proposal_mixture_components
 
     def _subclass_state(self):
@@ -78,13 +78,12 @@ class InferenceNetworkFeedForward(InferenceNetwork):
                 if kind is None:
                     raise RuntimeError(f"Distribution currently unsupported: {distribution.name}")
                 num_categories = distribution.num_categories if kind == "categorical" else None
-                event_dim = event_dim_for(distribution)
                 self._params["proposal"][address] = head_init(
                     g, kind, self._observe_embedding_dim, device,
                     mixture_components=self._proposal_mixture_components,
-                    num_categories=num_categories, event_dim=event_dim,
+                    num_categories=num_categories, event_dim=event_dim_for(distribution),
                 )
-                self._head_meta[address] = {"kind": kind, "num_categories": num_categories, "event_dim": event_dim}
+                self._head_meta[address] = {"kind": kind, "num_categories": num_categories}
                 self._head_train_iterations.setdefault(address, 0)
                 layers_changed = True
                 util.log_print(

@@ -158,11 +158,10 @@ class InferenceNetworkLSTM(InferenceNetwork):
                     # its sample embedding reads the one-hot value; an
                     # event-shaped site's reads the flattened value
                     num_categories = distribution.num_categories if kind == "categorical" else None
-                    event_dim = event_dim_for(distribution)
                     self._params["proposal"][address] = head_init(
                         g, kind, self._lstm_dim, device,
                         mixture_components=self._proposal_mixture_components,
-                        num_categories=num_categories, event_dim=event_dim,
+                        num_categories=num_categories, event_dim=event_dim_for(distribution),
                     )
                     value_shape = tuple(np.shape(variable.value)) or (1,)
                     self._params["sample_embedding"][address] = mlp_init(
@@ -172,7 +171,6 @@ class InferenceNetworkLSTM(InferenceNetwork):
                     self._head_meta[address] = {
                         "kind": kind,
                         "num_categories": num_categories,
-                        "event_dim": event_dim,
                         "dist_name": distribution.name,
                     }
                     self._head_train_iterations.setdefault(address, 0)

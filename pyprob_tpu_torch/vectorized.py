@@ -916,20 +916,26 @@ def vectorized_posterior(
             f"{inference_engine.name} is not ported yet; it comes with the "
             "engines slice"
         )
-    emp = vectorized_traces(
-        model,
-        num_traces,
-        TraceMode.POSTERIOR,
-        inference_engine=inference_engine,
-        map_func=map_func,
-        observe=observe,
-        file_name=file_name,
-        likelihood_importance=likelihood_importance,
-        proposal_step=proposal_step,
-        args=args,
-        kwargs=kwargs,
-        fallback=fallback,
-    )
+    try:
+        emp = vectorized_traces(
+            model,
+            num_traces,
+            TraceMode.POSTERIOR,
+            inference_engine=inference_engine,
+            map_func=map_func,
+            observe=observe,
+            file_name=file_name,
+            likelihood_importance=likelihood_importance,
+            proposal_step=proposal_step,
+            args=args,
+            kwargs=kwargs,
+            fallback=fallback,
+        )
+    finally:
+        # the network keeps its step between runs: drop the last chunk's
+        # recurrent state and values, so no run's batch outlives it
+        if proposal_step is not None:
+            proposal_step.reset(0)
     if emp is None:
         return None
     emp.rename(
