@@ -9,8 +9,10 @@ models' prior IS; for the Laplace-prior model (the StudentT-mixture head,
 batched and in lockstep) and a Beta-NegativeBinomial model under inference
 compilation, and Tobit, zero-inflated Poisson and Geometric-latent prior
 IS; for MultivariateNormal, Dirichlet and LKJCholesky latents under
-inference compilation and the conjugate vector models' prior IS; and for
-GP regression.
+inference compilation and the conjugate vector models' prior IS; for GP
+regression; and for the Empirical result surface, the built-in
+EightSchools, regression, GaussianMixture and LinearGaussianStateSpace
+families and IC on the last.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -233,7 +235,38 @@ Phases, each printing one JSON line:
     (tests/test_distributions_extra.py:115-171) at 1,000,000 traces
     batched and 2,000 on the interpreter, within 0.06 and 0.12;
     then kernels 2 and 2b against their plain versions and timed at every
-    row count phases 28-42 launched kernel 2 at.
+    row count phases 28-42 launched kernel 2 at;
+43. Empirical surface, after the GP phases (the earlier phases' draws stay
+    as they were): GUM served at 1,000,000 traces by phase 8's lstm128
+    network, its median and 0.5 quantile within 0.02 of 7.25, its 95 % HPD
+    interval's ends within 0.03 of 7.25 -+ 1.95996 sqrt(1/1.2), a resample
+    of 100,000 by its mean within 5 standard errors; BranchingCompiled's
+    1,000,000-trace prior IS by its mode against the enumerated posterior's
+    and combine_duplicates keeping the total weight within 1e-9; 10,000 GUM
+    traces through map, filter, thin and reobserve at observes (2, 2)
+    (scored on the host: no kernel launch), the reobserved mean within 0.1
+    of a direct 1,000,000-trace posterior's; the host time of each
+    statistic;
+44. built-in models' prior IS at 1,000,000 traces with the JAX tests' data
+    and limits (tests/test_models_builtin.py:158-345): EightSchools' mu and
+    tau means in (3.2, 5.6) and (2.2, 5.2); BayesianLinearRegression within
+    0.12 of the conjugate mean; BayesianLogisticRegression's mean and
+    stddev within 0.5 grid stddevs; GaussianMixture (K = 2, 40 data, fixed
+    and Dirichlet weights) by mu0's stddev within 0.35 of the grid's,
+    relative, and its mass below 0 within 0.5 -+ 0.1, its observe on
+    kernel 1 once a chunk at the chunk's particles times 40 rows;
+    LinearGaussianStateSpace's mean path within max(0.06, 5 sd_t /
+    sqrt(ESS)) of the RTS smoother; traces/s, ESS fractions, peak memory;
+45. kernel 1 at GaussianMixture's observe shape, 2^18 x 40 rows and K = 2,
+    with shared and per-particle logits, against its plain version within
+    1e-5 (1 + |ref|), timed beside its bound and the launch floor;
+46. LinearGaussianStateSpace IC with the feedforward network (nine Normal
+    heads: kernels 1 and 1b in training, kernel 1 at 2^18 rows serving):
+    25,600 traces at batch 256, lr 0.005, served at 1,000,000 traces, the
+    mean path against the RTS smoother and the ESS fraction against prior
+    IS's at 1,000,000, each enforced where the port met it on all eight
+    CPU seeds of tests/event_ic_reference.py (LGSS_IC_CPU_MET), printed
+    otherwise.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -477,6 +510,48 @@ CONJUGATE_INTERPRETER_TRACES = 2000
 EVENT_DRAW_COUNT = 1_000_000
 
 PANEL = 32  # kernels 5/6's panel width (pyprob_tpu_torch/ops/csrc/mvn_quad_logdet.cu)
+
+# the Empirical slice.  GUM's posterior at the bench's observes, served at
+# 10^6 traces by the bench's first arm trained above (its ESS fraction near
+# 0.9 puts the median's standard error near 0.001: prior IS's, 0.008 of
+# 10^6, would put it near 0.013), held to N(7.25, sqrt(1/1.2)): the median
+# and the 0.5 quantile within 0.02, the 95 % HPD interval's ends within 0.03
+# of 7.25 -+ 1.95996 sd, a resample of 10^5 by its mean within 5 standard
+# errors; BranchingCompiled's 10^6-trace prior IS by its mode against the
+# enumerated posterior's (r = 5 at 0.338, r = 6 at 0.225) and
+# combine_duplicates keeping the total weight (log-sum-exp within 1e-9);
+# 10^4 GUM traces through map, filter, thin and reobserve at new observes,
+# the reobserved mean within 0.1 of a direct 10^6-trace posterior's there
+EMPIRICAL = {"traces": 1_000_000, "resample": 100_000, "median_tol": 0.02, "hpd_mass": 0.95, "hpd_tol": 0.03,
+             "z_975": 1.95996, "trace_count": 10_000, "thin": 1000, "reobserve": {"obs0": 2.0, "obs1": 2.0},
+             "reobserve_tol": 0.1, "combine_tol": 1e-9, "seed": 16}
+# the five built-in families' prior IS at 10^6 traces on the batched tier,
+# with the JAX tests' data and limits (tests/test_models_builtin.py:158-345):
+# EightSchools' mu and tau means inside (3.2, 5.6) and (2.2, 5.2); the
+# linear regression within 0.12 of the conjugate mean; the logistic
+# regression's mean and stddev within 0.5 grid stddevs; GaussianMixture's
+# mu0 stddev within 0.35 of the grid's, relative, and the label-switching
+# share of mass with mu0 < 0 within 0.5 -+ 0.1 (fixed and Dirichlet
+# weights); the state-space model's mean path within max(0.06, 5 sd_t /
+# sqrt(ESS)) of the RTS smoother at every step
+BUILTIN = {"eight_schools_bands": ((3.2, 5.6), (2.2, 5.2)), "linear_tol": 0.12, "logistic_tol": 0.5,
+           "mixture_std_tol": 0.35, "mixture_share_tol": 0.1, "state_space_tol": 0.06, "seed": 17,
+           "mixture_data": 40}
+# GaussianMixture's observe as kernel 1 scores it: a chunk of 2^18 particles
+# by 40 data, K = 2
+GMM_ROWS, GMM_COMPONENTS = (1 << 18) * BUILTIN["mixture_data"], 2
+# IC on LinearGaussianStateSpace (T = 8, a = 0.9, y from synthesize(rng=0))
+# with the feedforward network (nine Normal heads: kernels 1 and 1b in
+# training, kernel 1 at 2^18 rows serving): 25,600 traces at batch 256, lr
+# 0.005, a 16-d embedding an observe; served at 10^6 traces, the mean path
+# within max(0.06, 5 sd_t / sqrt(ESS)) of the RTS smoother and the ESS
+# fraction above prior IS's at 10^6.  A criterion is enforced only when the
+# port met it on all eight CPU seeds of ``python tests/event_ic_reference.py
+# --paths lgss_ff --seeds 8`` (seeds met of 8: the JAX package's, the port's);
+# any other is printed with its outcome
+LGSS_IC = {"num_steps": 8, "a": 0.9, "train_traces": 25_600, "batch_size": 256, "learning_rate": 0.005,
+           "observe_dim": 16, "tol": 0.06, "seed": 0}
+LGSS_IC_CPU_MET = {"mean_path": (8, 8), "ess_over_prior": (8, 8)}
 
 # Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -3526,6 +3601,295 @@ def phase_gp_card_vs_cpu(device, N=256, n=256):
     return launches
 
 
+def host_timed(fn):
+    """(fn(), seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def log_sum_exp(lw):
+    lw = np.asarray(lw, dtype=np.float64)
+    m = lw.max()
+    return float(m + np.log(np.exp(lw - m).sum()))
+
+
+def phase_empirical_surface(device, model, num_traces=EMPIRICAL["traces"]):
+    """Empirical's result surface on posteriors the card served (EMPIRICAL):
+    GUM guided by ``model`` at 10^6 traces, its statistics held to the
+    analytic posterior and timed on the host; BranchingCompiled's mode and
+    combine_duplicates at 10^6; 10^4 GUM traces through map, filter, thin
+    and reobserve (scored on the host: no kernel launch)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import Branching, BranchingCompiled, GaussianUnknownMean
+
+    spec = EMPIRICAL
+    pp.seed(spec["seed"])
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, "empirical_surface")
+    n = post.length
+    stats, host_s = {}, {}
+    for name, fn in (
+        ("mean", lambda: post.mean), ("variance", lambda: post.variance), ("skewness", lambda: post.skewness),
+        ("kurtosis", lambda: post.kurtosis), ("median", lambda: post.median),
+        ("quantiles", lambda: post.quantile([0.025, 0.5, 0.975])), ("hpd_interval", lambda: post.hpd_interval(0.95)),
+        ("min", lambda: post.min), ("max", lambda: post.max), ("mode", lambda: post.mode),
+        ("combine_duplicates", lambda: post.combine_duplicates().length),
+        ("resample", lambda: post.resample(spec["resample"])), ("thin", lambda: post.thin(1000).length),
+        ("arg_max", lambda: post.arg_max(float)),
+    ):
+        stats[name], host_s[name] = host_timed(fn)
+    sd = POSTERIOR_STDDEV
+    median, q50 = float(stats["median"]), float(stats["quantiles"][1])
+    check(abs(median - POSTERIOR_MEAN) <= spec["median_tol"], f"empirical_surface: median {median}")
+    check(abs(q50 - POSTERIOR_MEAN) <= spec["median_tol"], f"empirical_surface: quantile(0.5) {q50}")
+    check(post.quantile(0.5) == q50, "empirical_surface: quantile(0.5) differs from quantile([..., 0.5, ...])")
+    lo, hi = stats["hpd_interval"]
+    want = (POSTERIOR_MEAN - spec["z_975"] * sd, POSTERIOR_MEAN + spec["z_975"] * sd)
+    check(abs(lo - want[0]) <= spec["hpd_tol"] and abs(hi - want[1]) <= spec["hpd_tol"],
+          f"empirical_surface: 95% HPD ({lo}, {hi}) against {want}")
+    r = stats.pop("resample")
+    r_mean, r_se = float(r.mean), float(post.stddev) / math.sqrt(spec["resample"])
+    check(r.length == spec["resample"] and abs(r_mean - float(post.mean)) <= 5 * r_se,
+          f"empirical_surface: resample mean {r_mean} against {float(post.mean)} (SE {r_se})")
+    # BranchingCompiled: a mode over 17 values, against the enumeration
+    truth = Branching().true_posterior(6)
+    bpost, b_seconds, b_launches, _ = serve_batched(device, BranchingCompiled(), num_traces, "empirical Branching",
+                                                    BRANCHING["observe"], kernels=(), guided=False)
+    (b_mode, host_s["branching_mode"]) = host_timed(lambda: bpost.mode)
+    combined, host_s["branching_combine_duplicates"] = host_timed(bpost.combine_duplicates)
+    total_err = abs(log_sum_exp(combined.log_weights) - log_sum_exp(bpost.log_weights))
+    check(float(b_mode) == float(truth.mode), f"empirical_surface: Branching mode {b_mode}, enumerated {truth.mode}")
+    check(total_err <= spec["combine_tol"], f"empirical_surface: combine_duplicates moved the total weight {total_err}")
+    check(abs(float(combined.mean) - float(bpost.mean)) <= 1e-9, "empirical_surface: combined mean moved")
+    # traces: map, filter, thin, reobserve on the host
+    gum = GaussianUnknownMean()
+    traces, t_seconds = host_timed(lambda: gum.posterior(spec["trace_count"], observe=OBSERVE, vectorized=True))
+    mapped, host_s["traces_map"] = host_timed(lambda: traces.map(lambda t: float(t.result)))
+    check(mapped.values_numpy().tolist() == [float(t.result) for t in traces.get_values()], "map: values")
+    upper, host_s["traces_filter"] = host_timed(lambda: traces.filter(lambda t: float(t.result) > POSTERIOR_MEAN))
+    check(all(float(t.result) > POSTERIOR_MEAN for t in upper.get_values()), "filter: a value below the cut")
+    thinned = traces.thin(spec["thin"])
+    check(thinned.length == spec["thin"], f"thin: {thinned.length} traces")
+    reset_launch_counts()
+    reobserved, host_s["traces_reobserve"] = host_timed(lambda: traces.reobserve(observe=spec["reobserve"]))
+    reobserve_launches = {k: v for k, v in launch_counts().items() if v}
+    check(not reobserve_launches, f"reobserve launched kernels: {reobserve_launches}")
+    re_mean = float(reobserved.map(lambda t: float(t.result)).mean)
+    direct = gum.posterior_results(num_traces, observe=spec["reobserve"], vectorized=True)
+    check(abs(re_mean - float(direct.mean)) <= spec["reobserve_tol"],
+          f"reobserve: mean {re_mean} against the direct posterior's {float(direct.mean)}")
+    emit({
+        "phase": "empirical_surface", "traces": n, "serving_seconds": seconds, "ess_fraction": post.effective_sample_size / n,
+        "median": median, "quantiles": [float(q) for q in stats["quantiles"]], "hpd_interval": [lo, hi],
+        "hpd_truth": list(want), "mean": float(stats["mean"]), "stddev": float(np.sqrt(stats["variance"])),
+        "skewness": float(stats["skewness"]), "kurtosis": float(stats["kurtosis"]), "mode": float(stats["mode"]),
+        "distinct_values": stats["combine_duplicates"], "resample_mean": r_mean, "resample_se": r_se,
+        "branching": {"mode": float(b_mode), "enumerated_mode": float(truth.mode), "distinct_values": combined.length,
+                      "total_log_weight_err": total_err, "ess_fraction": bpost.effective_sample_size / bpost.length},
+        "traces_run": {"traces": traces.length, "seconds": t_seconds, "filtered": upper.length,
+                       "filtered_weight": float(traces.weights[[float(t.result) > POSTERIOR_MEAN
+                                                                for t in traces.get_values()]].sum()),
+                       "reobserved_mean": re_mean, "direct_mean": float(direct.mean),
+                       "analytic_mean": GaussianUnknownMean().true_posterior(list(spec["reobserve"].values()))[0]},
+        "host_seconds": host_s, "peak_memory_gib": peak_gib, "launches": launches,
+    })
+    return launches, b_launches
+
+
+def builtin_models():
+    """name: (model, observe, what to hold it to) for BUILTIN's prior IS."""
+    from pyprob_tpu_torch.models import (
+        BayesianLinearRegression, BayesianLogisticRegression, EightSchools, GaussianMixture,
+        LinearGaussianStateSpace,
+    )
+
+    blr = BayesianLinearRegression(np.random.default_rng(0).normal(size=(40, 2)))
+    y_blr = blr.synthesize([1.5, -0.7], rng=1)
+    logr = BayesianLogisticRegression(np.random.default_rng(4).normal(size=(60, 1)))
+    y_logr = logr.synthesize([1.2], rng=2)
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D)
+    y_gm = gm.synthesize([-2.0, 2.0], rng=0)
+    gm_truth = gm.true_posterior_moments(y_gm)
+    lgss = LinearGaussianStateSpace(num_steps=LGSS_IC["num_steps"], a=LGSS_IC["a"])
+    ys = lgss.synthesize(rng=0)[1]
+    es = EightSchools()
+    return {
+        "eight_schools": (es, es.observes(), ("bands", BUILTIN["eight_schools_bands"])),
+        "linear_regression": (blr, {"y": y_blr}, ("conjugate", blr.true_posterior(y_blr))),
+        "logistic_regression": (logr, {"y": y_logr}, ("grid", logr.true_posterior_moments(y_logr))),
+        "gaussian_mixture": (gm, {"y": y_gm}, ("mixture", gm_truth)),
+        "gaussian_mixture_weights": (
+            GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D, learn_weights=True), {"y": y_gm},
+            ("mixture", gm_truth)),
+        "state_space": (lgss, lgss.observes(ys), ("smoother", lgss.kalman_smoother(ys))),
+    }
+
+
+def judge_builtin(name, post, truth):
+    """The checks of BUILTIN for one family's posterior: a dict of what was
+    measured, each check raising when it fails."""
+    kind, ref = truth
+    mean, std = np.asarray(post.mean, np.float64), np.asarray(post.stddev, np.float64)
+    ess = post.effective_sample_size
+    out = {"mean": mean.tolist(), "stddev": std.tolist()}
+    if kind == "bands":
+        (mu_lo, mu_hi), (tau_lo, tau_hi) = ref
+        check(mu_lo < mean[0] < mu_hi and tau_lo < mean[1] < tau_hi, f"{name}: mean {mean}")
+        out["bands"] = ref
+    elif kind == "conjugate":
+        t_mean, cov = ref
+        err = float(np.abs(mean - t_mean).max())
+        check(err < BUILTIN["linear_tol"], f"{name}: mean {mean} against {t_mean}")
+        out.update(truth=t_mean.tolist(), max_err=err, five_se=(5 * np.sqrt(np.diag(cov) / ess)).tolist())
+    elif kind == "grid":
+        t_mean, t_std = ref
+        tol = BUILTIN["logistic_tol"] * t_std
+        check(bool((np.abs(mean - t_mean) < tol).all() and (np.abs(std - t_std) < tol).all()),
+              f"{name}: mean {mean}, stddev {std} against {t_mean}, {t_std}")
+        out.update(truth=[t_mean.tolist(), t_std.tolist()], tolerance=tol.tolist(),
+                   five_se=(5 * t_std / math.sqrt(ess)).tolist())
+    elif kind == "mixture":
+        _, t_std = ref
+        share = float(post.weights[post.values_numpy()[:, 0] < 0].sum())
+        std_err = abs(std[0] - t_std[0])
+        check(std_err < BUILTIN["mixture_std_tol"] * t_std[0], f"{name}: mu0 stddev {std[0]} against {t_std[0]}")
+        check(abs(share - 0.5) <= BUILTIN["mixture_share_tol"], f"{name}: share with mu0 < 0 {share}")
+        out.update(grid_stddev=t_std.tolist(), mu0_share_below_0=share,
+                   share_five_se=5 * math.sqrt(share * (1 - share) / ess))
+    else:
+        sm, sv = ref
+        tol = np.maximum(BUILTIN["state_space_tol"], 5 * np.sqrt(sv / ess))
+        err = np.abs(mean - sm)
+        check(mean.shape == sm.shape and bool((err <= tol).all()), f"{name}: mean path off by {err} (limits {tol})")
+        out.update(smoother=sm.tolist(), max_err=float(err.max()), tolerance=tol.tolist())
+    return out
+
+
+def phase_builtin_models_is(device, num_traces=NUM_TRACES):
+    """Prior IS of the five built-in families (BUILTIN) at ``num_traces`` on
+    the batched tier: each held to its JAX test's limits, with its traces/s,
+    ESS fraction and peak memory (< 10 GiB); GaussianMixture's observe runs
+    kernel 1 once a chunk, on the chunk's particles times its 40 data.
+    Returns the launches by model."""
+    import pyprob_tpu_torch as pp
+
+    pp.seed(BUILTIN["seed"])
+    launches, lines = {}, {}
+    for name, (model, observe, truth) in builtin_models().items():
+        mixture = name.startswith("gaussian_mixture")
+        post, seconds, counts, peak_gib = serve_batched(
+            device, model, num_traces, name, observe, kernels=("mixture_normal_log_prob",) if mixture else (),
+            guided=False)
+        if mixture and device == "cuda":
+            rows = counts["mixture_normal_log_prob_by_rows"]
+            chunks = -(-num_traces // (1 << 18))
+            check(counts["mixture_normal_log_prob"] == chunks and sum(r * c for r, c in rows.items())
+                  == num_traces * BUILTIN["mixture_data"], f"{name}: kernel 1's rows {rows}")
+        launches[f"builtin_{name}"] = counts
+        lines[name] = {"traces_per_s": num_traces / seconds, "seconds": seconds,
+                       "ess_fraction": post.effective_sample_size / post.length, "peak_memory_gib": peak_gib,
+                       **judge_builtin(name, post, truth), "launches": counts}
+    emit({"phase": "builtin_models_is", "traces": num_traces, "models": lines})
+    return launches
+
+
+def gmm_inputs(particles, data, components, per_particle, device, seed=0):
+    """Kernel 1's inputs as GaussianMixture's observe gives them: a particle's
+    means and (shared or per-particle) logits repeated over its data, the
+    data repeated over the particles, stddev 0.6."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    mus = 3.0 * torch.randn((particles, components), generator=g, device=device)
+    if per_particle:
+        w = torch._standard_gamma(torch.full((particles, components), 2.0, device=device), generator=g)
+        logits = torch.log(w / w.sum(-1, keepdim=True))
+    else:
+        logits = torch.full((particles, components), -math.log(components), device=device)
+    y = 2.5 * torch.randn((data,), generator=g, device=device)
+    rows = particles * data
+    return [
+        y.repeat(particles).contiguous(),
+        mus.unsqueeze(1).expand(particles, data, components).reshape(rows, components).contiguous(),
+        torch.full((rows, components), 0.6, device=device),
+        logits.unsqueeze(1).expand(particles, data, components).reshape(rows, components).contiguous(),
+    ]
+
+
+def phase_gmm_kernel_shapes(floor_ms):
+    """Kernel 1 at GaussianMixture's observe shape (GMM_ROWS rows, K = 2),
+    shared and per-particle logits: against its plain version within
+    1e-5 (1 + |ref|) (a prior draw's log-density reaches a few hundred,
+    where a float32 ulp is 3e-5), timed beside its bound and the launch
+    floor."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    particles, data = GMM_ROWS // BUILTIN["mixture_data"], BUILTIN["mixture_data"]
+    for per_particle in (False, True):
+        inputs = gmm_inputs(particles, data, GMM_COMPONENTS, per_particle, "cuda", seed=int(per_particle))
+        out, ref = K.mixture_normal_log_prob(*inputs), K.mixture_normal_log_prob_plain(*inputs)
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(ref).all()), "gmm shape: non-finite output")
+        err = float((out - ref).abs().max())
+        excess = float(((out - ref).abs() - 1e-5 * (1 + ref.abs())).max())
+        check(excess <= 0, f"kernel 1 at the GaussianMixture shape: max abs err {err}, over 1e-5 (1 + |ref|) by {excess}")
+        emit_shape("mixture_normal_log_prob", lambda: K.mixture_normal_log_prob(*inputs),
+                   lambda: K.mixture_normal_log_prob_plain(*inputs), *mixture_cost(GMM_ROWS, GMM_COMPONENTS),
+                   [GMM_ROWS, GMM_COMPONENTS], err, iters=20, path="GaussianMixture observe",
+                   logits="per particle" if per_particle else "shared", launch_floor_ms=floor_ms)
+        del inputs, out, ref
+
+
+def phase_lgss_ic(device, num_traces=NUM_TRACES):
+    """IC on LinearGaussianStateSpace with the feedforward network
+    (LGSS_IC): trained, then served at ``num_traces`` beside prior IS at
+    ``num_traces``; the mean path against the RTS smoother and the ESS
+    fraction against prior IS's, each enforced only where
+    LGSS_IC_CPU_MET says the port met it on all eight CPU seeds.  Returns
+    the launches of training and serving."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import LinearGaussianStateSpace
+
+    spec = LGSS_IC
+    model = LinearGaussianStateSpace(num_steps=spec["num_steps"], a=spec["a"])
+    ys = model.synthesize(rng=0)[1]
+    observe = model.observes(ys)
+    sm, sv = model.kalman_smoother(ys)
+    pp.seed(spec["seed"])
+    kwargs = dict(num_traces=spec["train_traces"], inference_network=pp.InferenceNetwork.FEEDFORWARD,
+                  observe_embeddings={k: {"dim": spec["observe_dim"]} for k in observe},
+                  batch_size=spec["batch_size"], learning_rate_init=spec["learning_rate"])
+    train_launches, train_line = train_phase(device, "lgss_ic_feedforward_train", model, kwargs)
+    heads = model._inference_network._head_meta
+    check(len(heads) == spec["num_steps"] + 1 and all(m["kind"] == "normal_mixture" for m in heads.values()),
+          f"lgss_ic_feedforward: heads {heads}")
+    if device == "cuda":
+        for name in KERNEL_NAMES[:2]:
+            check(train_launches[name] >= 1, f"lgss_ic_feedforward training did not launch {name}")
+    post, seconds, launches, peak_gib = serve_batched(device, model, num_traces, "lgss_ic_feedforward", observe)
+    prior, prior_seconds, _, _ = serve_batched(device, model, num_traces, "lgss_ic_feedforward prior IS", observe,
+                                               kernels=(), guided=False)
+    mean = np.asarray(post.mean, np.float64)
+    ess, prior_ess = post.effective_sample_size / num_traces, prior.effective_sample_size / num_traces
+    tol = np.maximum(spec["tol"], 5 * np.sqrt(sv / post.effective_sample_size))
+    met = {"mean_path": bool((np.abs(mean - sm) <= tol).all()), "ess_over_prior": ess > prior_ess}
+    enforced = {k: LGSS_IC_CPU_MET[k][1] == 8 for k in met}
+    emit({
+        "phase": "lgss_ic_feedforward", "train": train_line, "traces": num_traces, "seconds": seconds,
+        "traces_per_s": num_traces / seconds, "mean": mean.tolist(), "smoother": sm.tolist(),
+        "max_err": float(np.abs(mean - sm).max()), "tolerance": tol.tolist(), "ess_fraction": ess,
+        "prior_is_ess_fraction": prior_ess, "prior_is_traces_per_s": num_traces / prior_seconds,
+        "prior_is_max_err": float(np.abs(np.asarray(prior.mean, np.float64) - sm).max()),
+        "criteria_met": met, "enforced": enforced, "cpu_seeds_met_of_8_jax_port": LGSS_IC_CPU_MET,
+        "peak_memory_gib": peak_gib, "launches": launches,
+    })
+    for k, ok in met.items():
+        check(ok or not enforced[k], f"lgss_ic_feedforward: {k} missed")
+    return train_launches, launches
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -3621,6 +3985,14 @@ def main():
         path[f"gp_is_{N}x{num_traces}"] = phase_gp_is("cuda", N, num_traces)
     path[f"gp_is_{GP_LARGE[0]}x{GP_LARGE[1]}"] = phase_gp_is("cuda", *GP_LARGE, warm_up=False)
     path["gp_card_vs_cpu"] = phase_gp_card_vs_cpu("cuda")
+    # the Empirical slice, after every earlier phase (whose draws it leaves
+    # as they were): the result surface on served posteriors, the five
+    # built-in families' prior IS (GaussianMixture's observe on kernel 1),
+    # kernel 1 at that shape, IC on the state-space model
+    path["empirical_surface"], path["empirical_branching"] = phase_empirical_surface("cuda", trained_arms[128])
+    path.update(phase_builtin_models_is("cuda"))
+    phase_gmm_kernel_shapes(floor_ms)
+    path["lgss_ic_feedforward_train"], path["lgss_ic_feedforward"] = phase_lgss_ic("cuda")
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

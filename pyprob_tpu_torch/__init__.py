@@ -14,11 +14,14 @@ host, lockstep guided IS) for models that branch on sampled values,
 trained through the gather-table loss; and prior IS of GP regression
 (``models.GaussianProcessRegression``), whose MultivariateNormal factors
 one kernel matrix per particle by a panel Cholesky.  Its distributions
-(``pyprob_tpu_torch.distributions``) are the JAX package's scalar ones,
-the heavy-tailed family (StudentT, Laplace, Cauchy, Logistic, Gumbel,
-proposed by a StudentT-mixture head), Geometric, NegativeBinomial, the
-Censored and ZeroInflated observation wrappers, and MultivariateNormal;
-the other event-shaped ones come with a later slice.  The mixture-of-Normals
+(``pyprob_tpu_torch.distributions``) are every distribution of the JAX
+package, the event-shaped MultivariateNormal, Dirichlet, Multinomial and
+LKJCholesky among them, and its results are ``Empirical``s with the JAX
+package's memory-mode surface (transforms, ``reobserve``, mode, median,
+quantiles, HPD intervals, density estimates).  Its model zoo
+(``pyprob_tpu_torch.models``) adds EightSchools, the Bayesian linear and
+logistic regressions, GaussianMixture and LinearGaussianStateSpace to the
+GUM, Marsaglia, HMM, Branching and GP families.  The mixture-of-Normals
 and mixture-of-truncated-Normals log-densities (forward and backward), the
 log-weight statistics, the panel Cholesky's diagonal-tile factor and
 inverse, and the fused MVN quadratic form and log-determinant

@@ -4,7 +4,8 @@ positive-support family, Beta, VonMises, TruncatedNormal, the heavy-tailed
 family (StudentT, Laplace, Cauchy, Logistic, Gumbel), Geometric,
 NegativeBinomial, the Censored and ZeroInflated observation wrappers, the
 event-shaped MultivariateNormal, Dirichlet, Multinomial, LKJCholesky and
-LKJCholeskyCPCNormal, Mixture, Factor and Empirical.
+LKJCholeskyCPCNormal, Mixture, Factor, and Empirical (memory mode) with
+EmpiricalType.
 """
 
 from .distribution import Distribution
@@ -41,7 +42,7 @@ from .censored import Censored
 from .zero_inflated import ZeroInflated
 from .mixture import Mixture
 from .factor import Factor
-from .empirical import Empirical
+from .empirical import Empirical, EmpiricalType
 
 __all__ = [
     "Distribution",
@@ -80,4 +81,5 @@ __all__ = [
     "Mixture",
     "Factor",
     "Empirical",
+    "EmpiricalType",
 ]

@@ -2,11 +2,15 @@
 ``pyprob_tpu/distributions/mixture.py``).
 
 ``log_prob`` is the logsumexp over component log-densities plus mixing
-logits.  Two homogeneous families with a 1-D batch go through hand-written
-kernels (``_fused_log_prob``), where the JAX package calls its Pallas
-kernels: all-Normal mixtures through ``ops.kernels.mixture_normal_log_prob``
-and all-TruncatedNormal mixtures whose components share one ``low`` and
-one ``high`` through ``ops.kernels.mixture_truncated_normal_log_prob``.
+logits.  Two homogeneous families go through hand-written kernels
+(``_fused_log_prob``), where the JAX package calls its Pallas kernels:
+all-Normal mixtures through ``ops.kernels.mixture_normal_log_prob`` and
+all-TruncatedNormal mixtures whose components share one ``low`` and one
+``high`` through ``ops.kernels.mixture_truncated_normal_log_prob``.  They
+take a 1-D batch scored at one value a row (the proposal heads), and a
+value whose broadcast with the batches has two dims or more (a data vector
+observed per particle, ``[N, D]``): its parameters are expanded to
+``[N, D, K]`` and scored as ``N·D`` rows.
 Both are differentiable, their gradients kernels too on CUDA, and reach
 the means, the stddevs and the mixing logits through the ``.contiguous()``
 and ``.expand()`` views that feed them (the training loss).  Mixtures of
@@ -113,38 +117,45 @@ class Mixture(Distribution):
     def probs(self):
         return self._mixing.probs
 
-    def _stacked_normal_params(self):
-        """``[B, K]`` (means, stddevs) when every component is a Normal and
-        the batch is 1-D, else None."""
-        if self._normal_params is not None:
+    def _stacked_normal_params(self, shape=None):
+        """``[*shape, K]`` (means, stddevs) when every component is a Normal
+        (``shape`` defaults to the mixture's batch, which must then be
+        1-D), else None."""
+        if self._normal_params is not None and shape in (None, self._batch_shape):
             return self._normal_params
-        if len(self._batch_shape) != 1 or not all(
-            isinstance(d, Normal) for d in self._distributions
-        ):
+        comps = self._distributions
+        if not all(isinstance(d, Normal) for d in comps):
             return None
-        B = self._batch_shape[0]
-        means = torch.stack([d.loc.expand(B) for d in self._distributions], -1)
-        stddevs = torch.stack([d.scale.expand(B) for d in self._distributions], -1)
+        if shape is None:
+            if len(self._batch_shape) != 1:
+                return None
+            shape = self._batch_shape
+        means = torch.stack([d.loc.expand(shape) for d in comps], -1)
+        stddevs = torch.stack([d.scale.expand(shape) for d in comps], -1)
         return means, stddevs
 
-    def _stacked_tnorm_params(self):
-        """``[B, K]`` (means, stddevs) and ``[B]`` (low, high) when every
-        component is a TruncatedNormal on the same bounds (the same tensors,
-        as the JAX package checks) and the batch is 1-D, else None."""
-        if self._tnorm_params is not None:
+    def _stacked_tnorm_params(self, shape=None):
+        """``[*shape, K]`` (means, stddevs) and ``[*shape]`` (low, high)
+        when every component is a TruncatedNormal on the same bounds (the
+        same tensors, as the JAX package checks; ``shape`` as for
+        ``_stacked_normal_params``), else None."""
+        if self._tnorm_params is not None and shape in (None, self._batch_shape):
             return self._tnorm_params
         comps = self._distributions
-        if len(self._batch_shape) != 1 or not all(
+        if not all(
             isinstance(d, TruncatedNormal)
             and d.low is comps[0].low
             and d.high is comps[0].high
             for d in comps
         ):
             return None
-        B = self._batch_shape[0]
-        means = torch.stack([d.mean_non_truncated.expand(B) for d in comps], -1)
-        stddevs = torch.stack([d.stddev_non_truncated.expand(B) for d in comps], -1)
-        return means, stddevs, comps[0].low.expand(B), comps[0].high.expand(B)
+        if shape is None:
+            if len(self._batch_shape) != 1:
+                return None
+            shape = self._batch_shape
+        means = torch.stack([d.mean_non_truncated.expand(shape) for d in comps], -1)
+        stddevs = torch.stack([d.stddev_non_truncated.expand(shape) for d in comps], -1)
+        return means, stddevs, comps[0].low.expand(shape), comps[0].high.expand(shape)
 
     def _stacked_studentt_params(self):
         """``[B, K]`` (dfs, means, scales) when every component is a StudentT
@@ -173,34 +184,57 @@ class Mixture(Distribution):
         lp = torch.logsumexp(comp + self._mixing.logits, dim=-1)
         return lp.sum() if sum else lp
 
+    def _fused_shape(self, value):
+        """The shape of the rows the kernels score at ``value``, or None: the
+        1-D batch when the value has that shape (the proposal heads), else
+        the broadcast of the value with the components' and the mixing
+        batches when it has two dims or more (an observe of a data vector
+        per particle, ``[N, D]``, which the JAX package scores per particle
+        under ``vmap``)."""
+        if value.dim() == 1 and self._batch_shape == tuple(value.shape):
+            return self._batch_shape
+        try:
+            shape = torch.broadcast_shapes(
+                value.shape, self._mixing.batch_shape, *[d.batch_shape for d in self._distributions]
+            )
+        except RuntimeError:
+            return None
+        return tuple(shape) if len(shape) >= 2 else None
+
     def _fused_log_prob(self, value):
         """The kernel path for all-Normal and shared-bounds all-TruncatedNormal
-        mixtures with a 1-D batch scored at one value per row; None when
-        the shapes don't fit."""
-        if value.dim() != 1 or self._batch_shape != tuple(value.shape):
+        mixtures scored at one value a row (``_fused_shape``): the rows are
+        flattened to ``[R, K]`` for the kernel and its ``[R]`` output takes
+        their shape again; None when the shapes don't fit."""
+        shape = self._fused_shape(value)
+        if shape is None:
             return None
-        params = self._stacked_normal_params()
+        params = self._stacked_normal_params(shape)
         if params is not None:
             means, stddevs = params
+            rows = means.shape[:-1]
+            K = means.shape[-1]
             logits = self._mixing.logits.expand(means.shape)
             return kernels.mixture_normal_log_prob(
-                value.contiguous(),
-                means.contiguous(),
-                stddevs.contiguous(),
-                logits.contiguous(),
-            )
-        params = self._stacked_tnorm_params()
+                value.expand(rows).reshape(-1).contiguous(),
+                means.reshape(-1, K).contiguous(),
+                stddevs.reshape(-1, K).contiguous(),
+                logits.reshape(-1, K).contiguous(),
+            ).reshape(rows)
+        params = self._stacked_tnorm_params(shape)
         if params is not None:
             means, stddevs, low, high = params
+            rows = means.shape[:-1]
+            K = means.shape[-1]
             logits = self._mixing.logits.expand(means.shape)
             return kernels.mixture_truncated_normal_log_prob(
-                value.contiguous(),
-                means.contiguous(),
-                stddevs.contiguous(),
-                logits.contiguous(),
-                low.contiguous(),
-                high.contiguous(),
-            )
+                value.expand(rows).reshape(-1).contiguous(),
+                means.reshape(-1, K).contiguous(),
+                stddevs.reshape(-1, K).contiguous(),
+                logits.reshape(-1, K).contiguous(),
+                low.reshape(-1).contiguous(),
+                high.reshape(-1).contiguous(),
+            ).reshape(rows)
         return None
 
     def _row_components(self, generator):

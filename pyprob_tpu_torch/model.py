@@ -14,9 +14,10 @@ class with ``_never_vectorize = True`` runs on the interpreter tier with
 interpreter tier runs lockstep by default (``interpreter_lockstep.py``).
 It trains a feedforward (the default) or an LSTM inference network online
 (``learn_inference_network``), and keeps it in a file
-(``save_inference_network``, ``load_inference_network``).  MCMC and the
-other engines and offline datasets come with later slices and raise
-``NotImplementedError``.
+(``save_inference_network``, ``load_inference_network``).  ``sample``
+draws one interpreter-tier trace (``get_trace`` is its deprecated name).
+MCMC and the other engines and offline datasets come with later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ import time
 import warnings
 
 import numpy as np
-import torch
 
 from . import state, util
 from .distributions import Empirical
+from .distributions.empirical import values_of
 from .util import (
     InferenceEngine,
     InferenceNetwork,
@@ -50,11 +51,9 @@ def trace_id(trace):
 def empirical_of(values, log_weights):
     """An Empirical of the kept traces' mapped values: one numpy array when
     every value is a number or a tensor of one shape, else the list."""
-    numeric = (float, int, np.ndarray, np.generic, torch.Tensor)
-    if values and all(isinstance(v, numeric) for v in values):
-        arrays = [np.asarray(v) for v in values]
-        if len({a.shape for a in arrays}) == 1:
-            return Empirical.from_arrays(np.stack(arrays), log_weights)
+    values = values_of(values)
+    if isinstance(values, np.ndarray):
+        return Empirical.from_arrays(values, log_weights)
     return Empirical(values=values, log_weights=log_weights)
 
 
@@ -151,6 +150,15 @@ class Model:
                 f"ESS {emp.effective_sample_size:,.1f}"
             )
         return emp
+
+    def sample(self, *args, **kwargs):
+        """One interpreter-tier trace (from the prior by default; the
+        ``_trace_generator`` arguments select another mode)."""
+        return next(self._trace_generator(*args, **kwargs))
+
+    def get_trace(self, *args, **kwargs):
+        warnings.warn("Model.get_trace is deprecated. Use Model.sample instead.")
+        return self.sample(*args, **kwargs)
 
     # ------------------------------------------------------------------
     # prior

@@ -1,19 +1,29 @@
 from .models import (
+    BayesianLinearRegression,
+    BayesianLogisticRegression,
     Branching,
     BranchingCompiled,
+    EightSchools,
+    GaussianMixture,
     GaussianProcessRegression,
     GaussianUnknownMean,
     GaussianUnknownMeanMarsaglia,
     GaussianUnknownMeanMarsagliaRejection,
     HiddenMarkovModel,
+    LinearGaussianStateSpace,
 )
 
 __all__ = [
+    "BayesianLinearRegression",
+    "BayesianLogisticRegression",
     "Branching",
     "BranchingCompiled",
+    "EightSchools",
+    "GaussianMixture",
     "GaussianProcessRegression",
     "GaussianUnknownMean",
     "GaussianUnknownMeanMarsaglia",
     "GaussianUnknownMeanMarsagliaRejection",
     "HiddenMarkovModel",
+    "LinearGaussianStateSpace",
 ]

@@ -13,11 +13,23 @@
 * Branching: Poisson/Fibonacci stochastic branching with an enumerable
   posterior, on the interpreter tier; BranchingCompiled, the same
   posterior over r with tensor control flow, on the batched tier;
+* EightSchools: the hierarchical benchmark in its non-centered form;
+* BayesianLinearRegression (conjugate) and BayesianLogisticRegression
+  (grid ground truth): one vector observe ``y`` of the data, ``w @ X.T``
+  over the particles' ``[N, D]`` weights by ``torch.matmul``;
 * GaussianProcessRegression: GP regression with the latent function
   marginalized out, one [N, N] kernel matrix and its Cholesky factor per
-  particle.
+  particle;
+* GaussianMixture: a K-component 1-D mixture with unknown means (and
+  optionally Dirichlet weights), observed as one Mixture over the data
+  vector: on the batched tier an ``[N, D]`` all-Normal mixture, which
+  kernel 1 scores as ``N·D`` rows;
+* LinearGaussianStateSpace: a local-level model with its Kalman filter and
+  RTS smoother as ground truth.
 
-The other families come with later slices.
+Each family's ground-truth helpers are numpy float64 copies of the JAX
+package's.  MiniCaptcha, VariableLengthGaussian and the Markov variant of
+the state-space model come with later slices.
 """
 
 from __future__ import annotations
@@ -29,7 +41,18 @@ import torch
 
 from .. import state as _state
 from .. import util
-from ..distributions import Categorical, Empirical, MultivariateNormal, Normal, Poisson, Uniform
+from ..distributions import (
+    Bernoulli,
+    Categorical,
+    Dirichlet,
+    Empirical,
+    HalfCauchy,
+    Mixture,
+    MultivariateNormal,
+    Normal,
+    Poisson,
+    Uniform,
+)
 from ..model import Model
 
 sample = _state.sample
@@ -242,6 +265,136 @@ class BranchingCompiled(Model):
         return Branching(self.rate).true_posterior(observe_value, support)
 
 
+class EightSchools(Model):
+    """The canonical Bayesian hierarchical benchmark (Rubin 1981; Gelman et
+    al., BDA §5.5): eight schools' treatment effects with known standard
+    errors, partial pooling through a population mean and scale, in the
+    non-centered parameterization (theta = mu + tau * z, z ~ N(0, 1)).
+    Observe names are ``y0..y7``; ``observes()`` returns the classic data.
+    forward() returns [mu, tau] (``[N, 2]`` on the batched tier)."""
+
+    Y = (28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0)
+    SIGMA = (15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0)
+
+    def __init__(self, sigma=None):
+        super().__init__(name="Eight schools (non-centered)")
+        self.sigma = tuple(sigma) if sigma is not None else self.SIGMA
+
+    def observes(self):
+        """The classic dataset as an observe dict."""
+        return {f"y{i}": v for i, v in enumerate(self.Y)}
+
+    def forward(self):
+        mu = sample(Normal(0.0, 5.0), name="mu")
+        tau = sample(HalfCauchy(5.0), name="tau")
+        for i, s in enumerate(self.sigma):
+            z = sample(Normal(0.0, 1.0), address=f"z{i}")
+            observe(Normal(mu + tau * z, s), name=f"y{i}")
+        return torch.stack([mu, tau], dim=-1)
+
+
+def _design_matrix(X):
+    X = np.asarray(X, dtype=np.float64)
+    if X.ndim != 2:
+        raise ValueError("X must be [num_data, num_features]")
+    return X
+
+
+class BayesianLinearRegression(Model):
+    """Bayesian linear regression with known noise: w_j ~ N(0, tau^2) per
+    coefficient (sites ``w0..w{D-1}``), y ~ N(X w, sigma^2 I) observed as
+    one vector observe ``y``.  Conjugate: ``true_posterior()`` gives the
+    exact Gaussian posterior."""
+
+    def __init__(self, X, prior_stddev=1.0, noise_stddev=0.5):
+        super().__init__(name="Bayesian linear regression")
+        self.X = _design_matrix(X)
+        self.num_data, self.num_features = self.X.shape
+        self.prior_stddev = float(prior_stddev)
+        self.noise_stddev = float(noise_stddev)
+        self._tables = _OnDevice(XT=self.X.T)
+
+    def forward(self):
+        ws = [sample(Normal(0.0, self.prior_stddev), address=f"w{j}") for j in range(self.num_features)]
+        w = torch.stack(ws, dim=-1)
+        observe(Normal(torch.matmul(w, self._tables("XT", w.device)), self.noise_stddev), name="y")
+        return w
+
+    def true_posterior(self, y):
+        """Exact Gaussian posterior: mean vector and covariance matrix."""
+        y = np.asarray(y, dtype=np.float64)
+        prec = self.X.T @ self.X / self.noise_stddev**2 + np.eye(self.num_features) / self.prior_stddev**2
+        cov = np.linalg.inv(prec)
+        mean = cov @ (self.X.T @ y) / self.noise_stddev**2
+        return mean, cov
+
+    def synthesize(self, w_true, rng=None):
+        """Draw a dataset y = X w_true + noise (host numpy)."""
+        rng = np.random.default_rng(rng)
+        return self.X @ np.asarray(w_true, dtype=np.float64) + rng.normal(
+            0.0, self.noise_stddev, size=self.num_data
+        )
+
+
+class BayesianLogisticRegression(Model):
+    """Bayesian logistic regression: w_j ~ N(0, tau^2), y ~
+    Bernoulli(sigmoid(X w)) observed as one vector observe ``y``.
+    ``true_posterior_moments()`` grid-integrates the exact posterior for
+    num_features <= 2."""
+
+    def __init__(self, X, prior_stddev=2.0):
+        super().__init__(name="Bayesian logistic regression")
+        self.X = _design_matrix(X)
+        self.num_data, self.num_features = self.X.shape
+        self.prior_stddev = float(prior_stddev)
+        self._tables = _OnDevice(XT=self.X.T)
+
+    def forward(self):
+        ws = [sample(Normal(0.0, self.prior_stddev), address=f"w{j}") for j in range(self.num_features)]
+        w = torch.stack(ws, dim=-1)
+        observe(Bernoulli(logits=torch.matmul(w, self._tables("XT", w.device))), name="y")
+        return w
+
+    def _log_post(self, w, y):
+        logits = self.X @ w
+        loglik = np.sum(y * logits - np.logaddexp(0.0, logits))
+        logprior = -0.5 * np.sum(w**2) / self.prior_stddev**2
+        return loglik + logprior
+
+    def true_posterior_moments(self, y, lim=8.0, n=401):
+        """Grid-integrated exact posterior mean/stddev per coefficient
+        (num_features <= 2 only)."""
+        y = np.asarray(y, dtype=np.float64)
+        grid = np.linspace(-lim, lim, n)
+        if self.num_features == 1:
+            lp = np.array([self._log_post(np.array([g]), y) for g in grid])
+            p = np.exp(lp - lp.max())
+            p /= p.sum()
+            mean = float(np.sum(p * grid))
+            var = float(np.sum(p * (grid - mean) ** 2))
+            return np.array([mean]), np.array([math.sqrt(var)])
+        if self.num_features == 2:
+            G0, G1 = np.meshgrid(grid, grid, indexing="ij")
+            lp = np.empty_like(G0)
+            for i in range(n):
+                for j in range(n):
+                    lp[i, j] = self._log_post(np.array([G0[i, j], G1[i, j]]), y)
+            p = np.exp(lp - lp.max())
+            p /= p.sum()
+            means = np.array([np.sum(p * G0), np.sum(p * G1)])
+            stds = np.array([
+                math.sqrt(np.sum(p * (G0 - means[0]) ** 2)),
+                math.sqrt(np.sum(p * (G1 - means[1]) ** 2)),
+            ])
+            return means, stds
+        raise ValueError("grid ground truth implemented for D <= 2")
+
+    def synthesize(self, w_true, rng=None):
+        rng = np.random.default_rng(rng)
+        p = 1.0 / (1.0 + np.exp(-(self.X @ np.asarray(w_true, np.float64))))
+        return (rng.uniform(size=self.num_data) < p).astype(np.float64)
+
+
 class GaussianProcessRegression(Model):
     """GP regression with the latent function marginalized out: the
     latents are the kernel hyperparameters (log-lengthscale,
@@ -383,3 +536,208 @@ class GaussianProcessRegression(Model):
         K = self._cov(self._sq_dists, vals["lengthscale"], vals["amplitude"], vals["noise"])
         rng = np.random.default_rng(rng)
         return np.linalg.cholesky(K) @ rng.normal(size=self.num_data)
+
+
+class GaussianMixture(Model):
+    """K-component 1-D Gaussian mixture with unknown component means:
+    mu_k ~ N(prior_mean, prior_stddev) (sites ``mu0..mu{K-1}``), y_i ~
+    sum_k w_k N(mu_k, sigma) observed as one Mixture observe ``y`` over the
+    data vector (assignments marginalized).  On the batched tier each
+    component is an ``[N, num_data]`` Normal, so kernel 1 scores the observe
+    on ``N·num_data`` rows.  With exchangeable priors the posterior is
+    K!-fold label-switching multimodal.  ``learn_weights=True`` adds a
+    Dirichlet(alpha) weight latent (site ``w``), a ``[N, K]`` row of
+    weights per particle that the mixture reads as ``[N, 1, K]``.  Exact
+    K = 2 fixed-weight posterior by grid integration
+    (``true_posterior_moments``)."""
+
+    def __init__(
+        self,
+        num_components=2,
+        weights=None,
+        obs_stddev=0.6,
+        prior_mean=0.0,
+        prior_stddev=3.0,
+        num_data=30,
+        learn_weights=False,
+        dirichlet_alpha=2.0,
+    ):
+        super().__init__(name="Gaussian mixture (marginalized assignments)")
+        self.num_components = int(num_components)
+        if weights is None:
+            weights = np.full(self.num_components, 1.0 / self.num_components)
+        self.weights = np.asarray(weights, dtype=np.float64)
+        if self.weights.shape != (self.num_components,):
+            raise ValueError("weights must have shape [num_components]")
+        self.obs_stddev = float(obs_stddev)
+        self.prior_mean = float(prior_mean)
+        self.prior_stddev = float(prior_stddev)
+        self.num_data = int(num_data)
+        self.learn_weights = bool(learn_weights)
+        self.dirichlet_alpha = float(dirichlet_alpha)
+        self._tables = _OnDevice(
+            weights=self.weights, alpha=np.full(self.num_components, self.dirichlet_alpha)
+        )
+
+    def forward(self):
+        mus = [
+            sample(Normal(self.prior_mean, self.prior_stddev), address=f"mu{k}")
+            for k in range(self.num_components)
+        ]
+        device = mus[0].device
+        if self.learn_weights:
+            w = sample(Dirichlet(self._tables("alpha", device)), address="w")
+            probs = w.unsqueeze(-2)  # one weight row per particle, over the data
+        else:
+            probs = self._tables("weights", device)
+        comps = [Normal(m.unsqueeze(-1).expand(tuple(m.shape) + (self.num_data,)), self.obs_stddev) for m in mus]
+        observe(Mixture(comps, probs=probs), name="y")
+        return torch.stack(mus, dim=-1)
+
+    def _log_post(self, mus, y):
+        lps = np.stack(
+            [
+                -0.5 * ((y - m) / self.obs_stddev) ** 2
+                - math.log(self.obs_stddev)
+                - 0.5 * math.log(2 * math.pi)
+                + math.log(wk)
+                for m, wk in zip(mus, self.weights)
+            ],
+            axis=-1,
+        )
+        loglik = np.sum(_logsumexp(lps, axis=-1))
+        logprior = -0.5 * np.sum(((np.asarray(mus) - self.prior_mean) / self.prior_stddev) ** 2)
+        return loglik + logprior
+
+    def true_posterior_moments(self, y, lim=3.0, n=201):
+        """Grid-integrated exact posterior over (mu0, mu1) for K = 2 fixed
+        weights; returns (means[2], stddevs[2]).  The grid covers the full
+        label-switching posterior, so with symmetric priors the two sites'
+        means coincide."""
+        if self.num_components != 2 or self.learn_weights:
+            raise ValueError("grid ground truth: K=2 fixed weights only")
+        y = np.asarray(y, dtype=np.float64)
+        grid = np.linspace(
+            self.prior_mean - lim * self.prior_stddev,
+            self.prior_mean + lim * self.prior_stddev,
+            n,
+        )
+        G0, G1 = np.meshgrid(grid, grid, indexing="ij")
+        lp = np.empty_like(G0)
+        for i in range(n):
+            for j in range(n):
+                lp[i, j] = self._log_post([G0[i, j], G1[i, j]], y)
+        p = np.exp(lp - lp.max())
+        p /= p.sum()
+        means = np.array([np.sum(p * G0), np.sum(p * G1)])
+        stds = np.sqrt([np.sum(p * (G0 - means[0]) ** 2), np.sum(p * (G1 - means[1]) ** 2)])
+        return means, stds
+
+    def synthesize(self, mus_true, rng=None, weights=None):
+        """Draw a dataset from the mixture at the given component means."""
+        rng = np.random.default_rng(rng)
+        w = self.weights if weights is None else np.asarray(weights)
+        idx = rng.choice(self.num_components, size=self.num_data, p=w / w.sum())
+        mus_true = np.asarray(mus_true, dtype=np.float64)
+        return mus_true[idx] + rng.normal(0, self.obs_stddev, self.num_data)
+
+
+def _logsumexp(a, axis=None):
+    m = np.max(a, axis=axis, keepdims=True)
+    return np.squeeze(m, axis=axis) + np.log(np.sum(np.exp(a - m), axis=axis))
+
+
+class LinearGaussianStateSpace(Model):
+    """Linear-Gaussian state-space model (local-level / AR(1)):
+    x_0 ~ N(0, p0), x_t ~ N(a x_{t-1}, q), y_t ~ N(x_t, r) observed at every
+    step (sites ``x0..x{T}``, observes ``y0..y{T-1}``).  forward() returns
+    the state path [T+1], so a trace posterior's mean is the smoothed path,
+    against the exact Kalman filter (``kalman_filter``) and RTS smoother
+    (``kalman_smoother``)."""
+
+    def __init__(self, num_steps=8, a=1.0, init_stddev=1.0,
+                 transition_stddev=math.sqrt(0.5),
+                 observation_stddev=math.sqrt(0.3)):
+        super().__init__(name="Linear-Gaussian state space")
+        self.num_steps = int(num_steps)
+        self.a = float(a)
+        self.init_stddev = float(init_stddev)
+        self.transition_stddev = float(transition_stddev)
+        self.observation_stddev = float(observation_stddev)
+
+    def forward(self):
+        xs = [sample(Normal(0.0, self.init_stddev), address="x0")]
+        for t in range(self.num_steps):
+            xs.append(sample(Normal(self.a * xs[-1], self.transition_stddev), address=f"x{t + 1}"))
+            observe(Normal(xs[-1], self.observation_stddev), name=f"y{t}")
+        return torch.stack(xs, dim=-1)
+
+    def observes(self, ys):
+        return {f"y{t}": float(v) for t, v in enumerate(ys)}
+
+    def kalman_filter(self, ys):
+        """Exact filtering means/vars of x_1..x_T given y_1..y_t (each entry
+        conditions on the observations up to its own step).  Returns
+        (means[T], vars[T])."""
+        q, r = self.transition_stddev**2, self.observation_stddev**2
+        mean, var = 0.0, self.init_stddev**2
+        means, vars_ = [], []
+        for y in np.asarray(ys, dtype=np.float64):
+            mean_p = self.a * mean
+            var_p = self.a * self.a * var + q
+            k = var_p / (var_p + r)
+            mean = mean_p + k * (y - mean_p)
+            var = (1 - k) * var_p
+            means.append(mean)
+            vars_.append(var)
+        return np.array(means), np.array(vars_)
+
+    def kalman_smoother(self, ys):
+        """Exact smoothing means/vars of x_0..x_T given all observations
+        (Rauch-Tung-Striebel).  Returns (means[T+1], vars[T+1]) aligned with
+        forward()'s path."""
+        q, r = self.transition_stddev**2, self.observation_stddev**2
+        ys = np.asarray(ys, dtype=np.float64)
+        T = len(ys)
+        fm, fv = np.empty(T + 1), np.empty(T + 1)
+        pm, pv = np.empty(T + 1), np.empty(T + 1)  # predicted, before each update
+        fm[0], fv[0] = 0.0, self.init_stddev**2
+        pm[0], pv[0] = fm[0], fv[0]
+        for t in range(T):
+            pm[t + 1] = self.a * fm[t]
+            pv[t + 1] = self.a * self.a * fv[t] + q
+            k = pv[t + 1] / (pv[t + 1] + r)
+            fm[t + 1] = pm[t + 1] + k * (ys[t] - pm[t + 1])
+            fv[t + 1] = (1 - k) * pv[t + 1]
+        sm, sv = fm.copy(), fv.copy()
+        for t in range(T - 1, -1, -1):
+            c = fv[t] * self.a / pv[t + 1]
+            sm[t] = fm[t] + c * (sm[t + 1] - pm[t + 1])
+            sv[t] = fv[t] + c * c * (sv[t + 1] - pv[t + 1])
+        return sm, sv
+
+    def synthesize(self, rng=None):
+        """Draw (states[T+1], observations[T]) from the prior."""
+        rng = np.random.default_rng(rng)
+        xs = [rng.normal(0.0, self.init_stddev)]
+        ys = []
+        for _ in range(self.num_steps):
+            xs.append(self.a * xs[-1] + rng.normal(0.0, self.transition_stddev))
+            ys.append(xs[-1] + rng.normal(0.0, self.observation_stddev))
+        return np.array(xs), np.array(ys)
+
+    def kalman_log_evidence(self, ys):
+        """Exact log marginal likelihood log p(y_1..y_T): the sum of the
+        one-step predictive log-densities of the Kalman recursion."""
+        q, r = self.transition_stddev**2, self.observation_stddev**2
+        mean, var = 0.0, self.init_stddev**2
+        log_z = 0.0
+        for y in np.asarray(ys, dtype=np.float64):
+            mean_p = self.a * mean
+            var_p = self.a * self.a * var + q
+            s = var_p + r
+            log_z += -0.5 * (math.log(2 * math.pi * s) + (y - mean_p) ** 2 / s)
+            k = var_p / s
+            mean = mean_p + k * (y - mean_p)
+            var = (1 - k) * var_p
+        return log_z

@@ -1,4 +1,6 @@
-"""Substrate: enums, device and dtype configuration, RNG management, ESS.
+"""Substrate: enums, device and dtype configuration, RNG management, ESS
+and the weight helpers (``safe_log``, ``log_weights_to_probs``,
+``empirical_to_categorical``).
 
 PyTorch counterpart of ``pyprob_tpu/util.py``.  Differences by design:
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import datetime
 import enum
+import math
 import random
 import threading
 import time
@@ -209,6 +212,46 @@ def effective_sample_size(log_weights):
     w = np.exp(lw - m)
     s = w.sum()
     return float(s * s / (w * w).sum())
+
+
+def safe_log(value):
+    """log in float64 numpy: −inf at 0, NaN below (counterpart of
+    ``pyprob_tpu.util.safe_log``)."""
+    if type(value) is float or np.ndim(value) == 0:
+        v = float(value)
+        if v > 0.0:
+            return np.float64(math.log(v))
+        return np.float64(-math.inf) if v == 0.0 else np.float64(math.nan)
+    with np.errstate(divide="ignore"):
+        return np.log(np.asarray(value, dtype=np.float64))
+
+
+def log_weights_to_probs(log_weights):
+    """Normalized float64 probabilities of log-weights (NaN counts as −inf;
+    all −inf gives uniform probabilities)."""
+    lw = np.nan_to_num(np.asarray(log_weights, dtype=np.float64).reshape(-1), nan=-np.inf)
+    m = lw.max() if lw.size else 0.0
+    if np.isinf(m) and m < 0:
+        return np.full_like(lw, 1.0 / max(len(lw), 1))
+    w = np.exp(lw - m)
+    return w / w.sum()
+
+
+def empirical_to_categorical(empirical, max_items=None):
+    """(Categorical, values) of an Empirical over hashable values, its
+    duplicates combined; with ``max_items``, the most probable of them,
+    renormalized (the reference's pyprob/util.py:326-335)."""
+    from .distributions import Categorical
+
+    emp = empirical.combine_duplicates()
+    values = emp.get_values()
+    probs = np.exp(np.asarray(emp._log_weights_normalized(), dtype=np.float64))
+    if max_items is not None and len(values) > max_items:
+        order = np.argsort(-probs)[:max_items]
+        values = [values[i] for i in order]
+        probs = probs[order]
+        probs = probs / probs.sum()
+    return Categorical(probs=probs), values
 
 
 # ---------------------------------------------------------------------------

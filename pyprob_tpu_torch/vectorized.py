@@ -27,6 +27,7 @@ import torch
 from . import state, util
 from .address import extract_address
 from .distributions import Categorical, Empirical, Factor, Normal
+from .distributions.empirical import values_of
 from .ops import kernels
 from .trace import Trace, Variable
 from .util import InferenceEngine, PriorInflation, TraceMode
@@ -218,7 +219,12 @@ class VectorizedHandler:
         self._record(site, value, log_prob)
         return value
 
-    def observe(self, distribution, value=None, name=None, address=None):
+    def observe(self, distribution, value=None, name=None, address=None, mask=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "observe(mask=) sites are not ported yet; they come with the "
+                "Markov/SMC slice"
+            )
         base, full, instance = self._make_address(address, distribution.address_suffix)
         site = SiteRecord(
             address_base=base,
@@ -469,7 +475,12 @@ class _RejectionAttemptHandler:
         self.log_iws.append(log_iw)
         return value
 
-    def observe(self, distribution, value=None, name=None, address=None):
+    def observe(self, distribution, value=None, name=None, address=None, mask=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "observe(mask=) sites are not ported yet; they come with the "
+                "Markov/SMC slice"
+            )
         raise RuntimeError("observe/factor inside rejection_sample is not supported")
 
     def factor(self, log_prob=None, log_prob_func=None, name=None, address=None, mask=None):
@@ -828,7 +839,7 @@ def vectorized_traces(
         if map_func is not None:
             traces = [map_func(t) for t in traces]
         emp = Empirical(
-            values=[v for v, k in zip(traces, keep) if k],
+            values=values_of([v for v, k in zip(traces, keep) if k]),
             log_weights=log_weights[keep],
             effective_sample_size=ess,
         )

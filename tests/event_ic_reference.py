@@ -1,13 +1,17 @@
 """The event-shaped latents' IC recipes (tests/test_proposals_extended.py:
-303-361, 388-410) in the JAX package and in the port, side by side on the
-CPU, over training seeds.  For each path, seed and package: the JAX test's
-reference prior IS, the network trained with the test's recipe (batch 256,
-lr 0.003, a 16-d observe embedding), then IC at the test's counts on the
-batched tier and on the interpreter tier (``vectorized=False``), and with
-``--traces`` also on the batched tier at that count; each run's mean and
-ESS fraction against the test's limits.  Then, per path and package, the
-share of seeds that met each criterion.  One seed's network is a draw, and
-this shows how often the recipe meets each criterion in either package.
+303-361, 388-410) and the LinearGaussianStateSpace IC recipe of
+``chip_smoke.py`` in the JAX package and in the port, side by side on the
+CPU, over training seeds.  For each path, seed and package: the reference
+prior IS, the network trained with the recipe (batch 256, lr 0.003, a 16-d
+observe embedding an observe; the state-space model lr 0.005), then IC at
+the path's counts on the batched tier and on the interpreter tier
+(``vectorized=False``), and with ``--traces`` also on the batched tier at
+that count; each run's mean and ESS fraction against the limits.  The
+state-space model's mean path must lie within max(0.06, 5 sd_t / sqrt(ESS))
+of the RTS smoother at every step, and its ESS fraction above prior IS's at
+the same count (10^6 traces).  Then, per path and package, the share of
+seeds that met each criterion.  One seed's network is a draw, and this
+shows how often the recipe meets each criterion in either package.
 
     python tests/event_ic_reference.py [--paths mvn_ff ...] [--seeds 8]
         [--traces N]
@@ -27,10 +31,20 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import functools  # noqa: E402
+
 import numpy as np  # noqa: E402
 import pyprob_tpu  # noqa: E402
 import pyprob_tpu_torch  # noqa: E402
+import pyprob_tpu.models  # noqa: E402
+import pyprob_tpu_torch.models  # noqa: E402
 import _torch_parity as P  # noqa: E402
+
+# chip_smoke.py's state-space IC cell: T = 8, a = 0.9, y from synthesize(rng=0)
+LGSS = {"num_steps": 8, "a": 0.9}
+_lgss = pyprob_tpu.models.LinearGaussianStateSpace(**LGSS)
+LGSS_OBSERVE = _lgss.observes(_lgss.synthesize(rng=0)[1])
+LGSS_SMOOTHER = _lgss.kalman_smoother(list(LGSS_OBSERVE.values()))
 
 # path: (model classes (JAX, port), observe, network, seed, training traces,
 # batched count, interpreter count, reference prior IS count, limits)
@@ -45,6 +59,10 @@ PATHS = {
                        3072, 1024, 1024, None, {"mean": [2 / 7, 2 / 7, 3 / 7], "tol": 0.08, "ess_floor": 0.3}),
     "lkj_ff": ((P.JaxLKJLatent, P.TorchLKJLatent), P.LKJ_LATENT_OBSERVE, "FEEDFORWARD", 0, 4096, 1024, 1024, 2048,
                {"tol": 0.15, "ess_floor": 0.05}),
+    "lgss_ff": ((functools.partial(pyprob_tpu.models.LinearGaussianStateSpace, **LGSS),
+                 functools.partial(pyprob_tpu_torch.models.LinearGaussianStateSpace, **LGSS)),
+                LGSS_OBSERVE, "FEEDFORWARD", 0, 25_600, 1_000_000, None, 1_000_000,
+                {"smoother": LGSS_SMOOTHER, "tol": 0.06, "ess_over_prior": 1.0, "learning_rate": 0.005}),
 }
 
 
@@ -53,9 +71,14 @@ def criteria(post, n, base, limits):
     truth (or of the reference prior IS's), the ESS fraction above the
     floor (or above ``ess_over_prior`` times the reference's)."""
     mean = np.asarray(post.mean, np.float64).reshape(-1)
-    truth = np.asarray(limits["mean"] if "mean" in limits else base.mean, np.float64).reshape(-1)
     ess = post.effective_sample_size / n
     floor = limits.get("ess_floor") or limits["ess_over_prior"] * base.effective_sample_size / base.length
+    if "smoother" in limits:  # the state-space path: per step, within max(tol, 5 sd_t / sqrt(ESS))
+        truth, variance = limits["smoother"]
+        tol = np.maximum(limits["tol"], 5 * np.sqrt(variance / post.effective_sample_size))
+        return {"mean": [mean.tolist(), truth.tolist(), bool((np.abs(mean - truth) <= tol).all())],
+                "ess": [ess, floor, bool(ess > floor)]}
+    truth = np.asarray(limits["mean"] if "mean" in limits else base.mean, np.float64).reshape(-1)
     return {"mean": [mean.tolist(), truth.tolist(), bool(np.abs(mean - truth).max() <= limits["tol"])],
             "ess": [ess, floor, bool(ess > floor)]}
 
@@ -68,7 +91,7 @@ def run(pp, model_class, path, seed, traces):
     base = model.posterior_results(n_base, observe=observe, vectorized=True) if n_base else None
     model.learn_inference_network(num_traces=train_traces, observe_embeddings={k: {"dim": 16} for k in observe},
                                   inference_network=getattr(pp.InferenceNetwork, network), batch_size=256,
-                                  learning_rate_init=0.003)
+                                  learning_rate_init=limits.get("learning_rate", 0.003))
     out = {}
     for tier, count, vectorized in (("batched", n, True), ("interpreter", n_interpreter, False),
                                     (f"batched_{traces}", traces, True)):
