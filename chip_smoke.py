@@ -12,7 +12,9 @@ IS; for MultivariateNormal, Dirichlet and LKJCholesky latents under
 inference compilation and the conjugate vector models' prior IS; for GP
 regression; and for the Empirical result surface, the built-in
 EightSchools, regression, GaussianMixture and LinearGaussianStateSpace
-families and IC on the last.
+families and IC on the last; and for the rest of learn_inference_network:
+LARC, the CNN observe embeddings with MiniCaptcha, training from trace
+files with validation and keep_best, and file-backed results.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -266,7 +268,49 @@ Phases, each printing one JSON line:
     mean path against the RTS smoother and the ESS fraction against prior
     IS's at 1,000,000, each enforced where the port met it on all eight
     CPU seeds of tests/event_ic_reference.py (LGSS_IC_CPU_MET), printed
-    otherwise.
+    otherwise;
+47. LARC card vs CPU: one ADAM_LARC and one SGD_LARC step of a GUM LSTM
+    network (lstm128) from the same weights and packed batch of 256 on
+    both devices: the LARC-scaled gradients and the parameters after the
+    step within 1e-4 + 1e-3 |cpu| per leaf;
+48. LARC train: tests/test_train.py:90-107's recipe at lstm128 (ADAM_LARC,
+    POLY2 from 0.1 to 0.0025 over 2,048 traces at batch 256), the final
+    learning rate within 1e-4 of 0.0025, traces/s;
+49. CNN card vs CPU: CNN2D5C at [128, 1, 28, 28] and CNN3D5C at
+    [8, 1, 20, 20, 20] -> 32 (a 16^3 input leaves no voxel), forward and
+    input and weight gradients within 1e-4 + 1e-3 |cpu|, the CPU run
+    pinned to the card's ReLU masks and pool argmaxes (a pre-activation at
+    round-off of 0 falls on either side: the flips are counted); two
+    backward passes on the card equal to the bit (cuDNN set
+    deterministic), and the forward and backward timed;
+50. MiniCaptcha IC, the feedforward network and the LSTM (dim 128)
+    (tests/test_inference.py:591-655: a CNN2D5C embedding of the glyph,
+    8,192 traces at batch 128, lr 0.002): trained from eight seeds, the
+    MAP accuracy by post.mode over the six letters at 512 traces above
+    0.8 for as many seeds as the JAX package's eight CPU seeds less four
+    (CAPTCHA_CPU_MET); the first seed's network served at 10^6 traces a
+    letter (every mode correct, traces/s, peak memory < 10 GiB) beside
+    prior IS at 10^6 a letter (the [N, 784] observe);
+51. save_dataset and offline training: 51,200 GUM training traces in
+    files of 12,800 (seconds, bytes) and 2,560 for validation; the
+    feedforward recipe and the lstm128 arm's trained from them with the
+    validation loss every 12,800 traces, served at 10^6: mean and stddev
+    within 0.5, ESS >= 0.15 (FF) and >= 0.5 (LSTM), the online arms'
+    printed beside;
+52. offline gather train: 12,800 while-loop Marsaglia traces saved from
+    the interpreter tier, bench.py's Marsaglia LSTM recipe trained from
+    them through the gather-table loss, one launch each of kernels 2 and
+    2b a step;
+53. keep_best: GUM's feedforward recipe with an EMA, probed every 12,800
+    of 51,200 traces and at the end by the guided-IS ESS probe (100,000
+    traces) and, offline, by the negative validation loss: the restored
+    network equal to the best probe's snapshot to the bit, a 10^6 serving
+    from it equal to one from that snapshot loaded into another model;
+54. Empirical files: GUM prior IS at 10^6 on the batched tier and the
+    lstm128 network by lockstep at 4,000 traces, each in memory and into
+    a file from one seed: reopened, the values and log weights equal to
+    the bit, mean and ESS equal; the files' concatenation equal to the
+    memory results'; the host seconds to write and reopen.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -279,9 +323,11 @@ raises and the script exits non-zero without that line.
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -552,6 +598,39 @@ GMM_ROWS, GMM_COMPONENTS = (1 << 18) * BUILTIN["mixture_data"], 2
 LGSS_IC = {"num_steps": 8, "a": 0.9, "train_traces": 25_600, "batch_size": 256, "learning_rate": 0.005,
            "observe_dim": 16, "tol": 0.06, "seed": 0}
 LGSS_IC_CPU_MET = {"mean_path": (8, 8), "ess_over_prior": (8, 8)}
+
+# the LARC, CNN, MiniCaptcha, storage and offline-training phases (47-55),
+# after every earlier one, so the earlier phases keep their draws.
+# LARC: tests/test_train.py:90-107's recipe (ADAM_LARC, POLY2 from 0.1 to
+# 0.0025 over 2,048 traces, batch 256) at the bench's lstm128 width
+LARC_TRAIN = {"train_traces": 2048, "batch_size": 256, "learning_rate": (0.1, 0.0025), "lstm_dim": 128,
+              "lr_tol": 1e-4, "seed": 0}
+# the CNN embeddings card vs CPU: CNN2D5C at MiniCaptcha's training batch
+# and CNN3D5C at the smallest cube the five convolutions and two pools
+# leave a voxel of (20^3: a 16^3 input has none)
+CNN_CHECK = {"cnn2d5c": ((128, 1, 28, 28), 32), "cnn3d5c": ((8, 1, 20, 20, 20), 32)}
+# MiniCaptcha IC (tests/test_inference.py:591-655): a CNN2D5C embedding of
+# the glyph, 8,192 traces at batch 128, lr 0.002, LSTM dim 128; MAP
+# accuracy by post.mode over the six letters at 512 traces, above 0.8, for
+# eight training seeds; the first seed's network also at 10^6
+CAPTCHA = {"train_traces": 8192, "batch_size": 128, "learning_rate": 0.002, "dim": 32, "lstm_dim": 128,
+           "traces": 512, "accuracy": 0.8, "seeds": 8, "big_traces": 1_000_000}
+# seeds of 8 meeting the accuracy criterion on the CPU in ``python
+# tests/event_ic_reference.py --paths mini_captcha_ff mini_captcha_lstm
+# --seeds 8`` (the JAX package's, the port's): every seed in both
+CAPTCHA_CPU_MET = {"mini_captcha_ic_feedforward": (8, 8), "mini_captcha_ic_lstm": (8, 8)}
+# offline training: GUM saved in files, the FF recipe (ff_train_kwargs) and
+# the lstm128 recipe trained from them, a validation set beside
+OFFLINE = {"traces": 51_200, "per_file": 12_800, "valid_traces": 2560, "ff_ess_floor": 0.15,
+           "lstm_ess_floor": 0.5, "gather_traces": 12_800}
+# keep_best: probes every quarter of the training, the guided-IS ESS probe
+# at the library's default count, and the negative validation loss
+KEEP_BEST = {"train_traces": 51_200, "every": 12_800, "probe_traces": 100_000, "serve_seed": 79}
+# file-backed results
+EMPIRICAL_FILE = {"traces": 1_000_000, "lockstep_traces": 4000, "seed": 80}
+# the online arms' ESS fractions at 10^6 (phases 9 and 20), printed beside
+# the offline arms'
+ONLINE_ESS = {}
 
 # Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -1441,6 +1520,8 @@ def phase_guided_is_trained(device, model, arm, num_traces):
     mean, std = check_posterior(post, label)
     ess_fraction = post.effective_sample_size / num_traces
     check(ess_fraction >= 0.5, f"{label}: ESS fraction {ess_fraction}")
+    if arm["lstm_dim"] == LARC_TRAIN["lstm_dim"]:
+        ONLINE_ESS["lstm"] = ess_fraction
     served = tensor_leaves(model._inference_network._serving_params())
     check(not any(t.requires_grad for t in served), "serving parameters require grad")
     emit({
@@ -2013,6 +2094,7 @@ def phase_ff_guided_is_trained(device, model, num_traces):
     mean, std = check_posterior(post, "ff guided IS trained")
     ess_fraction = post.effective_sample_size / num_traces
     check(ess_fraction >= FF_GUM["ess_floor"], f"ff guided IS trained: ESS fraction {ess_fraction}")
+    ONLINE_ESS["feedforward"] = ess_fraction
     emit({
         "phase": "ff_guided_is_trained", "traces": num_traces, "seconds": seconds,
         "traces_per_s": num_traces / seconds, "mean": mean, "stddev": std,
@@ -3890,6 +3972,482 @@ def phase_lgss_ic(device, num_traces=NUM_TRACES):
     return train_launches, launches
 
 
+def phase_larc_card_vs_cpu(devices=("cuda", "cpu")):
+    """One ADAM_LARC and one SGD_LARC step of a GUM LSTM network (lstm128,
+    16-d observe embeddings), from the same weights and packed batch of 256,
+    on the card and on the CPU: the LARC-scaled gradient of every leaf and
+    every parameter after the step within 1e-4 + 1e-3 |cpu|.  Adam's first
+    step moves a parameter by about lr whatever the size of its gradient,
+    so an entry whose gradient is at round-off on the CPU (below 1e-6 of its
+    leaf's largest) may land apart; those are counted and printed, not
+    held."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch import vectorized
+
+    model = guided_model(128)
+    net = model._inference_network
+    outputs, sites = vectorized.run_training_batch(model, 256)
+    batch = net._packed_batch_from_outputs(outputs, sites, 256)
+    snapshot = net.snapshot_params()
+    out = {}
+    try:
+        for opt in (pp.Optimizer.ADAM_LARC, pp.Optimizer.SGD_LARC):
+            out[opt.name] = larc_step_card_vs_cpu(net, batch, snapshot, opt, devices)
+    finally:
+        pp.set_device(devices[0])
+    emit({"phase": "larc_card_vs_cpu", **out, "tolerance": "atol 1e-4 + rtol 1e-3 per leaf"})
+
+
+def larc_step_card_vs_cpu(net, batch, snapshot, opt, devices):
+    """One step of ``opt`` from ``snapshot`` on ``batch`` on each device:
+    the LARC-scaled gradients (read before the base optimizer's step, which
+    may reuse them) and the parameters after it, held as
+    phase_larc_card_vs_cpu says."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.nn import LARC, PackedBatch
+    from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
+
+    results = []
+    for device in devices:
+        pp.set_device(device)
+        net._optimizer = None
+        net.to(device)
+        net.restore_params(snapshot)
+        net._optimizer_type, net._weight_decay, net._momentum = opt, 1e-5, 0.9
+        net._learning_rate_init = net._learning_rate_end = 0.01
+        net._learning_rate_scheduler_type = pp.LearningRateScheduler.NONE
+        net._create_optimizer()
+        check(isinstance(net._optimizer, LARC), f"larc_card_vs_cpu: {opt.name} built {net._optimizer!r}")
+        on = PackedBatch(map_tensors(batch.packed, lambda t: t.to(device)), batch.size, batch.addrs,
+                         batch.dist_names)
+        reset_launch_counts()
+        loss = float(net._loss_and_grad(on))
+        for group in net._optimizer.param_groups:
+            group["lr"] = net._current_learning_rate()
+        net._optimizer.scale_gradients()
+        leaves = tensor_leaves(net._params)
+        scaled = [p.grad.cpu().numpy() for p in leaves]
+        net._optimizer.optim.step()
+        if device == "cuda":
+            check(launch_counts()[KERNEL_NAMES[1]] >= 1, "larc_card_vs_cpu: kernel 1b did not launch")
+        results.append((loss, scaled, [p.detach().cpu().numpy() for p in leaves]))
+    (loss_a, g_a, p_a), (loss_b, g_b, p_b) = results
+    check(abs(loss_a - loss_b) <= 1e-4 + 1e-3 * abs(loss_b), f"larc_card_vs_cpu {opt.name}: loss {loss_a} vs {loss_b}")
+    worst_g = max(float((np.abs(a - b) - (1e-4 + 1e-3 * np.abs(b))).max()) for a, b in zip(g_a, g_b))
+    check(worst_g <= 0, f"larc_card_vs_cpu {opt.name}: a scaled gradient exceeds 1e-4 + 1e-3|cpu| by {worst_g}")
+    worst_p, round_off = 0.0, 0
+    for a, b, g in zip(p_a, p_b, g_b):
+        over = np.abs(a - b) > 1e-4 + 1e-3 * np.abs(b)
+        tiny = np.abs(g) < 1e-6 * max(float(np.abs(g).max()), 1e-30)
+        if opt == pp.Optimizer.ADAM_LARC:
+            round_off += int((over & tiny).sum())
+            over &= ~tiny
+        worst_p = max(worst_p, float(over.sum()))
+    check(worst_p == 0, f"larc_card_vs_cpu {opt.name}: {worst_p} parameters past 1e-4 + 1e-3|cpu| after the step")
+    return {"loss": [loss_a, loss_b], "leaves": len(g_a),
+            "max_abs_err_scaled_grad": max(float(np.abs(a - b).max()) for a, b in zip(g_a, g_b)),
+            "max_abs_err_params": max(float(np.abs(a - b).max()) for a, b in zip(p_a, p_b)),
+            "round_off_gradient_entries_apart": round_off}
+
+
+def phase_larc_train(device):
+    """tests/test_train.py:90-107's recipe at the bench's lstm128 width:
+    ADAM_LARC with POLY2 from 0.1 to 0.0025 over 2,048 traces at batch 256;
+    the learning rate ends within 1e-4 of 0.0025."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    spec = LARC_TRAIN
+    pp.seed(spec["seed"])
+    model = GaussianUnknownMean()
+    kwargs = dict(num_traces=spec["train_traces"], num_traces_end=spec["train_traces"],
+                  observe_embeddings={"obs0": {"dim": 16}, "obs1": {"dim": 16}},
+                  inference_network=pp.InferenceNetwork.LSTM, lstm_dim=spec["lstm_dim"],
+                  batch_size=spec["batch_size"], optimizer_type=pp.Optimizer.ADAM_LARC,
+                  learning_rate_init=spec["learning_rate"][0], learning_rate_end=spec["learning_rate"][1],
+                  learning_rate_scheduler_type=pp.LearningRateScheduler.POLY2,
+                  proposal_mixture_components=MIXTURE_COMPONENTS)
+    launches, line = train_phase(device, "larc_train", model, kwargs)
+    lr = model._inference_network.learning_rate
+    check(abs(lr - spec["learning_rate"][1]) <= spec["lr_tol"], f"larc_train: final learning rate {lr}")
+    emit({**line, "optimizer": "ADAM_LARC", "final_learning_rate": lr, "lstm_dim": spec["lstm_dim"]})
+    return launches
+
+
+def pinned_cnn(params, x, ndim, branch=None):
+    """The 5-convolution CNN's forward with ``nn.layers._cnn_apply``'s
+    arithmetic, each ReLU taken as a multiplication by its mask and each
+    max-pool as a gather at its argmax, so that ``branch`` (the masks and
+    pool indices another device's run chose) can pin them: a pre-activation
+    within round-off of 0, or two near-equal maxima of a pool window, may
+    fall on different sides on two devices, and a gradient then differs by
+    a whole term.  Returns (output, the branch taken)."""
+    import torch.nn.functional as F
+    from pyprob_tpu_torch.nn import layers as L
+
+    taken = {"masks": [], "indices": []}
+    pool_fn = F.max_pool2d if ndim == 2 else F.max_pool3d
+
+    def relu(v):
+        m = (v > 0) if branch is None else branch["masks"][len(taken["masks"])].to(v.device)
+        taken["masks"].append(m)
+        return v * m
+
+    def pool(v):
+        idx = pool_fn(v.detach(), 2, return_indices=True)[1]
+        if branch is not None:
+            idx = branch["indices"][len(taken["indices"])].to(v.device)
+        taken["indices"].append(idx)
+        return v.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    meta, B = params["meta"], x.shape[0]
+    convs = params["convs"]
+    h = x.reshape((B,) + tuple(meta["input_shape"]))
+    h = pool(relu(L.conv_apply(convs[1], relu(L.conv_apply(convs[0], h, ndim)), ndim)))
+    for c in convs[2:]:
+        h = relu(L.conv_apply(c, h, ndim))
+    h = pool(h).reshape(B, -1)
+    h = relu(L.linear_apply(params["lin2"], relu(L.linear_apply(params["lin1"], h))))
+    return h.reshape((B,) + tuple(meta["out_shape"])), taken
+
+
+def phase_cnn_card_vs_cpu(devices=("cuda", "cpu")):
+    """CNN2D5C and CNN3D5C (CNN_CHECK) from the same weights, inputs and
+    output cotangent on the card and on the CPU.  On the card the port's
+    apply gives weight gradients equal to the bit over two backward passes
+    (cuDNN set deterministic: one seed must reproduce training) and is
+    timed; ``pinned_cnn`` on the card equals it to the bit; on the CPU it
+    runs on the card's ReLU masks and pool argmaxes, and the forward, the
+    input's gradient and every weight's are held within 1e-4 + 1e-3 |cpu|.
+    The masks and argmaxes the CPU picks itself that differ from the
+    card's are counted, and the error without pinning printed."""
+    import torch
+    from pyprob_tpu_torch.nn import layers as L
+    from pyprob_tpu_torch.nn.layers import map_tensors, tensor_leaves
+
+    out = {}
+    for kind, (shape, out_dim) in CNN_CHECK.items():
+        ndim = len(shape) - 2
+        apply = L.cnn2d5c_apply if ndim == 2 else L.cnn3d5c_apply
+        weights = (L.cnn2d5c_init if ndim == 2 else L.cnn3d5c_init)(
+            torch.Generator().manual_seed(0), shape[1:], out_dim, "cpu")
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.normal(size=(shape[0], int(np.prod(shape[1:])))).astype(np.float32))
+        ct = torch.from_numpy(rng.normal(size=(shape[0], out_dim)).astype(np.float32))
+
+        def run(device, fn):
+            """fn(params, x) -> (y, extra): y and every gradient, as CPU numpy, and extra."""
+            # fresh leaves each run (``.to`` on the CPU would hand back the
+            # same tensor, and a second backward would add into its grad)
+            params = map_tensors(weights, lambda t: t.detach().clone().to(device).requires_grad_(True))
+            xd = x.detach().clone().to(device).requires_grad_(True)
+            y, extra = fn(params, xd)
+            y.backward(ct.to(device))
+            grads = [xd.grad] + [p.grad for p in tensor_leaves(params)]
+            return [y.detach()] + grads, extra, params, xd
+
+        card, cpu = devices
+        port, _, params, xd = run(card, lambda p, v: (apply(p, v), None))
+        ms = deterministic = None
+        if card == "cuda":
+            again, _, _, _ = run(card, lambda p, v: (apply(p, v), None))
+            deterministic = all(torch.equal(a, b) for a, b in zip(port[2:], again[2:]))
+            check(deterministic, f"cnn_card_vs_cpu {kind}: two backward passes differ on the card")
+
+            def step():
+                for t in tensor_leaves(params) + [xd]:
+                    t.grad = None
+                apply(params, xd).backward(ct.to(card))
+
+            ms = time_ms(step, iters=20, warmup=3)
+        pinned, branch, _, _ = run(card, lambda p, v: pinned_cnn(p, v, ndim))
+        check(all(torch.equal(a, b) for a, b in zip(port, pinned)),
+              f"cnn_card_vs_cpu {kind}: pinned_cnn differs from the port's apply on {card}")
+        on_branch, _, _, _ = run(cpu, lambda p, v: pinned_cnn(p, v, ndim, branch))
+        own, own_branch, _, _ = run(cpu, lambda p, v: pinned_cnn(p, v, ndim))
+        flips = {k: int(sum(int((a.cpu() != b).sum()) for a, b in zip(branch[k], own_branch[k])))
+                 for k in ("masks", "indices")}
+        worst, err, err_own = 0.0, 0.0, 0.0
+        for a, b, c in zip(port, on_branch, own):
+            a, b, c = a.cpu().numpy(), b.numpy(), c.numpy()
+            err = max(err, float(np.abs(a - b).max()))
+            err_own = max(err_own, float(np.abs(a - c).max()))
+            worst = max(worst, float((np.abs(a - b) - (1e-4 + 1e-3 * np.abs(b))).max()))
+        check(worst <= 0, f"cnn_card_vs_cpu {kind}: exceeds 1e-4 + 1e-3|cpu| by {worst}")
+        out[kind] = {"shape": list(shape), "out_dim": out_dim, "max_abs_err": err,
+                     "cpu_own_branch": {"flips": flips, "max_abs_err": err_own},
+                     "forward_backward_ms": ms, "weight_grads_bit_reproducible": deterministic}
+    emit({"phase": "cnn_card_vs_cpu", **out, "cudnn_deterministic": torch.backends.cudnn.deterministic,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "tolerance": "atol 1e-4 + rtol 1e-3: forward, input and weight gradients, on the card's branch"})
+
+
+def captcha_train_kwargs(network):
+    import pyprob_tpu_torch as pp
+
+    c = CAPTCHA
+    return dict(num_traces=c["train_traces"],
+                observe_embeddings={"query_image": {"dim": c["dim"], "reshape": [1, 28, 28],
+                                                    "embedding": pp.ObserveEmbedding.CNN2D5C}},
+                inference_network=getattr(pp.InferenceNetwork, network), batch_size=c["batch_size"],
+                learning_rate_init=c["learning_rate"], lstm_dim=c["lstm_dim"])
+
+
+def phase_mini_captcha_ic(device, network, seeds=CAPTCHA["seeds"]):
+    """MiniCaptcha IC (tests/test_inference.py:591-655) trained from seeds
+    0..seeds-1: the MAP accuracy by post.mode over the six letters at 512
+    traces each, above 0.8 for as many seeds as the JAX package's eight CPU
+    seeds less four, and one at least (CAPTCHA_CPU_MET).  The first seed's
+    network is also served at 10^6 traces a letter (a warm-up run, then
+    the six timed): traces/s, peak memory < 10 GiB, every mode correct;
+    and prior IS at 10^6 a letter (the [N, 784] observe), its modes.
+    Returns the launches by sub-phase."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import MiniCaptcha
+
+    c = CAPTCHA
+    phase = f"mini_captcha_ic_{network.lower()}"
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    launches, by_seed = {}, []
+    for seed in range(seeds):
+        key = phase if seed == 0 else f"{phase}_seed{seed}"
+        pp.seed(seed)
+        model = MiniCaptcha()
+        launches[key + "_train"], train_line = train_phase(device, key + "_train", model,
+                                                           captcha_train_kwargs(network))
+        check(model._inference_network._params["observe"]["query_image"]["kind"] == "cnn2d5c",
+              f"{phase}: the observe embedding is not the CNN")
+
+        def serve(n, guided=True):
+            return [int(np.asarray(model.posterior_results(
+                n, observe={"query_image": model.render(a)}, vectorized=True,
+                inference_engine=engine if guided else pp.InferenceEngine.IMPORTANCE_SAMPLING).mode))
+                for a in model.alphabet]
+
+        modes, launches[key + "_serve"] = counted(device, lambda: serve(c["traces"]))
+        accuracy = float(np.mean([m == i for i, m in enumerate(modes)]))
+        by_seed.append({"seed": seed, "accuracy": accuracy, "met": accuracy > c["accuracy"], "modes": modes,
+                        "final_loss": train_line["final_loss"], "train_traces_per_s": train_line["traces_per_s"]})
+        if seed:
+            continue
+        model.posterior_results(c["big_traces"], observe={"query_image": model.render("A")}, vectorized=True,
+                                inference_engine=engine)  # warm-up
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        (big_modes, seconds), launches[key] = counted(device, lambda: host_timed(lambda: serve(c["big_traces"])))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+        check(peak_gib is None or peak_gib < 10.0, f"{phase}: peak memory {peak_gib} GiB")
+        check(big_modes == list(range(len(model.alphabet))), f"{phase}: modes at 10^6 {big_modes}")
+        (prior_modes, prior_seconds), launches[key + "_prior_is"] = counted(
+            device, lambda: host_timed(lambda: serve(c["big_traces"], guided=False)))
+        check(prior_modes == list(range(len(model.alphabet))), f"{phase}: prior IS modes at 10^6 {prior_modes}")
+        first = {"train": train_line, "traces": c["big_traces"], "letters": len(model.alphabet),
+                 "traces_per_s": c["big_traces"] * len(model.alphabet) / seconds, "modes": big_modes,
+                 "peak_memory_gib": peak_gib, "prior_is_modes": prior_modes,
+                 "prior_is_traces_per_s": c["big_traces"] * len(model.alphabet) / prior_seconds,
+                 "launches": launches[key]}
+    met = sum(line["met"] for line in by_seed)
+    needed = max(1, CAPTCHA_CPU_MET[phase][0] - 4)
+    emit({"phase": phase, "network": network, **first, "criteria": {
+        "traces": c["traces"], "accuracy_above": c["accuracy"], "seeds_met": met, "seeds_needed": needed,
+        "cpu_seeds_met_of_8_jax_port": CAPTCHA_CPU_MET[phase], "by_seed": by_seed}})
+    check(met >= needed, f"{phase}: accuracy met by {met} of {seeds} seeds, {needed} needed")
+    return launches
+
+
+def dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def phase_offline(device, tmp):
+    """GUM's training traces saved in files (OFFLINE: 51,200 in files of
+    12,800, and 2,560 for validation), then the feedforward recipe
+    (ff_train_kwargs) and the lstm128 arm's trained from them with the
+    validation loss every 12,800 traces, each served at 10^6: mean and
+    stddev within 0.5, ESS at least 0.15 (FF) and 0.5 (LSTM), beside the
+    online arms' (ONLINE_ESS).  Returns the launches by sub-phase and the
+    two directories."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    o = OFFLINE
+    train_dir, valid_dir = os.path.join(tmp, "gum_train"), os.path.join(tmp, "gum_valid")
+    pp.seed(81)
+    model = GaussianUnknownMean()
+    _, seconds = host_timed(lambda: model.save_dataset(train_dir, o["traces"], o["per_file"]))
+    model.save_dataset(valid_dir, o["valid_traces"], o["valid_traces"])
+    files = sorted(f for f in os.listdir(train_dir) if f.startswith("pyprob_traces"))
+    check(len(files) == o["traces"] // o["per_file"], f"save_dataset: files {files}")
+    emit({"phase": "save_dataset", "traces": o["traces"], "traces_per_file": o["per_file"], "files": len(files),
+          "seconds": seconds, "traces_per_s": o["traces"] / seconds, "bytes": dir_bytes(train_dir),
+          "bytes_per_trace": dir_bytes(train_dir) / o["traces"]})
+    path = {}
+    for label, kw, floor in (("feedforward", ff_train_kwargs(), o["ff_ess_floor"]),
+                             ("lstm", train_kwargs(ARMS[0], TRAIN_SEGMENTS), o["lstm_ess_floor"])):
+        pp.seed(82)
+        m = GaussianUnknownMean()
+        kwargs = dict(kw, num_traces=o["traces"], dataset_dir=train_dir, dataset_valid_dir=valid_dir,
+                      valid_every=o["per_file"])
+        path[f"offline_train_{label}"], line = train_phase(device, f"offline_train_{label}", m, kwargs)
+        net = m._inference_network
+        if device == "cuda":
+            for name in KERNEL_NAMES[:2]:
+                check(path[f"offline_train_{label}"][name] >= net._total_train_iterations,
+                      f"offline_train_{label}: {name} launched fewer times than steps")
+        post, serve_s, path[f"offline_guided_is_{label}"], peak_gib = serve_batched(
+            device, m, NUM_TRACES, f"offline {label} guided IS")
+        mean, std = check_posterior(post, f"offline {label} guided IS")
+        ess = post.effective_sample_size / NUM_TRACES
+        check(ess >= floor, f"offline {label}: ESS fraction {ess} < {floor}")
+        emit({"phase": f"offline_train_{label}", "train": line, "epochs": net._total_train_traces / o["traces"],
+              "valid_loss": net._history_valid_loss, "valid_loss_traces": net._history_valid_loss_trace,
+              "traces": NUM_TRACES, "seconds": serve_s, "traces_per_s": NUM_TRACES / serve_s, "mean": mean,
+              "stddev": std, "ess_fraction": ess, "ess_floor": floor, "online_ess_fraction": ONLINE_ESS.get(label),
+              "peak_memory_gib": peak_gib})
+    return path, (train_dir, valid_dir)
+
+
+def phase_offline_gather_train(device, tmp):
+    """OFFLINE["gather_traces"] while-loop Marsaglia traces saved from the
+    interpreter tier (seed 123), then bench.py's Marsaglia LSTM recipe
+    trained from them: the stored batches' several trace types take the
+    gather-table loss, one launch each of kernels 2 and 2b a step."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia
+
+    n = OFFLINE["gather_traces"]
+    d = os.path.join(tmp, "marsaglia_train")
+    pp.seed(INTERPRETER["seed"])
+    _, save_s = host_timed(lambda: GaussianUnknownMeanMarsaglia().save_dataset(d, n, n))
+    model = GaussianUnknownMeanMarsaglia()
+    launches, line = train_phase(device, "offline_gather_train", model,
+                                 dict(marsaglia_train_kwargs(), num_traces=n, dataset_dir=d))
+    net = model._inference_network
+    steps = net._total_train_iterations
+    check(net._gather_used, "offline_gather_train: the gather-table loss was not used")
+    if device == "cuda":
+        for name in TNORM_KERNELS:
+            check(launches[name] == steps, f"offline_gather_train: {name} launched {launches[name]} times in {steps} steps")
+    emit({**line, "save_seconds": save_s, "saved_traces": n, "bytes": dir_bytes(d),
+          "trace_types": max(int(a.rpartition("__")[2]) for a in net._params["proposal"]),
+          "kernel2_launches_per_step": launches[TNORM_KERNELS[0]] / steps,
+          "kernel2b_launches_per_step": launches[TNORM_KERNELS[1]] / steps})
+    return launches
+
+
+def check_keep_best(device, model, label):
+    """The restored network equals the best probe's snapshot to the bit (its
+    EMA too); a 10^6 serving from it equals, to the bit, one from a copy of
+    the network loaded from a file and restored from that snapshot."""
+    import tempfile
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+    from pyprob_tpu_torch.nn.layers import tensor_leaves
+
+    net = model._inference_network
+    hist = net._keep_best_history
+    best = max(v for _, v in hist)
+    check(net._keep_best_metric == best, f"{label}: kept metric {net._keep_best_metric}, best probe {best}")
+    snap = net._keep_best_snapshot
+    for tree, ref in ((net._params, snap["params"]), (net._ema_params, snap["ema_params"])):
+        for t, a in zip(tensor_leaves(tree), tensor_leaves(ref)):
+            check(np.array_equal(t.detach().cpu().numpy().view(np.uint32), a.view(np.uint32)),
+                  f"{label}: the restored network differs from the best snapshot")
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    twin = GaussianUnknownMean()
+    with tempfile.TemporaryDirectory() as d:
+        model.save_inference_network(os.path.join(d, "net"))
+        twin.load_inference_network(os.path.join(d, "net"))
+    twin._inference_network.restore_params(snap)
+    served = []
+    for m in (model, twin):
+        pp.seed(KEEP_BEST["serve_seed"])
+        post = m.posterior_results(NUM_TRACES, observe=OBSERVE, vectorized=True, inference_engine=engine)
+        served.append((float(post.mean), post.effective_sample_size / NUM_TRACES))
+    check(served[0] == served[1], f"{label}: served {served[0]} vs the snapshot's {served[1]}")
+    return {"history": hist, "best": best, "best_at_traces": hist[[v for _, v in hist].index(best)][0],
+            "served_mean_ess_fraction": served[0]}
+
+
+def phase_keep_best(device, dirs):
+    """keep_best on GUM's feedforward recipe with an EMA of 0.9, probing
+    every 12,800 of 51,200 traces and at the end: by the guided-IS ESS
+    probe (online, keep_best_observe, 100,000 traces a probe) and by the
+    negative validation loss (offline, phase offline's directories).  Each
+    held by check_keep_best.  Returns the launches by sub-phase."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    k = KEEP_BEST
+    common = dict(ff_train_kwargs(), num_traces=k["train_traces"], ema_decay=EMA_DECAY, keep_best=True,
+                  keep_best_every=k["every"])
+    path, out = {}, {}
+    for label, extra in (("ess_probe", dict(keep_best_observe=OBSERVE, keep_best_num_traces=k["probe_traces"])),
+                         ("validation", dict(dataset_dir=dirs[0], dataset_valid_dir=dirs[1],
+                                             valid_every=k["every"]))):
+        pp.seed(83)
+        model = GaussianUnknownMean()
+        path[f"keep_best_{label}"], line = train_phase(device, f"keep_best_{label}", model, dict(common, **extra))
+        probes = len(model._inference_network._keep_best_history)
+        check(probes == k["train_traces"] // k["every"] + 1, f"keep_best {label}: {probes} probes")
+        out[label] = {"train": line, **check_keep_best(device, model, f"keep_best {label}")}
+    emit({"phase": "keep_best", **out})
+    return path
+
+
+def phase_empirical_file(device, tmp, lstm_model):
+    """File-backed results: GUM prior IS at 10^6 on the batched tier and the
+    lstm128 network served by lockstep at 4,000 traces, each run twice from
+    one seed, in memory and into an Empirical file; reopened read-only, the
+    values and log weights equal the memory result's to the bit, the mean
+    and ESS equal; the two files' concatenation equals the two memory
+    results' concatenation.  The host seconds to write and reopen."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Empirical
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    e = EMPIRICAL_FILE
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    runs = {
+        "batched_prior_is": (lambda **kw: GaussianUnknownMean().posterior_results(
+            e["traces"], observe=OBSERVE, vectorized=True, **kw)),
+        "lockstep": (lambda **kw: lstm_model.posterior_results(
+            e["lockstep_traces"], observe=OBSERVE, vectorized=False, inference_engine=engine, **kw)),
+    }
+    out, memory, files, path = {}, [], [], {}
+    for i, (label, run) in enumerate(runs.items()):
+        fn = os.path.join(tmp, f"empirical_{label}")
+        pp.seed(e["seed"] + i)
+        (mem, mem_s), path[f"empirical_file_{label}"] = counted(device, lambda: host_timed(run))
+        pp.seed(e["seed"] + i)
+        on_file, file_s = host_timed(lambda: run(file_name=fn))
+        _, close_s = host_timed(on_file.close)
+        back, open_s = host_timed(lambda: Empirical(file_name=fn, file_read_only=True))
+        values, read_s = host_timed(lambda: back._values)
+        check(np.array_equal(np.asarray(values), np.asarray(mem._values)), f"empirical_file {label}: values differ")
+        check(np.array_equal(back.log_weights, mem.log_weights), f"empirical_file {label}: log weights differ")
+        check(np.array_equal(back.mean, mem.mean) and back.effective_sample_size == mem.effective_sample_size,
+              f"empirical_file {label}: mean or ESS differ")
+        out[label] = {"traces": len(mem), "seconds_in_memory": mem_s, "seconds_to_file": file_s,
+                      "close_seconds": close_s, "reopen_seconds": open_s, "read_values_seconds": read_s,
+                      "bytes": os.path.getsize(fn), "mean": float(mem.mean),
+                      "ess_fraction": mem.effective_sample_size / len(mem)}
+        memory.append(mem)
+        files.append(fn)
+    joined, join_s = host_timed(lambda: Empirical(concat_empirical_file_names=files))
+    in_memory = Empirical(concat_empiricals=memory)
+    check(np.array_equal(np.asarray(joined._values), np.asarray(in_memory._values))
+          and np.array_equal(joined.log_weights, in_memory.log_weights)
+          and np.array_equal(joined.mean, in_memory.mean)
+          and joined.effective_sample_size == in_memory.effective_sample_size,
+          "empirical_file: the files' concatenation differs from the memory results'")
+    joined.close()
+    emit({"phase": "empirical_file", **out, "concat_traces": len(joined), "concat_open_seconds": join_s,
+          "concat_ess_fraction": in_memory.effective_sample_size / len(in_memory)})
+    return path
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -3899,6 +4457,7 @@ def main():
     pp.set_verbosity(1)
     pp.seed(0)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the port computes in full f32")
+    check(not torch.backends.cudnn.allow_tf32, "TF32 convolutions are on: the port computes in full f32")
     phase_build()
     rows = phase_kernels() + phase_linalg_kernels()
     floor_ms = phase_launch_floor()
@@ -3993,6 +4552,21 @@ def main():
     path.update(phase_builtin_models_is("cuda"))
     phase_gmm_kernel_shapes(floor_ms)
     path["lgss_ic_feedforward_train"], path["lgss_ic_feedforward"] = phase_lgss_ic("cuda")
+    # the rest of learn_inference_network, after every earlier phase (whose
+    # draws stay as they were): LARC, the CNN embeddings and MiniCaptcha,
+    # training from trace files with validation and keep_best, and
+    # file-backed results
+    phase_larc_card_vs_cpu()
+    path["larc_train"] = phase_larc_train("cuda")
+    phase_cnn_card_vs_cpu()
+    for network in ("FEEDFORWARD", "LSTM"):
+        path.update(phase_mini_captcha_ic("cuda", network))
+    with tempfile.TemporaryDirectory() as tmp:
+        offline, dirs = phase_offline("cuda", tmp)
+        path.update(offline)
+        path["offline_gather_train"] = phase_offline_gather_train("cuda", tmp)
+        path.update(phase_keep_best("cuda", dirs))
+        path.update(phase_empirical_file("cuda", tmp, trained_arms[128]))
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

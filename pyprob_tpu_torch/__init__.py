@@ -43,6 +43,7 @@ from .util import (
     set_device,
 )
 from .state import sample, observe, factor, tag, rejection_sample
+from .address import AddressDictionary
 from .model import Model
 from . import distributions
 from . import models
@@ -67,6 +68,7 @@ __all__ = [
     "tag",
     "rejection_sample",
     "Model",
+    "AddressDictionary",
     "distributions",
     "models",
     "ops",

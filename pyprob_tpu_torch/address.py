@@ -81,3 +81,46 @@ def extract_address(root_function_name):
             break
         frame = frame.f_back
     return "{}__{}".format(lineno, "__".join(reversed(names)))
+
+
+class AddressDictionary:
+    """A persistent address <-> short id (``__A{n}``) mapping in a shelf
+    file, shared by the processes that open it (counterpart of
+    ``pyprob_tpu.address.AddressDictionary``).  A new id is assigned in
+    one transaction that first checks again whether another process
+    assigned one."""
+
+    def __init__(self, file_name):
+        from .concurrency import ConcurrentShelf
+
+        self._file_name = file_name
+        self._shelf = ConcurrentShelf(file_name)
+        if "__length" not in self._shelf:
+            self._shelf["__length"] = 0
+        self._to_id = {}
+        self._to_address = {}
+
+    def address_to_id(self, address):
+        if address in self._to_id:
+            return self._to_id[address]
+        key = "address__" + address
+        new_id = self._shelf.get(key, None)
+        if new_id is None:
+            with self._shelf.transaction():
+                new_id = self._shelf.get(key, None)
+                if new_id is None:
+                    length = self._shelf.get("__length", 0)
+                    new_id = "__A{}".format(length + 1)
+                    self._shelf["__length"] = length + 1
+                    self._shelf[key] = new_id
+                    self._shelf["id__" + new_id] = address
+        self._to_id[address] = new_id
+        return new_id
+
+    def id_to_address(self, id_):
+        if id_ not in self._to_address:
+            self._to_address[id_] = self._shelf["id__" + id_]
+        return self._to_address[id_]
+
+    def close(self):
+        self._shelf.close()

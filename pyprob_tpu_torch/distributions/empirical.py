@@ -1,6 +1,6 @@
 """Empirical: weighted sample container, the posterior result type.
 
-Counterpart of ``pyprob_tpu/distributions/empirical.py`` in memory mode:
+Counterpart of ``pyprob_tpu/distributions/empirical.py`` with its storage modes:
 the add/finalize lifecycle, categorical-weight sampling, the transforms
 (map, filter, reweight, reobserve, resample, thin, slices,
 combine_duplicates, unweighted), the weighted statistics (moments, mode,
@@ -18,9 +18,16 @@ take the JAX package's loops.  Both give the same values in the same
 order, and weights equal within float64 round-off (NaN values excepted:
 ``np.unique`` puts them in one bucket).
 
-The file modes and concatenation (``file_name=``, ``concat_empiricals=``,
-``concat_empirical_file_names=``) raise ``NotImplementedError``: they come
-with the storage slice.  ``density_estimate`` fits its Gaussian mixture by
+``file_name=`` keeps the values in a shelf file (``concurrency.Shelf``):
+array values in blocks of up to 2^18 rows, other values (traces among
+them, stored as plain data) in blocks of the values written together,
+each block beside its float64 log weights, and the metadata, the name and
+the ESS of the weights last written.  Reopening the file gives the same
+values, log weights and statistics; its values are read at first use.
+The layout is the port's own: a JAX package Empirical file does not open
+here, nor the port's there.  ``concat_empiricals=`` and
+``concat_empirical_file_names=`` join Empiricals in order, read-only.
+``density_estimate`` fits its Gaussian mixture by
 EM in numpy, where the JAX package calls scikit-learn.
 """
 
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import enum
 import math
+import os
 import pickle
 import warnings
 
@@ -35,9 +43,11 @@ import numpy as np
 import torch
 
 from .. import util
+from ..concurrency import Shelf
 from .distribution import Distribution
 
-_STORAGE = "file-backed and concatenated Empirical results come with the storage slice"
+_FILE_SYNC_EVERY = 25  # added values written to the file together
+_BLOCK_ROWS = 1 << 18  # rows of array values per stored block
 
 
 class EmpiricalType(enum.Enum):
@@ -85,17 +95,64 @@ class Empirical(Distribution):
     ):
         """``effective_sample_size``, when given, is the ESS already computed
         from these weights (the batched tier takes it from the device-side
-        log-weight statistics)."""
-        if file_name is not None or concat_empiricals is not None or concat_empirical_file_names is not None:
-            raise NotImplementedError(_STORAGE)
+        log-weight statistics).  ``file_name`` keeps the values in a shelf
+        file (values given here or added later are appended to what the
+        file holds); ``concat_empiricals`` / ``concat_empirical_file_names``
+        join Empiricals, or the files of Empiricals, in order, read-only
+        (with ``file_name``, a descriptor of the joined files is written
+        there, so reopening it gives the concatenation again)."""
         super().__init__(name=name, address_suffix="Empirical", batch_shape=())
         self._type = EmpiricalType.MEMORY
         self._metadata = []
-        self._values = []
+        self._vals = []
         self._log_weights = []
         self._finalized = False
         self._closed = False
         self._mean_cache = self._variance_cache = self._mode_cache = None
+        self._file_name = file_name
+        self._file_read_only = file_read_only
+        self._shelf = None
+        self._pending = []  # values added since the file was last written
+        self._sources = None  # the joined Empiricals of a concatenation
+        if concat_empiricals is not None:
+            self._concatenate(EmpiricalType.CONCAT_MEMORY, list(concat_empiricals))
+            self.add_metadata(op="concat", num_sources=len(self._sources))
+            return
+        if concat_empirical_file_names is not None:
+            files = list(concat_empirical_file_names)
+            self._concatenate(EmpiricalType.CONCAT_FILE, [Empirical(file_name=f, file_read_only=True) for f in files])
+            self.add_metadata(op="concat_files", files=files)
+            if file_name is not None:
+                self._shelf = Shelf(file_name)
+                self._shelf["concat_files"] = files
+                self._shelf["name"] = name
+            return
+        if file_name is not None:
+            if file_read_only and not os.path.exists(file_name):
+                raise FileNotFoundError(f"No Empirical file: {file_name}")
+            self._shelf = Shelf(file_name)
+            concat_files = self._shelf.get("concat_files")
+            if concat_files is not None:
+                # a descriptor of joined files: reopen the concatenation
+                self._shelf.close()
+                self._shelf = None
+                self._concatenate(
+                    EmpiricalType.CONCAT_FILE, [Empirical(file_name=f, file_read_only=True) for f in concat_files]
+                )
+                self.add_metadata(op="concat_files", files=list(concat_files))
+                return
+            self._type = EmpiricalType.FILE
+            self._name = self._shelf.get("name", name)
+            self._metadata = list(self._shelf.get("metadata", []))
+            blocks = self._shelf.get("blocks", [])
+            self._log_weights = np.concatenate(
+                [np.zeros(0)] + [self._shelf[f"log_weights_{k}"] for k in range(len(blocks))]
+            )
+            self._vals = None  # read at first use
+            stored_ess = self._shelf.get("effective_sample_size")
+            if len(self._log_weights):
+                ess = stored_ess if stored_ess is not None and stored_ess[0] == len(self._log_weights) else None
+                self._finalize(None if ess is None else ess[1])
         if values is None:
             return
         if log_weights is not None:
@@ -106,20 +163,100 @@ class Empirical(Distribution):
             lw = np.zeros(len(values), dtype=np.float64)
         if len(lw) != len(values):
             raise ValueError("values and weights must have equal length")
-        self._values = values if isinstance(values, np.ndarray) else list(values)
-        self._log_weights = lw
-        self._finalize(effective_sample_size)
+        values = values if isinstance(values, np.ndarray) else list(values)
+        if self._type == EmpiricalType.FILE:
+            if self._file_read_only:
+                raise RuntimeError("Empirical file opened read-only")
+            if len(self._log_weights):
+                effective_sample_size = None  # the given ESS is of the new values only
+                self._values = self._join([self._values, values])
+                self._log_weights = np.concatenate([np.asarray(self._log_weights, np.float64), lw])
+            else:
+                self._values, self._log_weights = values, lw
+            self._pending = [values]
+            self._finalize(effective_sample_size)
+            self._write_file()
+        else:
+            self._values = values
+            self._log_weights = lw
+            self._finalize(effective_sample_size)
 
     @classmethod
-    def from_arrays(cls, values, log_weights=None, name="Empirical", effective_sample_size=None):
+    def from_arrays(cls, values, log_weights=None, name="Empirical", effective_sample_size=None, file_name=None):
         """Bulk construction from arrays: the values as one array, NaN
-        log-weights as −inf."""
+        log-weights as −inf; with ``file_name``, appended to that file."""
         values = np.asarray(values)
         if log_weights is None:
             log_weights = np.zeros(len(values), dtype=np.float64)
         else:
             log_weights = np.nan_to_num(np.asarray(log_weights, dtype=np.float64).reshape(-1), nan=-np.inf)
-        return cls(values, log_weights, name=name, effective_sample_size=effective_sample_size)
+        return cls(values, log_weights, name=name, effective_sample_size=effective_sample_size, file_name=file_name)
+
+    # ------------------------------------------------------------------
+    # storage
+    # ------------------------------------------------------------------
+    @property
+    def _values(self):
+        """The values, read from the file or joined from the sources at
+        first use."""
+        if self._vals is None:
+            if self._sources is not None:
+                self._vals = self._join([e._values for e in self._sources])
+            else:
+                self._vals = self._read_file()
+        return self._vals
+
+    @_values.setter
+    def _values(self, values):
+        self._vals = values
+
+    @staticmethod
+    def _join(parts):
+        """Values of several Empiricals in order: one array when every part
+        is an array of one row shape, else a list."""
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return []
+        if all(isinstance(p, np.ndarray) for p in parts) and len({p.shape[1:] for p in parts}) == 1:
+            return np.concatenate(parts)
+        return [v for p in parts for v in (list(p) if isinstance(p, np.ndarray) else p)]
+
+    def _concatenate(self, kind, sources):
+        self._type = kind
+        self._sources = sources
+        self._vals = None
+        self._log_weights = np.concatenate([np.zeros(0)] + [e.log_weights for e in sources])
+        self._finalize(None)
+
+    def _read_file(self):
+        """The file's values, block by block (an array block of rows, or a
+        list of values)."""
+        blocks = self._shelf.get("blocks", [])
+        return self._join([self._shelf[f"block_{k}"] for k in range(len(blocks))])
+
+    def _write_file(self):
+        """Append the pending values as new blocks (arrays in blocks of
+        ``_BLOCK_ROWS`` rows), each beside its log weights, then the
+        metadata, name and ESS, in one transaction."""
+        with self._shelf.transaction():
+            blocks = list(self._shelf.get("blocks", []))
+            lw = np.asarray(self._log_weights, np.float64)
+            stored = sum(blocks)
+            for part in self._pending:
+                step = _BLOCK_ROWS if isinstance(part, np.ndarray) else max(len(part), 1)
+                for begin in range(0, len(part), step):
+                    rows = len(part[begin : begin + step])
+                    self._shelf[f"block_{len(blocks)}"] = part[begin : begin + step]
+                    self._shelf[f"log_weights_{len(blocks)}"] = lw[stored : stored + rows]
+                    blocks.append(rows)
+                    stored += rows
+            self._pending = []
+            self._shelf["blocks"] = blocks
+            self._shelf["num_values"] = stored
+            self._shelf["metadata"] = self._metadata
+            self._shelf["name"] = self._name
+            if self._finalized:
+                self._shelf["effective_sample_size"] = (len(self._log_weights), self._ess)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -130,14 +267,14 @@ class Empirical(Distribution):
 
     @property
     def file_name(self):
-        return None
+        return self._file_name
 
     @property
     def length(self):
-        return len(self._values)
+        return len(self._log_weights)
 
     def __len__(self):
-        return len(self._values)
+        return len(self._log_weights)
 
     @property
     def finalized(self):
@@ -147,6 +284,10 @@ class Empirical(Distribution):
         return isinstance(self._values, np.ndarray)
 
     def add(self, value, log_weight=0.0, weight=None):
+        if self._sources is not None:
+            raise RuntimeError("Cannot add to a concatenated Empirical")
+        if self._file_read_only:
+            raise RuntimeError("Empirical file opened read-only")
         if weight is not None:
             log_weight = math.log(weight) if weight > 0 else -math.inf
         if self._is_array():
@@ -156,6 +297,12 @@ class Empirical(Distribution):
         self._values.append(value)
         self._log_weights.append(float(log_weight))
         self._finalized = False
+        if self._type == EmpiricalType.FILE:
+            if not self._pending or isinstance(self._pending[-1], np.ndarray):
+                self._pending.append([])
+            self._pending[-1].append(value)
+            if len(self._pending[-1]) >= _FILE_SYNC_EVERY:
+                self._write_file()
 
     def add_sequence(self, values, log_weights=None):
         if log_weights is None:
@@ -164,7 +311,10 @@ class Empirical(Distribution):
             self.add(v, log_weight=float(lw))
 
     def finalize(self):
-        return self._finalize(None)
+        self._finalize(None)
+        if self._type == EmpiricalType.FILE and not self._file_read_only:
+            self._write_file()
+        return self
 
     def _finalize(self, effective_sample_size):
         lw = self._log_weights = np.asarray(self._log_weights, dtype=np.float64)
@@ -191,10 +341,24 @@ class Empirical(Distribution):
             self.finalize()
 
     def close(self):
+        """Write what is pending to the file (if writable) and close it, and
+        the files of a concatenation."""
+        if self._shelf is not None:
+            if self._type == EmpiricalType.FILE and not self._file_read_only:
+                if not self._finalized:
+                    self._finalize(None)
+                self._write_file()
+            self._shelf.close()
+            self._shelf = None
+        if self._type == EmpiricalType.CONCAT_FILE:
+            for e in self._sources:
+                e.close()
         self._closed = True
 
     def rename(self, name):
         self._name = name
+        if self._type == EmpiricalType.FILE and not self._file_read_only and self._shelf is not None:
+            self._shelf["name"] = name
         return self
 
     # ------------------------------------------------------------------
@@ -299,11 +463,14 @@ class Empirical(Distribution):
     # transforms: each returns a new Empirical and records its op
     # ------------------------------------------------------------------
     def copy(self, file_name=None):
-        if file_name is not None:
-            raise NotImplementedError(_STORAGE)
+        """A copy in memory, or appended to the Empirical file ``file_name``."""
         self._check_finalized()
         vals = self._values.copy() if self._is_array() else list(self._values)
-        return self._derived(vals, self.log_weights, op="copy")
+        if file_name is None:
+            return self._derived(vals, self.log_weights, op="copy")
+        out = Empirical(vals, self.log_weights, file_name=file_name, name=self._name)
+        out._metadata = list(self._metadata) + [{"op": "copy"}]
+        return out.finalize()
 
     def map(self, func):
         self._check_finalized()
@@ -333,8 +500,6 @@ class Empirical(Distribution):
         from ..state import _on_host, _score
         from ..trace import Trace, Variable
 
-        if file_name is not None:
-            raise NotImplementedError(_STORAGE)
         if len(self) == 0:
             return self
         self._check_finalized()
@@ -395,8 +560,8 @@ class Empirical(Distribution):
                 new_trace.add(v)
             new_trace.end(result=trace.result, execution_time_sec=trace.execution_time_sec)
             traces.append(new_trace)
-        return self._derived(traces, [t.log_importance_weight for t in traces], op="reobserve",
-                             length=len(self))
+        out = self._derived(traces, [t.log_importance_weight for t in traces], op="reobserve", length=len(self))
+        return out if file_name is None else out.copy(file_name=file_name)
 
     def resample(self, num_samples, map_func=None):
         """Multinomial resampling to uniform weights, from the host

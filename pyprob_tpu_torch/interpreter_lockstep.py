@@ -446,8 +446,6 @@ def lockstep_interpreter_traces(
     each round."""
     from .model import empirical_of, trace_id
 
-    if file_name is not None:
-        raise NotImplementedError("file-backed Empirical results come with the storage slice")
     map_func = map_func or trace_id
     kwargs = kwargs or {}
     observe = observe or {}
@@ -508,7 +506,7 @@ def lockstep_interpreter_traces(
             log_weights.append(log_weight)
     if len(values) < num_traces:
         warnings.warn(f"Discarded {num_traces - len(values)} traces with nan/inf log_weight.")
-    emp = empirical_of(values, log_weights)
+    emp = empirical_of(values, log_weights, file_name)
     emp.add_metadata(
         lockstep_workers=W, lockstep_rounds=len(coordinator.round_rows),
         lockstep_round_rows=coordinator.round_rows, seconds=duration,

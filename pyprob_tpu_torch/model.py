@@ -13,15 +13,17 @@ class with ``_never_vectorize = True`` runs on the interpreter tier with
 ``None`` and with ``True``, as in the JAX package.  IC on the
 interpreter tier runs lockstep by default (``interpreter_lockstep.py``).
 It trains a feedforward (the default) or an LSTM inference network online
-(``learn_inference_network``), and keeps it in a file
-(``save_inference_network``, ``load_inference_network``).  ``sample``
-draws one interpreter-tier trace (``get_trace`` is its deprecated name).
-MCMC and the other engines and offline datasets come with later slices
-and raise ``NotImplementedError``.
+or from trace files (``learn_inference_network``; ``save_dataset`` writes
+the files), and keeps it in a file (``save_inference_network``,
+``load_inference_network``).  Results go to an Empirical file with
+``file_name=``.  ``sample`` draws one interpreter-tier trace
+(``get_trace`` is its deprecated name).  MCMC and the other engines come
+with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 
@@ -48,13 +50,14 @@ def trace_id(trace):
     return trace
 
 
-def empirical_of(values, log_weights):
+def empirical_of(values, log_weights, file_name=None):
     """An Empirical of the kept traces' mapped values: one numpy array when
-    every value is a number or a tensor of one shape, else the list."""
+    every value is a number or a tensor of one shape, else the list; with
+    ``file_name``, appended to that Empirical file."""
     values = values_of(values)
     if isinstance(values, np.ndarray):
-        return Empirical.from_arrays(values, log_weights)
-    return Empirical(values=values, log_weights=log_weights)
+        return Empirical.from_arrays(values, log_weights, file_name=file_name)
+    return Empirical(values=values, log_weights=log_weights, file_name=file_name)
 
 
 class Model:
@@ -118,8 +121,6 @@ class Model:
         """``num_traces`` interpreter-tier traces, one after another, as an
         Empirical of ``map_func(trace)`` (the trace itself by default);
         traces with a NaN or infinite weight are discarded."""
-        if file_name is not None:
-            raise NotImplementedError("file-backed Empirical results come with the storage slice")
         generator = self._trace_generator(
             trace_mode=trace_mode,
             prior_inflation=prior_inflation,
@@ -141,7 +142,7 @@ class Model:
                 continue
             values.append(map_func(trace))
             log_weights.append(log_weight)
-        emp = empirical_of(values, log_weights)
+        emp = empirical_of(values, log_weights, file_name)
         if not silent and util.verbosity() > 1:
             duration = time.time() - time_start
             util.log_print(
@@ -379,26 +380,31 @@ class Model:
         keep_best_observe=None,
         keep_best_num_traces=100000,
     ):
-        """Train the model's inference network online on traces drawn from
-        its prior (a new network on the first call, continued after).
-        ``ema_decay``: Polyak/EMA parameter averaging per optimizer step;
-        proposals are served from the debiased average.  This port trains
-        the feedforward (the default) and the LSTM network from an online
-        dataset, saving it as ``save_file_name_prefix`` asks; offline
-        datasets and validation, tied address instances and keep-best
-        selection raise ``NotImplementedError`` naming their slice."""
-        from .nn import InferenceNetworkFeedForward, InferenceNetworkLSTM, OnlineDataset
+        """Train the model's inference network (a new network on the first
+        call, continued after) on traces drawn from its prior, or on the
+        trace files of ``dataset_dir`` (``save_dataset`` writes them), with
+        a validation loss on those of ``dataset_valid_dir`` every
+        ``valid_every`` traces.  ``ema_decay``: Polyak/EMA parameter
+        averaging per optimizer step; proposals are served from the
+        debiased average.  ``keep_best``: probe a metric every
+        ``keep_best_every`` traces and at the end, and restore the best
+        probed state: ``keep_best_metric`` (a callable ``net -> float``,
+        higher is better); or, given ``keep_best_observe``, the guided-IS
+        ESS fraction of ``keep_best_num_traces`` traces of this model on
+        the batched tier; or, given ``dataset_valid_dir``, the negative
+        validation loss.  Tied address instances and distributed training
+        raise ``NotImplementedError`` naming their slice."""
+        from .nn import InferenceNetworkFeedForward, InferenceNetworkLSTM, OfflineDataset, OnlineDataset
 
-        if dataset_dir is not None or dataset_valid_dir is not None:
-            raise NotImplementedError(
-                "training from dataset_dir / dataset_valid_dir needs the "
-                "offline datasets, which come with the offline-dataset slice"
-            )
         if tie_address_instances:
             raise NotImplementedError(
                 "tie_address_instances comes with the Markov/SMC slice"
             )
-        dataset = OnlineDataset(model=self, prior_inflation=prior_inflation)
+        if dataset_dir is None:
+            dataset = OnlineDataset(model=self, prior_inflation=prior_inflation)
+        else:
+            dataset = OfflineDataset(dataset_dir=dataset_dir)
+        dataset_valid = None if dataset_valid_dir is None else OfflineDataset(dataset_dir=dataset_valid_dir)
         if self._inference_network is None:
             util.log_print("Creating new inference network...")
             if inference_network == InferenceNetwork.FEEDFORWARD:
@@ -417,11 +423,27 @@ class Model:
                 )
             else:
                 raise ValueError(f"Unknown inference_network: {inference_network}")
+            if pre_generate_layers:
+                if dataset_valid is not None:
+                    self._inference_network._pre_generate_layers(dataset_valid)
+                if dataset_dir is not None:
+                    self._inference_network._pre_generate_layers(dataset)
         else:
             util.log_print("Continuing to train existing inference network...")
+        if keep_best and keep_best_metric is None and keep_best_observe is not None:
+            engine = InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+
+            def keep_best_metric(net):
+                probe = self.posterior_results(
+                    num_traces=keep_best_num_traces, observe=keep_best_observe, vectorized=True,
+                    inference_engine=engine,
+                )
+                return probe.effective_sample_size / keep_best_num_traces
+
         self._inference_network.optimize(
             num_traces=num_traces,
             dataset=dataset,
+            dataset_valid=dataset_valid,
             num_traces_end=num_traces_end,
             batch_size=batch_size,
             valid_every=valid_every,
@@ -442,6 +464,20 @@ class Model:
             keep_best=keep_best,
             keep_best_every=keep_best_every,
             keep_best_metric=keep_best_metric,
+        )
+
+    def save_dataset(self, dataset_dir, num_traces, num_traces_per_file, prior_inflation=PriorInflation.DISABLED):
+        """Write ``num_traces`` training traces (drawn as
+        ``learn_inference_network`` draws them online) to files of
+        ``num_traces_per_file`` in ``dataset_dir``, for
+        ``learn_inference_network(dataset_dir=...)``."""
+        from .nn import OnlineDataset
+
+        if not os.path.exists(dataset_dir):
+            util.log_print(f"Directory does not exist, creating: {dataset_dir}")
+            os.makedirs(dataset_dir)
+        return OnlineDataset(self, prior_inflation=prior_inflation).save_dataset(
+            dataset_dir=dataset_dir, num_traces=num_traces, num_traces_per_file=num_traces_per_file,
         )
 
     def save_inference_network(self, file_name):

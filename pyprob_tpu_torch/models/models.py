@@ -27,14 +27,19 @@
 * LinearGaussianStateSpace: a local-level model with its Kalman filter and
   RTS smoother as ground truth.
 
+* MiniCaptcha: a letter drawn uniformly and its glyph observed under
+  Normal noise, the glyphs from a table kept in the package
+  (``glyphs_dejavusans_bold_18.bin``).
+
 Each family's ground-truth helpers are numpy float64 copies of the JAX
-package's.  MiniCaptcha, VariableLengthGaussian and the Markov variant of
-the state-space model come with later slices.
+package's.  VariableLengthGaussian and the Markov variant of the
+state-space model come with later slices.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -263,6 +268,77 @@ class BranchingCompiled(Model):
 
     def true_posterior(self, observe_value=6, support=40):
         return Branching(self.rate).true_posterior(observe_value, support)
+
+
+_GLYPH_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "glyphs_dejavusans_bold_18.bin")
+_GLYPH_FIRST, _GLYPH_LAST = 32, 126  # the table's characters: printable ASCII, in code order
+_glyph_table = None
+
+
+def _glyphs():
+    """The glyph table: ``[95, 28, 28]`` uint8, the red channel of each
+    printable ASCII character as the JAX package's ``render`` draws it at
+    its default arguments (``make_glyph_table.py`` writes it)."""
+    global _glyph_table
+    if _glyph_table is None:
+        n = _GLYPH_LAST - _GLYPH_FIRST + 1
+        _glyph_table = np.fromfile(_GLYPH_FILE, dtype=np.uint8).reshape(n, 28, 28)
+    return _glyph_table
+
+
+def _render_with_pil(font, text, size, height, width, x, y):
+    try:
+        from PIL import Image, ImageDraw, ImageFont
+    except ImportError as e:
+        raise ImportError(
+            "MiniCaptcha.render needs PIL for text, sizes, offsets or fonts other "
+            "than one printable ASCII character at the defaults"
+        ) from e
+    if font is None:
+        import matplotlib
+
+        font = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data", "fonts", "ttf", "DejaVuSans-Bold.ttf")
+    canvas = Image.new("RGB", (height, width), (255, 255, 255))
+    ImageDraw.Draw(canvas).text((x, y), text, font=ImageFont.truetype(font, size=size), fill="#000000")
+    return np.asarray(canvas)[:, :, 0]
+
+
+class MiniCaptcha(Model):
+    """One letter of ``alphabet`` drawn uniformly (site ``letter_id``, a
+    Categorical) and its 28 × 28 glyph observed under Normal noise as one
+    784-vector ``query_image`` (``[N, 784]`` on the batched tier).  The
+    glyphs come from the package's glyph table, equal to the bit to the
+    JAX package's PIL rendering; other text, sizes, offsets or fonts go
+    through PIL, as the JAX package always does."""
+
+    def __init__(self, alphabet=("A", "B", "C", "D", "E", "F"), noise=0.1, font=None):
+        super().__init__(name="MiniCaptcha")
+        self._alphabet = list(alphabet)
+        self._noise = noise
+        self._font = font
+        self._tables = _OnDevice(images=np.stack([self.render(a) for a in self._alphabet]))
+
+    @property
+    def alphabet(self):
+        return self._alphabet
+
+    def render(self, text, size=18, height=28, width=28, x=6, y=6):
+        """The image of ``text`` as a float32 784-vector, 1 where ink is."""
+        code = ord(text) if len(text) == 1 else -1
+        if (self._font is None and (size, height, width, x, y) == (18, 28, 28, 6, 6)
+                and _GLYPH_FIRST <= code <= _GLYPH_LAST):
+            red = _glyphs()[code - _GLYPH_FIRST]
+        else:
+            red = _render_with_pil(self._font, text, size, height, width, x, y)
+        return (1.0 - red / 255.0).reshape(-1).astype(np.float32)
+
+    def forward(self):
+        device = util.param_device()
+        images = self._tables("images", device)
+        probs = torch.full((len(self._alphabet),), 1.0 / len(self._alphabet), dtype=util.dtype(), device=device)
+        letter_id = sample(Categorical(probs=probs))
+        observe(Normal(images[letter_id], self._noise), name="query_image")
+        return letter_id
 
 
 class EightSchools(Model):

@@ -1,4 +1,8 @@
 from .layers import (
+    cnn2d5c_apply,
+    cnn2d5c_init,
+    cnn3d5c_apply,
+    cnn3d5c_init,
     lstm_init,
     lstm_step,
     lstm_zero_state,
@@ -6,7 +10,18 @@ from .layers import (
     mlp_init,
 )
 from .proposals import head_apply, head_init, head_kind_for, prior_param_arrays
-from .dataset import Batch, OnlineDataset, PackedBatch, prune_trace
+from .optimizer_larc import LARC, larc_scale
+from .dataset import (
+    Batch,
+    DistributedTraceBatchSampler,
+    OfflineDataset,
+    OfflineDatasetFile,
+    OnlineDataset,
+    PackedBatch,
+    TraceBatchSampler,
+    TraceSampler,
+    prune_trace,
+)
 from .inference_network import InferenceNetwork
 from .inference_network_feedforward import InferenceNetworkFeedForward
 from .inference_network_lstm import InferenceNetworkLSTM
@@ -17,12 +32,23 @@ __all__ = [
     "lstm_init",
     "lstm_step",
     "lstm_zero_state",
+    "cnn2d5c_init",
+    "cnn2d5c_apply",
+    "cnn3d5c_init",
+    "cnn3d5c_apply",
     "head_kind_for",
     "head_init",
     "head_apply",
     "prior_param_arrays",
+    "LARC",
+    "larc_scale",
     "Batch",
     "OnlineDataset",
+    "OfflineDataset",
+    "OfflineDatasetFile",
+    "TraceSampler",
+    "TraceBatchSampler",
+    "DistributedTraceBatchSampler",
     "PackedBatch",
     "prune_trace",
     "InferenceNetwork",

@@ -11,15 +11,21 @@ package's optax chains) at a learning rate computed on the host each step
 beside them when asked, and serving reads the debiased average, detached:
 serving never records an autograd graph.
 
-``optimize`` ports the online, single-process path without validation.
-The loop is the JAX package's fused online loop at one step per
-dispatch: each step draws a device batch, packs it, takes loss/B and
-grads/B, updates and folds the EMA, with no ``lax.scan``.  A model that
-runs only on the interpreter tier trains on materialized batches instead,
-as the JAX package's generic loop does: each is polymorphed, and when it
-grows new layers the optimizer is recreated with fresh state.  Offline
-datasets, validation and keep-best selection, LARC and distributed
-training raise ``NotImplementedError`` naming their slice.
+``optimize`` ports the single-process paths.  The online loop is the JAX
+package's fused online loop at one step per dispatch: each step draws a
+device batch, packs it, takes loss/B and grads/B, updates and folds the
+EMA, with no ``lax.scan``.  A model that runs only on the interpreter
+tier trains on materialized batches instead, as the JAX package's generic
+loop does: each is polymorphed, and when it grows new layers the
+optimizer is recreated with fresh state.  An offline dataset trains in
+that generic loop too, on batches of stored traces
+(``TraceBatchSampler``), packed as the interpreter tier's batches are
+(the per-type loss, or the LSTM's gather-table loss on mixed trace
+types).  Both loops take the validation loss on ``dataset_valid`` and
+``keep_best``'s probes.  ADAM_LARC and SGD_LARC scale each leaf's
+gradient by ``optimizer_larc.larc_scale`` at the step's learning rate
+before the base optimizer's step.  Distributed training raises
+``NotImplementedError`` naming its slice.
 
 ``_save`` and ``_load`` keep a network in a file as the JAX package does
 (a gzip tar holding one pickle, ``class_name`` picking the class), with
@@ -55,13 +61,32 @@ from .. import util
 from ..util import LearningRateScheduler, ObserveEmbedding, Optimizer
 from ..vectorized import _TraceabilityCache
 from .dataset import Batch, OnlineDataset, PackedBatch
-from .layers import map_tensors, mlp_apply, mlp_from_numpy, mlp_init, mlp_to_numpy, tensor_leaves
+from .layers import (
+    cnn2d5c_apply,
+    cnn2d5c_init,
+    cnn3d5c_apply,
+    cnn3d5c_init,
+    cnn_from_numpy,
+    cnn_to_numpy,
+    map_tensors,
+    mlp_apply,
+    mlp_from_numpy,
+    mlp_init,
+    mlp_to_numpy,
+    tensor_leaves,
+)
+from .optimizer_larc import LARC
 
 
 # the pickle's member in a saved network's tar (the JAX package's is
 # "pyprob_tpu_inference_network")
 _CHECKPOINT_MEMBER = "pyprob_tpu_torch_inference_network"
 _JAX_CHECKPOINT_MEMBER = "pyprob_tpu_inference_network"
+
+
+_CNN_INIT = {ObserveEmbedding.CNN2D5C: cnn2d5c_init, ObserveEmbedding.CNN3D5C: cnn3d5c_init}
+# an observe embedding's apply by its kind
+_EMBED_APPLY = {"feedforward": mlp_apply, "cnn2d5c": cnn2d5c_apply, "cnn3d5c": cnn3d5c_apply}
 
 
 def _not_ported(what, slice_name):
@@ -108,6 +133,12 @@ class InferenceNetwork:
         self._loss_previous = float("inf")
         self._history_train_loss = []
         self._history_train_loss_trace = []
+        self._history_valid_loss = []
+        self._history_valid_loss_trace = []
+        # keep_best: the probes (trace count, metric) and the best snapshot
+        self._keep_best_snapshot = None
+        self._keep_best_metric = None
+        self._keep_best_history = []
         self._modified = None
         self._updates = 0
 
@@ -166,18 +197,15 @@ class InferenceNetwork:
                     f"Unknown observe input_transform: {transform!r} "
                     "(expected 'arcsinh' or 'none')"
                 )
-            if embedding != ObserveEmbedding.FEEDFORWARD:
-                raise NotImplementedError(
-                    f"{embedding} observe embeddings come with the CNN slice"
-                )
-            self._params["observe"][name] = {
-                "kind": "feedforward",
-                "p": mlp_init(
-                    self._generator(), input_shape, (output_dim,), self._device,
-                    num_layers=depth,
-                ),
-                "tf": transform,
-            }
+            if embedding == ObserveEmbedding.FEEDFORWARD:
+                kind = "feedforward"
+                p = mlp_init(self._generator(), input_shape, (output_dim,), self._device, num_layers=depth)
+            elif embedding in _CNN_INIT:
+                kind = embedding.name.lower()
+                p = _CNN_INIT[embedding](self._generator(), input_shape, (output_dim,), self._device)
+            else:
+                raise ValueError(f"Unknown embedding: {embedding}")
+            self._params["observe"][name] = {"kind": kind, "p": p, "tf": transform}
             self._observe_meta[name] = {
                 "embedding": embedding,
                 "input_shape": input_shape,
@@ -201,11 +229,7 @@ class InferenceNetwork:
             x = obs[name]
             if layer.get("tf") == "arcsinh":
                 x = torch.asinh(x)
-            if layer["kind"] != "feedforward":
-                raise NotImplementedError(
-                    f"{layer['kind']} observe embeddings come with the CNN slice"
-                )
-            pieces.append(mlp_apply(layer["p"], x))
+            pieces.append(_EMBED_APPLY[layer["kind"]](layer["p"], x))
         return mlp_apply(params["observe_final"], torch.cat(pieces, dim=1))
 
     def _set_meta_from_numpy(self, meta):
@@ -228,15 +252,9 @@ class InferenceNetwork:
         device = self._device
         observe = {}
         for name, layer in params["observe"].items():
-            if layer["kind"] != "feedforward":
-                raise NotImplementedError(
-                    f"{layer['kind']} observe embeddings come with the CNN slice"
-                )
-            observe[name] = {
-                "kind": "feedforward",
-                "p": mlp_from_numpy(layer["p"], device),
-                "tf": layer.get("tf", "none"),
-            }
+            kind = layer["kind"]
+            from_numpy = mlp_from_numpy if kind == "feedforward" else cnn_from_numpy
+            observe[name] = {"kind": kind, "p": from_numpy(layer["p"], device), "tf": layer.get("tf", "none")}
         return {
             "observe": observe,
             "observe_final": mlp_from_numpy(params["observe_final"], device),
@@ -246,7 +264,11 @@ class InferenceNetwork:
     def _observe_params_to_numpy(params):
         return {
             "observe": {
-                name: {"kind": layer["kind"], "p": mlp_to_numpy(layer["p"]), "tf": layer["tf"]}
+                name: {
+                    "kind": layer["kind"],
+                    "p": (mlp_to_numpy if layer["kind"] == "feedforward" else cnn_to_numpy)(layer["p"]),
+                    "tf": layer["tf"],
+                }
                 for name, layer in params["observe"].items()
             },
             "observe_final": mlp_to_numpy(params["observe_final"]),
@@ -394,10 +416,11 @@ class InferenceNetwork:
         return self._params
 
     def _pre_generate_layers(self, dataset, batch_size=64, save_file_name_prefix=None):
-        """Grow the layers from example traces (a list of traces, or an
-        Empirical of them); with ``save_file_name_prefix``, save the
-        network after each batch that grew it."""
-        traces = dataset.get_values() if hasattr(dataset, "get_values") else list(dataset)
+        """Grow the layers from example traces (a list of traces, an
+        Empirical of them or an ``OfflineDataset``), batch by batch; with
+        ``save_file_name_prefix``, save the network after each batch that
+        grew it.  Training then polymorphs no batch."""
+        traces = dataset.get_values() if hasattr(dataset, "get_values") else dataset
         if not self._layers_initialized:
             self._init_layers_observe_embedding(
                 self._observe_embeddings_spec, example_trace=traces[0]
@@ -405,8 +428,9 @@ class InferenceNetwork:
             self._init_layers()
             self._layers_initialized = True
         self._layers_pre_generated = True
-        for begin in range(0, len(traces), batch_size):
-            changed = self._polymorph(Batch(traces[begin : begin + batch_size]))
+        n = len(traces)
+        for begin in range(0, n, batch_size):
+            changed = self._polymorph(Batch([traces[i] for i in range(begin, min(begin + batch_size, n))]))
             if changed and save_file_name_prefix is not None:
                 self._save(f"{save_file_name_prefix}_00000000_pre_generated.network")
         self._vps_cache = None
@@ -442,6 +466,7 @@ class InferenceNetwork:
         self._params = to_dev(snapshot["params"], training)
         self._ema_params = to_dev(snapshot["ema_params"], False)
         self._ema_steps = snapshot.get("ema_steps", 0)
+        self._infer_emb_cache = None
         if training:
             self._create_optimizer(self._optimizer.state_dict())
         self._vps_cache = None
@@ -504,6 +529,8 @@ class InferenceNetwork:
             "loss_previous": self._loss_previous,
             "history_train_loss": list(self._history_train_loss),
             "history_train_loss_trace": list(self._history_train_loss_trace),
+            "history_valid_loss": list(self._history_valid_loss),
+            "history_valid_loss_trace": list(self._history_valid_loss_trace),
             "modified": self._modified,
             "updates": self._updates,
             "subclass_state": self._subclass_state(),
@@ -584,6 +611,9 @@ class InferenceNetwork:
             "loss_previous", "history_train_loss", "history_train_loss_trace", "modified", "updates",
         ):
             setattr(net, "_" + key, data[key])
+        # files written before validation was ported have no validation history
+        net._history_valid_loss = list(data.get("history_valid_loss", []))
+        net._history_valid_loss_trace = list(data.get("history_valid_loss_trace", []))
         net._load_subclass_state(data["subclass_state"])
         if net._optimizer_type is not None and data["optimizer_state"] is not None:
             net._create_optimizer(_map_arrays(data["optimizer_state"], torch.from_numpy))
@@ -762,19 +792,24 @@ class InferenceNetwork:
         here), optionally carrying ``state_dict`` of an earlier one."""
         if self._optimizer_type is None:
             return
-        if self._optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC):
-            raise _not_ported(f"{self._optimizer_type.name} (optimizer_larc.py)", "LARC slice")
         leaves = [p.requires_grad_(True) for p in tensor_leaves(self._params)]
         wd = self._weight_decay or 0.0
         lr = self._current_learning_rate()
-        if self._optimizer_type == Optimizer.ADAM:
+        use_larc = self._optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC)
+        # with LARC the decay term is applied inside larc_scale, as the JAX
+        # package and pyprob's wrapper do: the base optimizer has none
+        base_wd = 0.0 if use_larc else wd
+        if self._optimizer_type in (Optimizer.ADAM, Optimizer.ADAM_LARC):
             # optax add_decayed_weights + scale_by_adam, then -lr
-            self._optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+            self._optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=base_wd)
         else:
             # optax add_decayed_weights + trace(nesterov=True), then -lr
             self._optimizer = torch.optim.SGD(
-                leaves, lr=lr, momentum=self._momentum or 0.9, nesterov=True, weight_decay=wd,
+                leaves, lr=lr, momentum=self._momentum or 0.9, nesterov=True, weight_decay=base_wd,
             )
+        if use_larc:
+            # the gradients scaled in place at the step's learning rate
+            self._optimizer = LARC(self._optimizer, weight_decay=wd)
         if state_dict is not None:
             self._optimizer.load_state_dict(state_dict)
 
@@ -834,15 +869,35 @@ class InferenceNetwork:
                 f"{tps:,.1f} traces/s"
             )
         if log_file is not None:
+            valid_loss = "" if state.get("valid_loss") is None else state["valid_loss"]
             log_file.write(
                 f"{self._total_train_seconds}, {self._total_train_iterations}, "
-                f"{self._total_train_traces}, {loss}, , {lr}, , 1, , {tps}\n"
+                f"{self._total_train_traces}, {loss}, {valid_loss}, {lr}, , 1, , {tps}\n"
             )
         return not bad
 
-    def _online_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss,
-                         log_file, time_start, prev_total_train_seconds,
-                         save_file_name_prefix=None, save_every_sec=None):
+    def _step_done(self, state, trace_count):
+        """After an optimizer step: the keep_best probe and the validation
+        loss when their trace counts come round."""
+        if state["next_keep_best"] is not None and trace_count >= state["next_keep_best"]:
+            state["next_keep_best"] += state["keep_best_every"]
+            self._keep_best_probe(state["keep_best_eval"])
+        if state["validate"] is not None and trace_count - state["last_validation_trace"] > state["valid_every"]:
+            state["valid_loss"] = state["validate"]()
+            self._history_valid_loss.append(state["valid_loss"])
+            self._history_valid_loss_trace.append(self._total_train_traces)
+            state["last_validation_trace"] = trace_count - 1
+
+    def _maybe_save(self, state, save_file_name_prefix, save_every_sec):
+        if save_file_name_prefix is not None and save_every_sec is not None:
+            now = time.time()
+            if now - state["last_save"] > save_every_sec:
+                state["last_save"] = now
+                self._save(self._save_file_name(save_file_name_prefix))
+
+    def _online_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss, log_file, state,
+                         time_start, prev_total_train_seconds, save_file_name_prefix=None,
+                         save_every_sec=None):
         """The online loop, one optimizer step per batch: device batches
         for a model that runs on the batched tier, materialized ones for a
         model that runs only on the interpreter tier.  The first batch is
@@ -856,7 +911,6 @@ class InferenceNetwork:
         ``save_every_sec`` on the batched tier (the JAX package's fused
         loop), at the loop's first step on the interpreter tier (its
         generic loop)."""
-        state = {"time_last_batch": time_start, "last_print": time_start - util._print_refresh_rate}
         # first batch: materialized, for polymorph and one step; a loaded
         # optimizer state survives unless the parameter structure changed
         first = Batch(dataset.next_batch(batch_size))
@@ -878,7 +932,8 @@ class InferenceNetwork:
         # that runs batched as its fused loop does, which counts it (100)
         interpreter_only = _TraceabilityCache.known_untraceable(dataset._model)
         trace_count = 0 if interpreter_only else first.size
-        last_save = None
+        if not interpreter_only:
+            self._step_done(state, trace_count)
         probed = interpreter_only
         while trace_count < num_traces:
             lr = self._current_learning_rate()
@@ -893,8 +948,12 @@ class InferenceNetwork:
                 batch = Batch(dataset.next_batch(batch_size))
                 if self._polymorph(batch):
                     self._create_optimizer()
+                if state["last_save"] is None:
+                    state["last_save"] = time_start - (save_every_sec or 0)
             else:
                 batch = self._packed_batch_from_outputs(*device_batch, batch_size)
+                if state["last_save"] is None:
+                    state["last_save"] = time_start
             loss_dev = self._loss_and_grad(batch)
             self._optimizer_step(lr)
             self._ema_update_host()
@@ -902,21 +961,78 @@ class InferenceNetwork:
             self._total_train_iterations += 1
             trace_count += batch.size
             self._total_train_traces += batch.size
+            self._step_done(state, trace_count)
             # the step's one host sync: the loss, read after the update
             # was enqueued
             ok = self._record_loss(
                 float(loss_dev), lr, batch.size, time_start, prev_total_train_seconds,
                 state, log_file,
             )
-            if save_file_name_prefix is not None and save_every_sec is not None:
-                if last_save is None:
-                    last_save = time_start - (save_every_sec if device_batch is None else 0)
-                now = time.time()
-                if now - last_save > save_every_sec:
-                    last_save = now
-                    self._save(self._save_file_name(save_file_name_prefix))
+            self._maybe_save(state, save_file_name_prefix, save_every_sec)
             if not ok and stop_with_bad_loss:
                 return
+
+    def _offline_optimize(self, dataset, num_traces, batch_size, stop_with_bad_loss, log_file, state,
+                          time_start, prev_total_train_seconds, save_file_name_prefix=None,
+                          save_every_sec=None):
+        """The loop over an offline dataset, as the JAX package's generic
+        loop runs it: epochs of hash-sorted batches (``TraceBatchSampler``,
+        their order shuffled each epoch) until ``num_traces`` traces were
+        trained, each batch polymorphed (unless the layers were
+        pre-generated), the optimizer recreated when it grew layers, a
+        batch with a NaN or infinite loss skipped."""
+        from .dataset import TraceBatchSampler
+
+        sampler = TraceBatchSampler(dataset, batch_size=batch_size, shuffle_batches=True)
+        state["last_save"] = time_start - (save_every_sec or 0)
+        trace_count = 0
+        while True:
+            for idx in sampler:
+                batch = Batch([dataset[int(i)] for i in idx])
+                layers_changed = False if self._layers_pre_generated else self._polymorph(batch)
+                if self._optimizer is None or layers_changed:
+                    self._create_optimizer()
+                    self._ema_sync_structure()
+                loss_dev = self._loss_and_grad(batch)
+                loss = float(loss_dev)
+                if math.isnan(loss) or math.isinf(loss):
+                    util.log_print(f"Cannot compute loss, skipping batch. Loss: {loss}")
+                    if stop_with_bad_loss:
+                        return
+                    continue
+                lr = self._current_learning_rate()
+                self._optimizer_step(lr)
+                self._ema_update_host()
+                self._bump_head_iterations(self._batch_addresses(batch))
+                self._total_train_iterations += 1
+                trace_count += batch.size
+                self._total_train_traces += batch.size
+                self._step_done(state, trace_count)
+                self._record_loss(loss, lr, batch.size, time_start, prev_total_train_seconds, state, log_file)
+                self._maybe_save(state, save_file_name_prefix, save_every_sec)
+                if trace_count >= num_traces:
+                    return
+
+    def _loss(self, batch):
+        """The loss/B of a batch without gradients (validation): the
+        gather-table loss where training takes it, else the per-type loss;
+        a float."""
+        with torch.no_grad():
+            loss = self._try_gather_loss(batch)
+            if loss is None:
+                loss = self._per_type_loss(batch)
+        return float(loss)
+
+    def _keep_best_probe(self, eval_fn):
+        """Evaluate the metric (higher is better) on the current state,
+        record it, and snapshot the state (the EMA average included) if it
+        is the best of this ``optimize`` call."""
+        m = float(eval_fn(self))
+        self._keep_best_history.append((self._total_train_traces, m))
+        if self._keep_best_metric is None or m > self._keep_best_metric:
+            self._keep_best_metric = m
+            self._keep_best_snapshot = self.snapshot_params()
+        return m
 
     def _save_file_name(self, prefix):
         return f"{prefix}_{util.get_time_stamp()}_traces_{self._total_train_traces}.network"
@@ -949,28 +1065,49 @@ class InferenceNetwork:
         keep_best_every=None,
         keep_best_metric=None,
     ):
-        """Train online for ``num_traces`` traces (in whole batches).
-        ``ema_decay``: keep a Polyak/EMA average of the parameters per
-        optimizer step and serve proposals from it, debiased.  The
-        learning-rate settings, the optimizer and ``num_traces_end`` are
-        latched by the first call; later calls continue the schedule on
-        the cumulative trace count.  ``save_file_name_prefix``: save the
+        """Train for ``num_traces`` traces (in whole batches) from an
+        ``OnlineDataset`` or an ``OfflineDataset``.  ``ema_decay``: keep a
+        Polyak/EMA average of the parameters per optimizer step and serve
+        proposals from it, debiased.  ``dataset_valid`` (an
+        ``OfflineDataset``): the mean loss over its batches every
+        ``valid_every`` traces (default max(100, num_traces / 1000)), kept
+        in ``_history_valid_loss``.  ``keep_best``: probe
+        ``keep_best_metric`` (``net -> float``, higher is better; default
+        with ``dataset_valid`` the negative validation loss of the serving
+        parameters) every ``keep_best_every`` traces (default a quarter of
+        ``num_traces``) and at the end, then restore the best probed state.
+        The learning-rate settings, the optimizer and ``num_traces_end``
+        are latched by the first call; later calls continue the schedule
+        on the cumulative trace count.  ``save_file_name_prefix``: save the
         network every ``save_every_sec`` seconds and at the end, as
         ``{prefix}_{time stamp}_traces_{trained traces}.network``."""
-        if not isinstance(dataset, OnlineDataset):
-            raise _not_ported("training from an offline dataset", "offline-dataset slice")
+        from .dataset import OfflineDataset, TraceBatchSampler
+
         if distributed_backend is not None:
             raise _not_ported(f"distributed_backend={distributed_backend!r}", "distributed slice")
-        if dataset_valid is not None:
-            raise _not_ported("validation (dataset_valid)", "offline-dataset slice")
-        if keep_best:
-            raise _not_ported("keep_best checkpoint selection", "offline-dataset slice")
-        if optimizer_type in (Optimizer.ADAM_LARC, Optimizer.SGD_LARC):
-            raise _not_ported(f"{optimizer_type.name} (optimizer_larc.py)", "LARC slice")
+        if not isinstance(dataset, (OnlineDataset, OfflineDataset)):
+            raise TypeError(f"Expecting an OnlineDataset or an OfflineDataset, got {type(dataset).__name__}")
         if not self._layers_initialized:
             self._init_layers_observe_embedding(self._observe_embeddings_spec, example_trace=dataset[0])
             self._init_layers()
             self._layers_initialized = True
+        validate = None
+        if dataset_valid is not None:
+            valid_sampler = TraceBatchSampler(dataset_valid, batch_size=batch_size, shuffle_batches=False)
+            valid_batches = [[int(i) for i in idx] for idx in valid_sampler]
+            if not self._layers_pre_generated:
+                grew = False
+                for idx in valid_batches:
+                    grew = self._polymorph(Batch([dataset_valid[i] for i in idx])) or grew
+                if grew and self._optimizer is not None:
+                    self._create_optimizer()
+
+            def validate():
+                total = sum(self._loss(Batch([dataset_valid[i] for i in idx])) for idx in valid_batches)
+                return total / max(len(valid_batches), 1)
+
+        if valid_every is None:
+            valid_every = max(100, num_traces / 1000)
         if self._optimizer_type is None:
             self._optimizer_type = optimizer_type
         if self._momentum is None:
@@ -987,6 +1124,41 @@ class InferenceNetwork:
             self._total_train_traces_end = num_traces_end
         if ema_decay is not None:
             self._ema_decay = ema_decay
+        # keep_best: per-call state; the final state competes in a last
+        # probe before the best snapshot is restored
+        self._keep_best_snapshot = None
+        self._keep_best_metric = None
+        keep_best_eval = None
+        if keep_best:
+            if keep_best_metric is not None:
+                keep_best_eval = keep_best_metric
+            elif validate is not None:
+
+                def keep_best_eval(net):
+                    # the validation loss of the serving parameters (the
+                    # EMA average when averaging is on)
+                    raw = net._params
+                    net._params = net._serving_params()
+                    try:
+                        return -validate()
+                    finally:
+                        net._params = raw
+
+            else:
+                raise ValueError(
+                    "keep_best needs keep_best_metric (a callable net -> float, "
+                    "higher is better) or dataset_valid"
+                )
+            if keep_best_every is None:
+                keep_best_every = max(batch_size, int(num_traces) // 4)
+        time_start = time.time()
+        state = {
+            "time_last_batch": time_start, "last_print": time_start - util._print_refresh_rate,
+            "last_save": None, "validate": validate, "valid_every": valid_every,
+            "last_validation_trace": -valid_every + 1, "valid_loss": None,
+            "keep_best_eval": keep_best_eval, "keep_best_every": keep_best_every,
+            "next_keep_best": keep_best_every if keep_best_eval is not None else None,
+        }
         log_file = None
         if log_file_name is not None:
             log_file = open(log_file_name, mode="w", buffering=1)
@@ -995,14 +1167,18 @@ class InferenceNetwork:
                 "mean_trace_length_controlled, sub_mini_batches, "
                 "distributed_bucket_id, traces_per_second\n"
             )
+        loop = self._offline_optimize if isinstance(dataset, OfflineDataset) else self._online_optimize
         try:
-            self._online_optimize(
-                dataset, num_traces, batch_size, stop_with_bad_loss, log_file,
-                time.time(), self._total_train_seconds, save_file_name_prefix, save_every_sec,
+            loop(
+                dataset, num_traces, batch_size, stop_with_bad_loss, log_file, state,
+                time_start, self._total_train_seconds, save_file_name_prefix, save_every_sec,
             )
         finally:
             if log_file is not None:
                 log_file.close()
+        if keep_best_eval is not None:
+            self._keep_best_probe(keep_best_eval)
+            self.restore_params(self._keep_best_snapshot)
         if save_file_name_prefix is not None:
             self._save(self._save_file_name(save_file_name_prefix))
 

@@ -1,6 +1,7 @@
 """Functional neural layers over dicts of tensors.
 
-Counterpart of ``pyprob_tpu/nn/layers.py`` (linear, MLP, LSTM): each layer
+Counterpart of ``pyprob_tpu/nn/layers.py`` (linear, MLP, LSTM, the
+5-convolution CNNs): each layer
 is a pair ``*_init(generator, ...) -> params`` and ``*_apply(params, x)``
 over plain dicts, so a network's per-address layers are dict entries, as
 in the JAX package.  Weights use PyTorch's layout (``[out, in]``, LSTM
@@ -9,7 +10,8 @@ default initialisation, U(−1/√fan_in, 1/√fan_in).  The ``*_from_numpy``
 functions take the JAX package's parameter dicts (weights ``[in, out]``,
 ``Static`` metadata already unwrapped) and own every transpose; the
 ``*_to_numpy`` functions give that layout back.  Matmuls stay with cuBLAS
-in full float32.
+and convolutions with cuDNN (``F.conv2d``/``conv3d``, VALID padding, as
+the JAX package's ``lax.conv_general_dilated``), in full float32.
 """
 
 from __future__ import annotations
@@ -208,6 +210,127 @@ def lstm_to_numpy(p):
             }
             for layer in p["layers"]
         ],
+        "meta": dict(p["meta"]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# CNNs (the 5-convolution observe embeddings)
+# ---------------------------------------------------------------------------
+
+
+def conv_init(generator, in_ch, out_ch, kernel_shape, device):
+    """Weights ``[out, in, *kernel]`` (OIHW / OIDHW, the JAX package's layout
+    too) and bias, U(−1/√fan_in, 1/√fan_in)."""
+    fan_in = in_ch * int(np.prod(kernel_shape))
+    bound = 1.0 / math.sqrt(fan_in)
+    return {
+        "w": _uniform(generator, (out_ch, in_ch) + tuple(kernel_shape), bound, device),
+        "b": _uniform(generator, (out_ch,), bound, device),
+    }
+
+
+def conv_apply(params, x, ndim):
+    """x: ``[B, C, *spatial]``; stride 1, VALID padding."""
+    conv = F.conv2d if ndim == 2 else F.conv3d
+    return conv(x, params["w"], params["b"])
+
+
+def max_pool(x, ndim, window=2):
+    pool = F.max_pool2d if ndim == 2 else F.max_pool3d
+    return pool(x, window)
+
+
+def _cnn_forward(params, x, ndim):
+    convs = params["convs"]
+    x = torch.relu(conv_apply(convs[0], x, ndim))
+    x = torch.relu(conv_apply(convs[1], x, ndim))
+    x = max_pool(x, ndim)
+    for c in convs[2:]:
+        x = torch.relu(conv_apply(c, x, ndim))
+    x = max_pool(x, ndim)
+    return x.reshape(x.shape[0], -1)
+
+
+def _cnn_flat_dim(spatial):
+    """The flattened size per channel after the five convolutions and two
+    pools; raises where an input is too small to leave a pixel."""
+    out = []
+    for n in spatial:
+        m = ((n - 4) // 2 - 6) // 2
+        if n - 4 < 2 or (n - 4) // 2 - 6 < 2:
+            raise ValueError(
+                f"a 5-convolution embedding needs every spatial side >= 20, got {tuple(spatial)}"
+            )
+        out.append(m)
+    return int(np.prod(out))
+
+
+def _cnn_init(generator, input_shape, output_shape, device, ndim):
+    input_shape = tuple(input_shape)
+    if len(input_shape) == ndim:
+        input_shape = (1,) + input_shape
+    output_shape = (output_shape,) if isinstance(output_shape, int) else tuple(output_shape)
+    out_dim = int(np.prod(output_shape))
+    k = (3,) * ndim
+    chans = [input_shape[0], 64, 64, 128, 128, 128]
+    convs = [conv_init(generator, chans[i], chans[i + 1], k, device) for i in range(5)]
+    cnn_dim = 128 * _cnn_flat_dim(input_shape[1:])
+    return {
+        "convs": convs,
+        "lin1": linear_init(generator, cnn_dim, out_dim, device),
+        "lin2": linear_init(generator, out_dim, out_dim, device),
+        "meta": {"input_shape": input_shape, "out_shape": output_shape},
+    }
+
+
+def _cnn_apply(params, x, ndim):
+    meta = params["meta"]
+    B = x.shape[0]
+    x = _cnn_forward(params, x.reshape((B,) + tuple(meta["input_shape"])), ndim)
+    x = torch.relu(linear_apply(params["lin1"], x))
+    x = torch.relu(linear_apply(params["lin2"], x))
+    return x.reshape((B,) + tuple(meta["out_shape"]))
+
+
+def cnn2d5c_init(generator, input_shape, output_shape, device):
+    """Five 3×3 convolutions (64, 64, pool, 128, 128, 128, pool) and two
+    linear layers, over ``[C, H, W]`` inputs (pyprob's EmbeddingCNN2D5C)."""
+    return _cnn_init(generator, input_shape, output_shape, device, 2)
+
+
+def cnn2d5c_apply(params, x):
+    return _cnn_apply(params, x, 2)
+
+
+def cnn3d5c_init(generator, input_shape, output_shape, device):
+    """The 3×3×3 variant over ``[C, D, H, W]`` inputs (EmbeddingCNN3D5C)."""
+    return _cnn_init(generator, input_shape, output_shape, device, 3)
+
+
+def cnn3d5c_apply(params, x):
+    return _cnn_apply(params, x, 3)
+
+
+def cnn_from_numpy(p, device):
+    """A CNN's parameters from the JAX package's (convolution weights carried
+    as they are, linear weights transposed)."""
+    meta = dict(p["meta"])
+    meta["input_shape"] = tuple(meta["input_shape"])
+    meta["out_shape"] = tuple(meta["out_shape"])
+    return {
+        "convs": [{"w": _tensor(c["w"], device), "b": _tensor(c["b"], device)} for c in p["convs"]],
+        "lin1": linear_from_numpy(p["lin1"], device),
+        "lin2": linear_from_numpy(p["lin2"], device),
+        "meta": meta,
+    }
+
+
+def cnn_to_numpy(p):
+    return {
+        "convs": [{"w": _host(c["w"]), "b": _host(c["b"])} for c in p["convs"]],
+        "lin1": linear_to_numpy(p["lin1"]),
+        "lin2": linear_to_numpy(p["lin2"]),
         "meta": dict(p["meta"]),
     }
 

@@ -12,7 +12,8 @@ PyTorch counterpart of ``pyprob_tpu/util.py``.  Differences by design:
   ``torch.Generator`` per device, created lazily from the same seed.  There
   is no global key splitting.
 * Matmuls and convolutions run in full float32 (TF32 off), as the JAX
-  package computes; the parity tolerances assume it.
+  package computes; the parity tolerances assume it.  Convolutions take
+  cuDNN's deterministic algorithms.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ __version__ = "0.1.0"
 # The JAX package computes in full f32; TF32 would keep ~3 decimal digits.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# cuDNN's default choice for a convolution's gradients differs between two
+# identical backward passes on an H100 (chip_smoke.py, cnn_card_vs_cpu), so
+# one seed would not reproduce a CNN network's training: ask for
+# deterministic algorithms (the CNN embeddings are the port's only cuDNN use)
+torch.backends.cudnn.deterministic = True
 
 
 class TraceMode(enum.Enum):

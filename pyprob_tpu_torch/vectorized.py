@@ -779,10 +779,6 @@ def vectorized_traces(
     is marked untraceable for its class and None is returned, as is at
     once for a class already marked: the caller runs the interpreter
     tier."""
-    if file_name is not None:
-        raise NotImplementedError(
-            "file-backed Empirical results come with the storage slice"
-        )
     if _skips_batched_tier(model, fallback):
         return None
     if observe is not None and any(v is None for v in observe.values()):
@@ -833,7 +829,7 @@ def vectorized_traces(
 
     if results_only and isinstance(outputs["result"], torch.Tensor):
         values = _host(outputs["result"])[keep]
-        emp = Empirical.from_arrays(values, log_weights[keep], effective_sample_size=ess)
+        emp = Empirical.from_arrays(values, log_weights[keep], effective_sample_size=ess, file_name=file_name)
     else:
         traces = _materialize_traces(sites, outputs, dists, sizes)
         if map_func is not None:
@@ -842,6 +838,7 @@ def vectorized_traces(
             values=values_of([v for v, k in zip(traces, keep) if k]),
             log_weights=log_weights[keep],
             effective_sample_size=ess,
+            file_name=file_name,
         )
     emp.add_metadata(log_evidence=log_evidence)
     if rounds:

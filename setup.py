@@ -18,7 +18,11 @@ setup(
     packages=find_packages(
         include=["pyprob_tpu", "pyprob_tpu.*", "pyprob_tpu_torch", "pyprob_tpu_torch.*"]
     ),
-    package_data={"pyprob_tpu.ppx": ["ppx.fbs"], "pyprob_tpu_torch.ops": ["csrc/*.cu"]},
+    package_data={
+        "pyprob_tpu.ppx": ["ppx.fbs"],
+        "pyprob_tpu_torch.ops": ["csrc/*.cu"],
+        "pyprob_tpu_torch.models": ["glyphs_dejavusans_bold_18.bin"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -16,7 +16,11 @@ shows how often the recipe meets each criterion in either package.
     python tests/event_ic_reference.py [--paths mvn_ff ...] [--seeds 8]
         [--traces N]
 
-The seeds are the JAX test's and the ones after it.  Prints one JSON line
+The MiniCaptcha paths (``mini_captcha_ff``, ``mini_captcha_lstm``) train
+the JAX tests' CNN recipe (tests/test_inference.py:591-655) and judge the
+MAP accuracy by ``post.mode`` over the six letters at 512 traces, above
+0.8, from seeds 0-7.  The other seeds are the JAX test's and the ones
+after it.  Prints one JSON line
 a path, package and seed, then one a path and package with the shares.
 Keep ``--traces`` to the feedforward paths: an LSTM at 10^6 particles
 takes several GiB of host memory.
@@ -66,6 +70,35 @@ PATHS = {
 }
 
 
+# the MiniCaptcha IC tests' recipe (tests/test_inference.py:591-655): a
+# CNN2D5C embedding of the 28 x 28 glyph, batch 128, lr 0.002, LSTM dim 128;
+# MAP accuracy by post.mode over the six letters at 512 traces each
+CAPTCHA = {"traces": 8192, "batch_size": 128, "learning_rate": 0.002, "dim": 32, "lstm_dim": 128,
+           "serve": 512, "accuracy": 0.8}
+CAPTCHA_PATHS = {"mini_captcha_ff": "FEEDFORWARD", "mini_captcha_lstm": "LSTM"}
+
+
+def run_captcha(pp, path, seed):
+    """One seed of a MiniCaptcha path: {"batched_accuracy": [accuracy,
+    limit, met]}."""
+    pp.seed(seed)
+    model = pp.models.MiniCaptcha()
+    model.learn_inference_network(
+        num_traces=CAPTCHA["traces"],
+        observe_embeddings={"query_image": {"dim": CAPTCHA["dim"], "reshape": [1, 28, 28],
+                                            "embedding": pp.ObserveEmbedding.CNN2D5C}},
+        inference_network=getattr(pp.InferenceNetwork, CAPTCHA_PATHS[path]), batch_size=CAPTCHA["batch_size"],
+        learning_rate_init=CAPTCHA["learning_rate"], lstm_dim=CAPTCHA["lstm_dim"])
+    ic = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    correct = [
+        int(np.asarray(model.posterior_results(CAPTCHA["serve"], observe={"query_image": model.render(a)},
+                                               vectorized=True, inference_engine=ic).mode)) == i
+        for i, a in enumerate(model.alphabet)
+    ]
+    accuracy = sum(correct) / len(correct)
+    return {"batched_accuracy": [accuracy, CAPTCHA["accuracy"], accuracy > CAPTCHA["accuracy"]]}
+
+
 def criteria(post, n, base, limits):
     """{criterion: [value, limit, met]}: the mean within ``tol`` of the
     truth (or of the reference prior IS's), the ESS fraction above the
@@ -103,7 +136,7 @@ def run(pp, model_class, path, seed, traces):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--paths", nargs="+", default=sorted(PATHS), choices=sorted(PATHS))
+    parser.add_argument("--paths", nargs="+", default=sorted(PATHS), choices=sorted(PATHS) + sorted(CAPTCHA_PATHS))
     parser.add_argument("--seeds", type=int, default=8)
     parser.add_argument("--traces", type=int, default=0)
     args = parser.parse_args()
@@ -111,11 +144,14 @@ def main():
     for pp in (pyprob_tpu, pyprob_tpu_torch):
         pp.set_verbosity(0)
     for path in args.paths:
-        seeds = [PATHS[path][3] + i for i in range(args.seeds)]
+        seeds = [(PATHS[path][3] if path in PATHS else 0) + i for i in range(args.seeds)]
         for package, pp in (("pyprob_tpu", pyprob_tpu), ("pyprob_tpu_torch", pyprob_tpu_torch)):
             met = {}
             for seed in seeds:
-                line = run(pp, PATHS[path][0][package == "pyprob_tpu_torch"], path, seed, args.traces)
+                if path in CAPTCHA_PATHS:
+                    line = run_captcha(pp, path, seed)
+                else:
+                    line = run(pp, PATHS[path][0][package == "pyprob_tpu_torch"], path, seed, args.traces)
                 for k, v in line.items():
                     met[k] = met.get(k, 0) + v[2]
                 print(json.dumps({"path": path, "package": package, "seed": seed, **line}), flush=True)

@@ -13,7 +13,7 @@ The ground-truth helpers equal the JAX package's to 1e-12 (numpy float64
 on both sides).  The JAX tests' small cases: BayesianLinearRegression's
 prior IS at 20,000 traces within 0.12 of the conjugate mean
 (tests/test_models_builtin.py:184-197) and the structural test over the
-port's model zoo (:326-345, MiniCaptcha not ported).
+port's model zoo (:326-345, MiniCaptcha among them).
 
 The mixtures: an all-Normal Mixture whose components are ``[N, D]`` and
 whose value is a data vector ``[D]`` is scored by the kernel on ``N·D``

@@ -270,11 +270,23 @@ def test_construction_lifecycle_and_metadata(tmp_path):
     {"concat_empiricals": []},
     {"concat_empirical_file_names": ["x.db"]},
 ])
-def test_file_modes_raise_naming_the_storage_slice(kwargs):
-    with pytest.raises(NotImplementedError, match="storage slice"):
-        TD.Empirical(**kwargs)
-    with pytest.raises(NotImplementedError, match="storage slice"):
-        TD.Empirical(values=[1.0]).copy(file_name="x.db")
+def test_file_modes_raise_naming_the_storage_slice(kwargs, tmp_path):
+    """The storage modes, which raised naming the storage slice until it
+    was ported, now open: a new file is an empty FILE Empirical, an empty
+    concatenation has no values, and a concatenation of a file that does
+    not exist raises FileNotFoundError (read-only; the JAX package would
+    create it empty).  A copy to a file holds the values and weights."""
+    kwargs = {k: str(tmp_path / v) if k == "file_name" else v for k, v in kwargs.items()}
+    if "concat_empirical_file_names" in kwargs:
+        with pytest.raises(FileNotFoundError):
+            TD.Empirical(concat_empirical_file_names=[str(tmp_path / "x.db")])
+    else:
+        e = TD.Empirical(**kwargs)
+        assert len(e) == 0 and e.empirical_type in (TD.EmpiricalType.FILE, TD.EmpiricalType.CONCAT_MEMORY)
+        e.close()
+    c = TD.Empirical(values=[1.0], log_weights=[0.5]).copy(file_name=str(tmp_path / "copy.db"))
+    assert c.get_values() == [1.0] and c.log_weights.tolist() == [0.5]
+    c.close()
 
 
 def test_empirical_to_categorical_matches():

@@ -266,15 +266,20 @@ def test_learn_inference_network_serves_the_posterior(tmp_path):
     assert post.effective_sample_size > 0.15 * 5_000
 
 
-def test_unported_training_branches_raise():
+def test_unported_training_branches_raise(tmp_path):
+    """What is not ported raises naming its slice; the branches ported
+    since (offline datasets, keep_best, LARC) raise only for a missing
+    directory or metric, as the JAX package does, and ADAM_LARC trains."""
     model = GaussianUnknownMean()
     kw = dict(num_traces=64, observe_embeddings={"obs0": {}, "obs1": {}}, batch_size=32)
-    for extra, match in (
-        ({"dataset_dir": "x"}, "offline-dataset slice"),
-        ({"tie_address_instances": True}, "Markov/SMC slice"),
-        ({"keep_best": True}, "offline-dataset slice"),
-        ({"distributed_backend": "nccl"}, "distributed slice"),
-        ({"optimizer_type": TOpt.ADAM_LARC}, "LARC slice"),
+    for extra, error, match in (
+        ({"dataset_dir": str(tmp_path / "missing")}, FileNotFoundError, "No dataset directory"),
+        ({"tie_address_instances": True}, NotImplementedError, "Markov/SMC slice"),
+        ({"keep_best": True}, ValueError, "keep_best needs keep_best_metric"),
+        ({"distributed_backend": "nccl"}, NotImplementedError, "distributed slice"),
     ):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             model.learn_inference_network(inference_network=TNet.LSTM, **kw, **extra)
+    model.reset_inference_network()
+    model.learn_inference_network(inference_network=TNet.LSTM, optimizer_type=TOpt.ADAM_LARC, lstm_dim=8, **kw)
+    assert model._inference_network._total_train_traces == 64
