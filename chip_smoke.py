@@ -14,7 +14,10 @@ regression; and for the Empirical result surface, the built-in
 EightSchools, regression, GaussianMixture and LinearGaussianStateSpace
 families and IC on the last; and for the rest of learn_inference_network:
 LARC, the CNN observe embeddings with MiniCaptcha, training from trace
-files with validation and keep_best, and file-backed results.
+files with validation and keep_best, and file-backed results; and for
+the MCMC engines (LMH and RMH, batched chains and the interpreter chain,
+ChainState resumes, rejection blocks, GP and GaussianMixture chains) and
+the rest of the Model API (posterior_predictive, condition, ParallelModel).
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -310,7 +313,37 @@ Phases, each printing one JSON line:
     lstm128 network by lockstep at 4,000 traces, each in memory and into
     a file from one seed: reopened, the values and log weights equal to
     the bit, mean and ESS equal; the files' concatenation equal to the
-    memory results'; the host seconds to write and reopen.
+    memory results'; the host seconds to write and reopen;
+55. mcmc_gum: GUM under LMH and RMH as 1,024 batched chains at 262,144
+    transitions and as the interpreter chain at 7,000 steps
+    (tests/test_inference.py:135-157), each held to _check_gum (mean and
+    stddev within 0.75, KL < 0.25); acceptance and reuse rates, steps/s and
+    transitions/s;
+56. mcmc_resume: a ChainState saved and loaded equal to the bit, resumed
+    (each chain from its own state; tests/test_vectorized.py:165-217's
+    limits), resumed under a changed observation (rescored), and the
+    interpreter chain resumed from initial_trace=post[-1];
+57. mcmc_marsaglia: batched chains over rejection_sample blocks
+    (tests/test_rejection.py:70-84, :113-125, the latter against a grid)
+    and the while-loop model under RMH on the interpreter
+    (tests/test_model.py:137-141);
+58. mcmc_gp: GP regression at N = 256 under RMH, 1,024 chains, 262,144
+    transitions, the mean within 0.6 grid stddevs; kernel 4 four times a
+    step at [1024, 256, 256], timed at that shape beside its bound; the
+    step's device-busy and wall time (torch.profiler over 32 resumed
+    steps); peak memory with the [16384, 256, 256] warm-start pool;
+59. mcmc_gmm: GaussianMixture K = 2 on 40 data under LMH and RMH, 1,024
+    chains: the sorted component means within 0.25 of 10^6 prior IS's
+    stddev; kernel 1 once a step at 40,960 rows, timed there;
+60. posterior_predictive: the predictive of obs0 within 0.2 of 7.25 at
+    3,000 draws (tests/test_model.py:179-200) from batched LMH traces and
+    from lockstep IC, the latents pinned;
+61. conditional: condition / filter with the timeout
+    (tests/test_model.py:147-166) and a conditional posterior;
+62. parallel: ParallelModel with 4 workers on the card: prior IS into
+    chunk files, guided IC by lockstep in each worker (the lstm128
+    network; its ESS within 10 % of an in-process lockstep run's), MCMC
+    refused; the workers' start-up seconds.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -628,6 +661,15 @@ OFFLINE = {"traces": 51_200, "per_file": 12_800, "valid_traces": 2560, "ff_ess_f
 KEEP_BEST = {"train_traces": 51_200, "every": 12_800, "probe_traces": 100_000, "serve_seed": 79}
 # file-backed results
 EMPIRICAL_FILE = {"traces": 1_000_000, "lockstep_traces": 4000, "seed": 80}
+# the MCMC slice's phases: GUM chains at 1,024 x 256 transitions, the JAX
+# tests' 7,000 interpreter steps and their burn-in (tests/test_inference.py:
+# 135-157), the GP mean's limit in grid stddevs (the JAX test's for HMC,
+# tests/test_models_builtin.py:225-243), GaussianMixture's in IS stddevs,
+# posterior_predictive's (tests/test_model.py:179-200), ParallelModel's
+MCMC = {"transitions": 262_144, "chains": 1024, "interpreter_steps": 7000,
+        "interpreter_burn_in": {"lmh": 1500, "rmh": 1000}, "gp_mean_tol": 0.6, "gmm_tol": 0.25,
+        "gmm_is_traces": 1_000_000, "predictive_traces": 3000, "predictive_tol": 0.2,
+        "parallel_workers": 4, "parallel_traces": 8000, "parallel_relative_band": 0.1, "seed": 90}
 # the online arms' ESS fractions at 10^6 (phases 9 and 20), printed beside
 # the offline arms'
 ONLINE_ESS = {}
@@ -637,7 +679,12 @@ ONLINE_ESS = {}
 MEMORY_RATE, F32_RATE = 3.35e12, 67e12
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}  # since the script started
     print(json.dumps(obj), flush=True)
 
 
@@ -4448,6 +4495,491 @@ def phase_empirical_file(device, tmp, lstm_model):
     return path
 
 
+def kl_normal(m, s, m0, s0):
+    """KL(N(m, s) || N(m0, s0)), as tests/test_inference.py:71-73 computes it."""
+    return math.log(s0 / s) + (s * s + (m - m0) ** 2) / (2 * s0 * s0) - 0.5
+
+
+def check_gum_chain(post, label, burn_in=0):
+    """_check_gum (tests/test_inference.py:67-81, without its ESS floor):
+    mean within 0.75 of 7.25, stddev within 0.75 of sqrt(1/1.2), KL < 0.25."""
+    if burn_in:
+        post = post[burn_in:]
+    mean, std = float(post.mean), float(post.stddev)
+    kl = kl_normal(mean, max(std, 1e-3), 7.25, math.sqrt(1 / 1.2))
+    check(abs(mean - 7.25) < 0.75 and abs(std - math.sqrt(1 / 1.2)) < 0.75 and kl < 0.25,
+          f"{label}: mean {mean}, stddev {std}, KL {kl}")
+    return {"mean": mean, "stddev": std, "kl": kl}
+
+
+def chain_line(post, seconds):
+    """A batched chain run's figures from its metadata: chains, steps,
+    acceptance and reuse rates, steps/s and transitions/s on the host clock
+    of the step loop and of the whole call."""
+    meta = post.metadata[-1]
+    check("compiled" in post.name, f"not the batched chains: {post.name}")
+    C, S = meta["num_chains"], meta["num_steps"]
+    return {"chains": C, "steps": S, "burn_in": meta["burn_in"], "kept": post.length,
+            "acceptance_rate": meta["acceptance_rate"], "reuse_rate": meta["reuse_rate"],
+            "warm_start_ess": meta["warm_start_ess"], "step_loop_seconds": meta["step_seconds"],
+            "steps_per_s": S / meta["step_seconds"], "transitions_per_s": C * S / meta["step_seconds"],
+            "seconds": seconds, "transitions_per_s_whole_call": C * S / seconds}
+
+
+def interpreter_line(post, steps):
+    meta = post.metadata[-1]
+    return {"steps": steps, "seconds": meta["seconds"], "steps_per_s": steps / meta["seconds"],
+            "acceptance_rate": meta["num_traces_accepted"] / steps,
+            "reuse_rate": meta["num_samples_reused"] / max(1, meta["num_samples"])}
+
+
+def mcmc_engines():
+    import pyprob_tpu_torch as pp
+
+    return {"lmh": pp.InferenceEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS,
+            "rmh": pp.InferenceEngine.RANDOM_WALK_METROPOLIS_HASTINGS}
+
+
+def phase_mcmc_gum(device):
+    """GUM under LMH and RMH: batched chains at MCMC["transitions"] (1,024
+    chains by the defaults) and the interpreter chain at the JAX test's
+    7,000 steps (tests/test_inference.py:135-157), each held to _check_gum
+    (the interpreter's after its burn-in).  Returns the launches by run."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    m = MCMC
+    pp.seed(m["seed"])
+    model = GaussianUnknownMean()
+    launches, out = {}, {}
+    for name, engine in mcmc_engines().items():
+        (post, seconds), launches[f"mcmc_gum_{name}"] = counted(device, lambda: host_timed(
+            lambda: model.posterior_results(m["transitions"], inference_engine=engine, observe=OBSERVE)))
+        line = {**chain_line(post, seconds), **check_gum_chain(post, f"mcmc_gum {name} batched")}
+        check(line["chains"] == min(max(1, m["transitions"] // 256), 1024),
+              f"mcmc_gum {name}: {line['chains']} chains, not the default")
+        interp = model.posterior_results(m["interpreter_steps"], inference_engine=engine, observe=OBSERVE,
+                                         vectorized=False)
+        out[name] = {"batched": line, "interpreter": {
+            **interpreter_line(interp, m["interpreter_steps"]),
+            **check_gum_chain(interp, f"mcmc_gum {name} interpreter", burn_in=m["interpreter_burn_in"][name])}}
+    emit({"phase": "mcmc_gum", "transitions": m["transitions"], **out, "launches": launches})
+    return launches
+
+
+def phase_mcmc_resume(device, tmp):
+    """ChainState: a save/load round trip equal to the bit; a resume in
+    which every chain continues from its own state (one LMH step: nearly
+    every chain's first kept value is its own saved value, GUM accepting
+    about 1 % of LMH moves), within tests/test_vectorized.py:165-217's
+    limits; a resume under a changed observation, rescored; and the
+    interpreter chain resumed from initial_trace=post[-1]
+    (tests/test_model.py:108-124)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Empirical
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    m = MCMC
+    engines = mcmc_engines()
+    pp.seed(m["seed"] + 1)
+    model = GaussianUnknownMean()
+    run = lambda **kw: model.posterior_results(m["transitions"], inference_engine=engines["rmh"], **kw)  # noqa: E731
+    (first, _), launches = counted(device, lambda: host_timed(lambda: run(observe=OBSERVE)))
+    state = first.final_chain_state
+    fn = os.path.join(tmp, "chains")
+    _, save_s = host_timed(lambda: state.save(fn))
+    back, load_s = host_timed(lambda: pp.ChainState.load(fn))
+    check(all(np.array_equal(back.values[a], state.values[a]) and np.array_equal(back.log_probs[a], state.log_probs[a])
+              for a in state.values) and np.array_equal(back.log_prob_observed, state.log_prob_observed)
+          and np.array_equal(back.result, state.result), "mcmc_resume: the loaded ChainState differs")
+    resumed, seconds = host_timed(lambda: run(observe=OBSERVE, initial_trace=back))
+    meta = resumed.metadata[-1]
+    mean, std = float(resumed.mean), float(resumed.stddev)
+    check(meta["burn_in"] == 0 and meta["resumed"] and resumed.final_chain_state.num_chains == state.num_chains
+          and abs(mean - 7.25) < 0.3 and abs(std - math.sqrt(1 / 1.2)) < 0.3,
+          f"mcmc_resume: resumed mean {mean}, stddev {std}, {meta}")
+    chains = model.posterior_results(state.num_chains, inference_engine=engines["lmh"], observe=OBSERVE,
+                                     initial_trace=back, return_chains=True)
+    own = float(np.mean([float(c.values_numpy()[0]) == float(back.result[i]) for i, c in enumerate(chains)]))
+    check(own > 0.8, f"mcmc_resume: {own} of the chains began from their own state")
+    obs_new = {"obs0": 0.0, "obs1": 1.0}
+    new_mean = (1.0 / 5.0 + 1.0 / 2.0) / (1.0 / 5.0 + 1.0)
+    moved = run(observe=obs_new, initial_trace=back)
+    check(abs(float(moved.mean) - new_mean) < 0.4 and moved.metadata[-1]["burn_in"] > 0,
+          f"mcmc_resume: changed observation mean {float(moved.mean)} vs {new_mean}")
+    one = model.posterior(1000, inference_engine=engines["rmh"], observe=OBSERVE, vectorized=False)
+    two = model.posterior(1000, inference_engine=engines["rmh"], observe=OBSERVE, vectorized=False,
+                          initial_trace=one[-1])
+    vals = [float(t.result) for t in Empirical(concat_empiricals=[one, two]).get_values()[500:]]
+    check(abs(float(np.mean(vals)) - 7.25) < 0.8, f"mcmc_resume: interpreter resume mean {np.mean(vals)}")
+    emit({"phase": "mcmc_resume", "chains": state.num_chains, "save_seconds": save_s, "load_seconds": load_s,
+          "bytes": os.path.getsize(fn), "resumed": {"mean": mean, "stddev": std, "seconds": seconds, **{
+              k: meta[k] for k in ("num_steps", "burn_in", "acceptance_rate")}},
+          "chains_from_own_state": own, "changed_observation": {"mean": float(moved.mean), "truth": new_mean,
+                                                                "burn_in": moved.metadata[-1]["burn_in"]},
+          "interpreter_resume_mean": float(np.mean(vals)), "launches": launches})
+    return launches
+
+
+def outer_latent_block_model():
+    """tests/test_rejection.py:98-111's model: an outer latent and a
+    rejection block (a move on mu rechecks the stored block's predicate)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Normal
+
+    class OuterLatentBlock(pp.Model):
+        def forward(self):
+            mu = pp.sample(Normal(0.0, 2.0))
+
+            def attempt():
+                e = pp.sample(Normal(0.0, 1.0))
+                return e, e * e < 4.0
+
+            e = pp.rejection_sample(attempt)
+            pp.observe(Normal(mu + e, 0.5), name="obs0")
+            return mu
+
+    return OuterLatentBlock()
+
+
+def outer_block_truth(obs=3.0):
+    """mu's posterior mean and stddev by grid integration over (mu, e)."""
+    mu = np.linspace(-8, 12, 2001)[:, None]
+    e = np.linspace(-2, 2, 801)[None, :]
+    log_p = -0.5 * (mu / 2.0) ** 2 - 0.5 * e**2 - 0.5 * ((obs - mu - e) / 0.5) ** 2
+    p = np.exp(log_p - log_p.max()).sum(axis=1)
+    p /= p.sum()
+    mean = float((p * mu[:, 0]).sum())
+    return mean, float(np.sqrt((p * (mu[:, 0] - mean) ** 2).sum()))
+
+
+def phase_mcmc_marsaglia(device):
+    """Batched chains over rejection_sample blocks at the JAX tests' counts
+    and limits: GaussianUnknownMeanMarsagliaRejection under LMH and RMH at
+    20,000 (mean within 0.3, stddev within 0.25; tests/test_rejection.py:
+    70-84) and the outer-latent block under LMH at 30,000 (within 0.2 of the
+    grid truth; :113-125); the while-loop Marsaglia under RMH on the
+    interpreter at 3,000 (mean within 0.8 after 500; tests/test_model.py:
+    137-141)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia, GaussianUnknownMeanMarsagliaRejection
+
+    pp.seed(MCMC["seed"] + 2)
+    engines = mcmc_engines()
+    model = GaussianUnknownMeanMarsagliaRejection()
+    launches, out = {}, {}
+    for name, engine in engines.items():
+        (post, seconds), launches[f"mcmc_marsaglia_{name}"] = counted(device, lambda: host_timed(
+            lambda: model.posterior_results(20_000, inference_engine=engine, observe=OBSERVE)))
+        mean, std = float(post.mean), float(post.stddev)
+        check(abs(mean - 7.25) < 0.3 and abs(std - math.sqrt(1 / 1.2)) < 0.25,
+              f"mcmc_marsaglia {name}: mean {mean}, stddev {std}")
+        out[name] = {**chain_line(post, seconds), "mean": mean, "stddev": std}
+    truth = outer_block_truth()
+    (post, seconds), launches["mcmc_outer_block"] = counted(device, lambda: host_timed(
+        lambda: outer_latent_block_model().posterior_results(30_000, inference_engine=engines["lmh"],
+                                                     observe={"obs0": 3.0})))
+    mean, std = float(post.mean), float(post.stddev)
+    check(abs(mean - truth[0]) < 0.2 and abs(std - truth[1]) < 0.2,
+          f"mcmc_outer_block: {mean}, {std} vs the grid's {truth}")
+    out["outer_block_lmh"] = {**chain_line(post, seconds), "mean": mean, "stddev": std, "grid": truth}
+    interp = GaussianUnknownMeanMarsaglia().posterior_results(3000, inference_engine=engines["rmh"],
+                                                             observe=OBSERVE, vectorized=False)
+    tail = float(interp[500:].mean)
+    check(abs(tail - 7.25) < 0.8, f"mcmc_marsaglia interpreter RMH: mean {tail}")
+    out["interpreter_rmh_while_loop"] = {**interpreter_line(interp, 3000), "mean": tail}
+    emit({"phase": "mcmc_marsaglia", **out, "launches": launches})
+    return launches
+
+
+def profile_busy(device, fn):
+    """(fn(), wall seconds, device-busy seconds, the kernels' device ms by
+    name, top 8) of one call under torch.profiler; busy is None when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and e.device_type.name == "CUDA":  # the kernels, not the ops that launched them
+            by_name[e.key[:80]] = us / 1e3
+    busy = sum(by_name.values()) / 1e3 if by_name else None
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return out, wall, busy, top
+
+
+def phase_mcmc_gp(device, floor_ms):
+    """GaussianProcessRegression at N = 256 (gp_model) under RMH with 1,024
+    chains and MCMC["transitions"]: the log-lengthscale's mean within 0.6
+    grid stddevs of true_posterior_moments (the JAX test's limit for HMC,
+    tests/test_models_builtin.py:225-243); kernel 4 four times a step (one
+    a panel of [1024, 256, 256]), no library Cholesky; peak memory with the
+    [16384, 256, 256] warm-start pool; a resumed run of 32 steps under the
+    profiler for the step's device-busy and wall time; kernel 4 at this
+    shape timed beside its bound."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.ops import tile_chol
+
+    m = MCMC
+    pp.seed(m["seed"] + 3)
+    model, y = gp_model(256)
+    grid_mean, grid_std = model.true_posterior_moments(y)
+    rmh = mcmc_engines()["rmh"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with CountCholesky() as library:
+        (post, seconds), launches = counted(device, lambda: host_timed(lambda: model.posterior_results(
+            m["transitions"], inference_engine=rmh, observe={"y": y}, num_chains=m["chains"])))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    line = chain_line(post, seconds)
+    mean = float(np.asarray(post.mean).reshape(-1)[0])
+    check(abs(mean - grid_mean) <= m["gp_mean_tol"] * grid_std,
+          f"mcmc_gp: mean {mean} vs grid {grid_mean} +- {grid_std}")
+    check(device != "cuda" or library.calls == 0, f"mcmc_gp: torch.linalg.cholesky called {library.calls} times")
+    check(device != "cuda" or launches["chol_inv_tile"] >= 4 * line["steps"],
+          f"mcmc_gp: kernel 4 launched {launches['chol_inv_tile']} times in {line['steps']} steps")
+    steps = 32
+    _, wall, busy, top = profile_busy(device, lambda: model.posterior_results(
+        m["chains"] * steps, inference_engine=rmh, observe={"y": y}, initial_trace=post.final_chain_state))
+    for P in range(256, 0, -64) if device == "cuda" else ():
+        tiles, out_rows, err = check_tile(m["chains"], 64, "cuda", P)
+        emit_shape("chol_inv_tile", lambda: tile_chol.chol_inv_tile_into(tiles, out_rows),
+                   lambda: tile_chol.chol_inv_tile_plain(tiles),
+                   tile_bytes(m["chains"], 64, P), 2 * 64**3 * m["chains"] // 3, [m["chains"], 64, 64], err,
+                   iters=20, entry="chol_inv_tile_into", l_row_width=P, panel_of=256, path="GP chain step",
+                   launch_floor_ms=floor_ms)
+        del tiles, out_rows
+    emit({"phase": "mcmc_gp", "N": 256, **line, "mean": mean, "stddev": float(np.asarray(post.stddev).reshape(-1)[0]),
+          "grid_mean": grid_mean, "grid_stddev": grid_std, "mean_error_in_grid_stddevs": (mean - grid_mean) / grid_std,
+          "peak_memory_gib": peak_gib, "library_cholesky_calls": library.calls,
+          "kernel4_launches": launches["chol_inv_tile"], "kernel4_launches_per_step": launches["chol_inv_tile"] / line["steps"],
+          "profiled": {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+                       "wall_ms_per_step": wall / steps * 1e3,
+                       "busy_ms_per_step": None if busy is None else busy / steps * 1e3,
+                       "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_ms": top},
+          "launches": launches})
+    return launches
+
+
+def sorted_means(post):
+    """The weighted mean and stddev of min(mu0, mu1) and max(mu0, mu1) a
+    draw: label switching folded away."""
+    v = np.asarray(post.values_numpy(), np.float64)
+    w = np.asarray(post.weights, np.float64)
+    out = []
+    for a in (v.min(axis=1), v.max(axis=1)):
+        mean = float((w * a).sum())
+        out.append((mean, float(np.sqrt((w * (a - mean) ** 2).sum()))))
+    return out
+
+
+def phase_mcmc_gmm(device, floor_ms):
+    """GaussianMixture K = 2 on tests/test_models_builtin.py's 40 data under
+    LMH and RMH with 1,024 chains and MCMC["transitions"]: the sorted
+    component means (min and max a draw; single-site chains stay in one
+    label mode, tests/test_models_builtin.py:245-250) within 0.25 of 10^6
+    prior IS's posterior stddev of each; kernel 1 once a step at 1,024 x 40
+    rows, timed there beside its bound; a resumed run of 32 steps under the
+    profiler."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianMixture
+    from pyprob_tpu_torch.ops import kernels as K
+
+    m = MCMC
+    pp.seed(m["seed"] + 4)
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D)
+    y = gm.synthesize([-2.0, 2.0], rng=0)
+    reference = gm.posterior_results(m["gmm_is_traces"], observe={"y": y})
+    ref = sorted_means(reference)
+    rows = m["chains"] * D
+    launches, out = {}, {}
+    for name, engine in mcmc_engines().items():
+        (post, seconds), launches[f"mcmc_gmm_{name}"] = counted(device, lambda: host_timed(
+            lambda: gm.posterior_results(m["transitions"], inference_engine=engine, observe={"y": y},
+                                         num_chains=m["chains"])))
+        got = sorted_means(post)
+        for (mean, _), (ref_mean, ref_std), which in zip(got, ref, ("min", "max")):
+            check(abs(mean - ref_mean) < m["gmm_tol"] * ref_std,
+                  f"mcmc_gmm {name}: {which} mean {mean} vs IS {ref_mean} +- {ref_std}")
+        line = chain_line(post, seconds)
+        at_rows = launches[f"mcmc_gmm_{name}"]["mixture_normal_log_prob_by_rows"].get(rows, 0)
+        check(device != "cuda" or at_rows >= line["steps"],
+              f"mcmc_gmm {name}: kernel 1 at {rows} rows {at_rows} times in {line['steps']} steps")
+        out[name] = {**line, "sorted_means": got, "kernel1_launches_at_chain_rows": at_rows}
+    _, wall, busy, top = profile_busy(device, lambda: gm.posterior_results(
+        m["chains"] * 32, inference_engine=mcmc_engines()["rmh"], observe={"y": y},
+        initial_trace=post.final_chain_state))
+    if device == "cuda":
+        inputs = gmm_inputs(m["chains"], D, 2, False, "cuda")
+        got, plain = K.mixture_normal_log_prob(*inputs), K.mixture_normal_log_prob_plain(*inputs)
+        err = float((got - plain).abs().max())
+        check(bool(((got - plain).abs() <= 1e-5 * (1 + plain.abs())).all()), f"kernel 1 at {rows} rows: {err}")
+        emit_shape("mixture_normal_log_prob", lambda: K.mixture_normal_log_prob(*inputs),
+                   lambda: K.mixture_normal_log_prob_plain(*inputs), *mixture_cost(rows, 2), [rows, 2], err,
+                   iters=50, path="GaussianMixture chain step", launch_floor_ms=floor_ms)
+    emit({"phase": "mcmc_gmm", "data": D, "reference_is": {"traces": m["gmm_is_traces"], "sorted_means": ref,
+          "ess": reference.effective_sample_size}, **out,
+          "profiled": {"steps": 32, "wall_s": wall, "device_busy_s": busy, "wall_ms_per_step": wall / 32 * 1e3,
+                       "busy_ms_per_step": None if busy is None else busy / 32 * 1e3,
+                       "idle_share": None if busy is None else 1 - busy / wall, "top_kernels_ms": top},
+          "launches": launches})
+    return launches
+
+
+def predictive_obs0(pred):
+    return np.asarray([float(v.value) for t in pred.get_values() for v in t.variables if v.name == "obs0"])
+
+
+def phase_posterior_predictive(device, lstm_model):
+    """tests/test_model.py:179-200's criterion (the predictive of obs0 is
+    N(7.25, 1/1.2 + 2): its mean within 0.2 at 3,000 draws) on a
+    trace-valued posterior from batched LMH chains (1,024 chains x 256
+    steps, every 8th kept, their traces built by one replay pass) and on one from lockstep
+    IC (the lstm128 network, 4,000 traces); every predictive trace's mu
+    one of the posterior's values."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    pp.seed(MCMC["seed"] + 5)
+    n = MCMC["predictive_traces"]
+    lmh = mcmc_engines()["lmh"]
+    runs = {
+        "lmh": (GaussianUnknownMean(), lambda m: m.posterior(
+            MCMC["chains"] * 256, inference_engine=lmh, observe=OBSERVE, num_chains=MCMC["chains"],
+            thinning_steps=8)),
+        "lockstep_ic": (lstm_model, lambda m: m.posterior(
+            4000, inference_engine=pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
+            observe=OBSERVE, vectorized=False)),
+    }
+    out, launches = {}, {}
+    for name, (model, make) in runs.items():
+        (post, post_s), launches[f"posterior_predictive_{name}"] = counted(device, lambda: host_timed(lambda: make(model)))
+        pred, pred_s = host_timed(lambda: model.posterior_predictive(post, num_traces=n))
+        obs = predictive_obs0(pred)
+        mus = {float(t.result) for t in post.get_values()}
+        pinned = all(float(t.result) in mus for t in pred.get_values())
+        check(len(obs) == n and abs(obs.mean() - 7.25) < MCMC["predictive_tol"] and pinned,
+              f"posterior_predictive {name}: obs0 mean {obs.mean()}, latents pinned {pinned}")
+        out[name] = {"posterior_traces": post.length, "posterior_mean": float(post.map(lambda t: float(t.result)).mean),
+                     "posterior_seconds": post_s, "predictive_seconds": pred_s,
+                     "obs0_mean": float(obs.mean()), "obs0_stddev": float(obs.std()),
+                     "analytic_stddev": math.sqrt(1 / 1.2 + 2.0)}
+    emit({"phase": "posterior_predictive", "traces": n, **out, "launches": launches})
+    return launches
+
+
+def phase_conditional(device):
+    """condition / filter (tests/test_model.py:147-166): Uniform(0, 1) kept
+    above 0.8 at 200 traces with acceptance in (0.05, 0.45), the timeout
+    raising, filter's deprecation; and a conditional posterior: x ~ N(0, 1),
+    y ~ N(x, 1) = 0, x > 0 kept, IS at 4,000 within 0.05 of the half-normal
+    mean sqrt(1/2) sqrt(2/pi)."""
+    import warnings
+
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Normal, Uniform
+
+    class Uniform01(pp.Model):
+        def forward(self):
+            return float(pp.sample(Uniform(0.0, 1.0)))
+
+    class HalfObserved(pp.Model):
+        def forward(self):
+            x = pp.sample(Normal(0.0, 1.0))
+            pp.observe(Normal(x, 1.0), name="y")
+            return x
+
+    pp.seed(MCMC["seed"] + 6)
+    cond = Uniform01().condition(lambda trace: trace.result > 0.8)
+    vals = np.asarray(cond.prior_results(num_traces=200).get_values())
+    check(bool((vals > 0.8).all()) and 0.05 < cond.acceptance_ratio < 0.45,
+          f"conditional: acceptance {cond.acceptance_ratio}")
+    timed_out = False
+    try:
+        Uniform01().condition(lambda trace: False, criterion_timeout=50).prior_results(num_traces=1)
+    except RuntimeError as e:
+        timed_out = "Timeout" in str(e)
+    check(timed_out, "conditional: the criterion timeout did not raise")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        Uniform01().filter(lambda trace: trace.result < 0.5)
+    check(any("deprecated" in str(w.message) for w in caught), "conditional: filter did not warn")
+    half = HalfObserved().condition(lambda trace: float(trace.result) > 0.0)
+    post, seconds = host_timed(lambda: half.posterior_results(num_traces=4000, observe={"y": 0.0}))
+    truth = math.sqrt(0.5) * math.sqrt(2 / math.pi)
+    check(abs(float(post.mean) - truth) < 0.05, f"conditional posterior mean {float(post.mean)} vs {truth}")
+    emit({"phase": "conditional", "acceptance_ratio": cond.acceptance_ratio, "timeout_raised": timed_out,
+          "posterior_mean": float(post.mean), "half_normal_mean": truth, "seconds": seconds,
+          "traces_per_s": 4000 / seconds, "posterior_acceptance_ratio": half.acceptance_ratio})
+
+
+def phase_parallel(device, tmp, lstm_model):
+    """ParallelModel with 4 workers on the card: prior IS into a file (the
+    four chunk files kept, reopened equal) and guided IC with the lstm128
+    network, lockstep inside each worker, each held to the GUM limits
+    (mean and stddev within 0.5); the guided run's ESS within 10 % of an
+    in-process lockstep run's at the same count, relative
+    (tests/test_model_parallel.py's pattern); MCMC refused; the workers'
+    start-up seconds."""
+    import glob
+
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Empirical
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    m = MCMC
+    n, k = m["parallel_traces"], m["parallel_workers"]
+    pp.seed(m["seed"] + 7)
+    fn = os.path.join(tmp, "parallel_prior_is")
+    prior_is, prior_s = host_timed(lambda: GaussianUnknownMean().parallel(num_workers=k).posterior_results(
+        n, observe=OBSERVE, file_name=fn))
+    check(len(glob.glob(fn + "_chunk_*")) == k and prior_is.length == n, "parallel: chunk files")
+    values = prior_is.values_numpy()
+    mean_is = check_posterior(prior_is, "parallel prior IS")
+    prior_meta = next(md for md in prior_is.metadata if "worker_start_seconds" in md)
+    prior_is.close()
+    back = Empirical(file_name=fn)
+    check(np.array_equal(back.values_numpy(), values), "parallel: the reopened file differs")
+    back.close()
+    engine = pp.InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
+    guided, guided_s = host_timed(lambda: lstm_model.parallel(num_workers=k).posterior_results(
+        n, observe=OBSERVE, inference_engine=engine))
+    mean_ic = check_posterior(guided, "parallel guided IC")
+    (local, local_s), launches = counted(device, lambda: host_timed(lambda: lstm_model.posterior_results(
+        n, observe=OBSERVE, inference_engine=engine, vectorized=False)))
+    ess, local_ess = guided.effective_sample_size / n, local.effective_sample_size / n
+    check(abs(ess / local_ess - 1) <= m["parallel_relative_band"],
+          f"parallel guided IC: ESS fraction {ess} vs in-process lockstep {local_ess}")
+    refused = False
+    try:
+        GaussianUnknownMean().parallel(num_workers=k).posterior(
+            10, inference_engine=mcmc_engines()["lmh"], observe=OBSERVE)
+    except ValueError:
+        refused = True
+    check(refused, "parallel: MCMC was not refused")
+    guided_meta = next(md for md in guided.metadata if "worker_start_seconds" in md)
+    emit({"phase": "parallel", "workers": k, "traces": n,
+          "prior_is": {"seconds": prior_s, "traces_per_s": n / prior_s, "mean_stddev": mean_is,
+                       "worker_start_seconds": prior_meta["worker_start_seconds"],
+                       "worker_seconds": prior_meta["worker_seconds"]},
+          "guided_ic": {"seconds": guided_s, "traces_per_s": n / guided_s, "mean_stddev": mean_ic,
+                        "ess_fraction": ess, "worker_start_seconds": guided_meta["worker_start_seconds"],
+                        "worker_seconds": guided_meta["worker_seconds"]},
+          "in_process_lockstep": {"seconds": local_s, "traces_per_s": n / local_s, "ess_fraction": local_ess},
+          "mcmc_refused": refused, "launches": launches})
+    return launches
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -4567,6 +5099,20 @@ def main():
         path["offline_gather_train"] = phase_offline_gather_train("cuda", tmp)
         path.update(phase_keep_best("cuda", dirs))
         path.update(phase_empirical_file("cuda", tmp, trained_arms[128]))
+        # the MCMC engines and the rest of the Model API, after every
+        # earlier phase (whose draws stay as they were): GUM, resumes and
+        # rejection blocks (kernel 3 in the warm starts), the GP chains
+        # (kernel 4) and GaussianMixture's (kernel 1), then
+        # posterior_predictive, condition and ParallelModel
+        path.update(phase_mcmc_gum("cuda"))
+        path["mcmc_resume"] = phase_mcmc_resume("cuda", tmp)
+        path.update(phase_mcmc_marsaglia("cuda"))
+        path["mcmc_gp"] = phase_mcmc_gp("cuda", floor_ms)
+        path.update(phase_mcmc_gmm("cuda", floor_ms))
+        path.update(phase_posterior_predictive("cuda", trained_arms[128]))
+        phase_conditional("cuda")
+        torch.cuda.empty_cache()  # the workers make CUDA contexts of their own
+        path["parallel"] = phase_parallel("cuda", tmp, trained_arms[128])
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

@@ -26,7 +26,12 @@ and mixture-of-truncated-Normals log-densities (forward and backward), the
 log-weight statistics, the panel Cholesky's diagonal-tile factor and
 inverse, and the fused MVN quadratic form and log-determinant
 (``ops.mvn_quad_logdet``) are hand-written CUDA kernels
-(``pyprob_tpu_torch.ops``).
+(``pyprob_tpu_torch.ops``).  Its MCMC engines, LMH and RMH, run as
+parallel chains on the batched tier (resumable from a ``ChainState``) and
+as one sequential chain on the interpreter tier; ``Model`` also gives
+posterior-predictive draws, ``ConditionalModel`` (``Model.condition``) and
+``ParallelModel`` (``Model.parallel``: trace generation over spawned
+processes).
 """
 
 from .util import (
@@ -44,7 +49,8 @@ from .util import (
 )
 from .state import sample, observe, factor, tag, rejection_sample
 from .address import AddressDictionary
-from .model import Model
+from .model import ConditionalModel, Model, ParallelModel
+from .inference import ChainState
 from . import distributions
 from . import models
 from . import ops
@@ -68,6 +74,9 @@ __all__ = [
     "tag",
     "rejection_sample",
     "Model",
+    "ConditionalModel",
+    "ParallelModel",
+    "ChainState",
     "AddressDictionary",
     "distributions",
     "models",

@@ -13,7 +13,14 @@ thread's own context (``_Context``), per engine:
 * POSTERIOR + IMPORTANCE_SAMPLING: prior proposals, weight from observes;
 * POSTERIOR + IC: the inference network proposes each controlled site
   (``_infer_step``), weight log p − log q; rejection retries draw from the
-  defensive mixture π·q + (1 − π)·prior, π = 0.5.
+  defensive mixture π·q + (1 − π)·prior, π = 0.5;
+* POSTERIOR + LMH / RMH: a candidate trace of a Metropolis-Hastings chain
+  (``Model._mcmc_posterior``).  Every sample site is controlled.  The
+  chosen site is resampled (``_mh_site_resample``: LMH from the prior, RMH
+  from the α = 0.5 mixture of a random-walk kernel and the prior, with the
+  transition log-ratio kept for the acceptance test); every other site the
+  current trace holds reuses its value, rescored under the candidate's
+  parameters, and is resampled where that score is not finite.
 
 Values are drawn and scored on the host with an explicit CPU
 ``torch.Generator`` (the context's, else the CPU generator of
@@ -21,10 +28,11 @@ Values are drawn and scored on the host with an explicit CPU
 a model that calls ``float(x)`` never waits on the card.  Distributions
 built from plain numbers inside a trace put their parameters on the CPU
 (``util.param_device``); the network, the loss and the kernels run on the
-card.  The MCMC engines and ``sample(mask=)``/``observe(mask=)`` come
-with the engines and Markov/SMC slices and raise here (as SMC replay
-will, which has no entry point yet).  Without a handler or a trace,
-``sample`` just draws and ``rejection_sample`` is a plain host loop.
+card.  ``_set_smc_replay`` pins controlled sites to given values in the
+prior modes (``Model.posterior_predictive``).  The other engines and
+``sample(mask=)``/``observe(mask=)`` come with the engines and Markov/SMC
+slices and raise here.  Without a handler or a trace, ``sample`` just
+draws and ``rejection_sample`` is a plain host loop.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import threading
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from . import util
@@ -46,6 +55,10 @@ _WEIGHTED = (
     InferenceEngine.IMPORTANCE_SAMPLING,
     InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
 )
+_MCMC = (
+    InferenceEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS,
+    InferenceEngine.RANDOM_WALK_METROPOLIS_HASTINGS,
+)
 # mixture weight on the learned proposal for rejection-retry attempts
 # (defensive importance sampling, Hesterberg 1995)
 _DEFENSIVE_PI = 0.5
@@ -53,7 +66,7 @@ _DEFENSIVE_PI = 0.5
 
 def _engines_later(what):
     return NotImplementedError(
-        f"{what} on the interpreter tier is not ported yet; it comes with the engines slice"
+        f"{what} is not ported yet; it comes with the engines slice"
     )
 
 
@@ -73,6 +86,15 @@ class _Context:
         # True while re-running a rejection_sample attempt after the first:
         # retries draw from the defensive mixture (no inflation)
         self.rejection_retry = False
+        # LMH / RMH: the chain's current trace, the address of the site to
+        # resample and the transition log-ratio of the resampled site (None
+        # until the candidate meets that site)
+        self.metropolis_hastings_trace = None
+        self.metropolis_hastings_site_address = None
+        self.metropolis_hastings_site_transition_log_prob = None
+        # {full_address: value}: controlled sites take these values in the
+        # prior modes (the posterior-predictive replay)
+        self.smc_replay_values = None
 
 
 class _ContextLocal(threading.local):
@@ -89,6 +111,12 @@ _ctx_local = _ContextLocal()
 def _get_rng():
     rng = _ctx_local.value.rng
     return rng if rng is not None else util.generator("cpu")
+
+
+def _set_smc_replay(replay_values):
+    """Install (a dict) or clear (None) the replay values of the thread's
+    next traces."""
+    _ctx_local.value.smc_replay_values = replay_values
 
 
 def _swap_context(ctx):
@@ -122,6 +150,14 @@ def _on_host(distribution):
     return distribution._with_leaves([leaf.cpu() for leaf in leaves])
 
 
+def _host_tensor(value):
+    """A stored value as a CPU tensor (a batched-tier trace holds numpy
+    values), its dtype kept."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.as_tensor(value.copy() if isinstance(value, np.ndarray) else np.asarray(value))
+
+
 def _as_value(distribution, value):
     """A draw shaped as one value of ``distribution`` (a proposal's draw
     has its batch of one)."""
@@ -135,9 +171,10 @@ _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 def _score(distribution, value):
     """``float(distribution.log_prob(value, sum=True))``.  A Normal or a
     Uniform of 0-d parameters scoring a 0-d value is scored in float64 on
-    the Python side: ``log_prob`` there is a few torch calls of a few µs
+    the Python side, and a Categorical of one row scoring an integer value
+    reads its logit: ``log_prob`` there is a few torch calls of a few µs
     each, a large share of a site's host time (``profile_host_score.py``
-    times both)."""
+    times the first two)."""
     if value is not None and value.dim() == 0 and distribution.batch_shape == ():
         if type(distribution) is Normal:
             z = (float(value) - float(distribution.loc)) / float(distribution.scale)
@@ -145,6 +182,11 @@ def _score(distribution, value):
         if type(distribution) is Uniform:
             v, low, high = float(value), float(distribution.low), float(distribution.high)
             return -math.log(high - low) if low <= v <= high else -math.inf
+        if type(distribution) is Categorical and not value.is_floating_point():
+            # the logit log_prob's gather reads: 0 <= value < categories
+            i = int(value)
+            if 0 <= i < distribution.num_categories:
+                return float(distribution.logits[i])
     return float(distribution.log_prob(value, sum=True))
 
 
@@ -278,6 +320,8 @@ def sample(distribution, name=None, address=None, control=True, mask=None):
     rng = _get_rng()
     address_base, full_address, instance = _build_address(address, distribution, trace)
     engine = ctx.inference_engine
+    if engine in _MCMC:
+        control = True  # the MCMC engines control every sample site
 
     if name in ctx.observed_variables:
         # a sample site overridden by a named observation
@@ -298,8 +342,41 @@ def sample(distribution, name=None, address=None, control=True, mask=None):
         )
         return value
 
-    if ctx.trace_mode == TraceMode.POSTERIOR and engine not in _WEIGHTED:
-        raise _engines_later(engine.name)
+    if ctx.trace_mode == TraceMode.POSTERIOR and engine in _MCMC:
+        value, log_prob, reused = _mh_sample(ctx, distribution, rng, full_address)
+        trace.add(
+            Variable(
+                distribution=distribution,
+                value=value,
+                address_base=address_base,
+                address=full_address,
+                instance=instance,
+                log_prob=log_prob,
+                control=True,
+                name=name,
+                reused=reused,
+            )
+        )
+        return value
+    if ctx.trace_mode != TraceMode.POSTERIOR and control and ctx.smc_replay_values is not None:
+        replayed = ctx.smc_replay_values.get(full_address)
+        if replayed is not None:
+            # the posterior-predictive replay: the latent keeps a posterior
+            # draw's value while the observes draw theirs
+            trace.add(
+                Variable(
+                    distribution=distribution,
+                    value=replayed,
+                    address_base=address_base,
+                    address=full_address,
+                    instance=instance,
+                    log_prob=_score(distribution, replayed),
+                    control=True,
+                    name=name,
+                    reused=True,
+                )
+            )
+            return replayed
     if (
         ctx.trace_mode == TraceMode.POSTERIOR
         and engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK
@@ -439,6 +516,11 @@ def rejection_sample(attempt_fn, max_attempts=None):
                             v.log_importance_weight = (v.log_importance_weight or 0.0) + prev_attempts_iw
                             break
                 return out
+            if all(v.reused for v in new_vars):
+                # every value of the block came from the MH chain's trace: a
+                # retry would repeat it, so the stored values violate the
+                # predicate under the candidate's outer latents
+                break
             if i == cap - 1:
                 break  # keep the last attempt recorded to mark the trace
             prev_attempts_iw += sum(
@@ -452,12 +534,72 @@ def rejection_sample(attempt_fn, max_attempts=None):
     finally:
         ctx.rejection_retry = False
     warnings.warn(
-        f"rejection_sample: no attempt accepted in {cap:,} attempts; trace marked invalid."
+        "rejection_sample: the acceptance predicate cannot be satisfied (cap "
+        f"{cap:,} attempts, or the MH chain's stored values violate it); trace marked invalid."
     )
+    if ctx.trace_mode == TraceMode.POSTERIOR and ctx.inference_engine in _MCMC:
+        # an invalid candidate: the acceptance test rejects it
+        t = ctx.metropolis_hastings_site_transition_log_prob
+        ctx.metropolis_hastings_site_transition_log_prob = (0.0 if t is None else t) - math.inf
+        return out
     marked = next((v for v in new_vars if v.control), new_vars[0] if new_vars else None)
     if marked is not None:
         marked.log_importance_weight = -math.inf
     return out
+
+
+def _mh_sample(ctx, distribution, rng, address):
+    """A candidate's value at ``address``: (value, log_prob, reused).  The
+    chosen site is resampled; a site the current trace holds reuses its
+    value, rescored, or is drawn from the prior where that score is not
+    finite (or the value no longer fits the distribution); a new site is
+    drawn from the prior."""
+    mh_trace = ctx.metropolis_hastings_trace
+    if mh_trace is not None:
+        if address == ctx.metropolis_hastings_site_address:
+            value, log_prob = _mh_site_resample(ctx, distribution, rng, address)
+            return value, log_prob, False
+        old = mh_trace.variables_dict_address.get(address)
+        if old is not None:
+            try:
+                value = _host_tensor(old.value)
+                log_prob = _score(distribution, value)
+                if math.isfinite(log_prob):
+                    return value, log_prob, True
+            except (RuntimeError, ValueError, TypeError, IndexError):
+                pass
+    value = _as_value(distribution, distribution.sample(rng))
+    return value, _score(distribution, value), False
+
+
+def _mh_site_resample(ctx, distribution, rng, address):
+    """Resample the chosen MH site: LMH from the prior; RMH from the α = 0.5
+    mixture of a random-walk kernel (``inference.mcmc._rmh_kernel``:
+    Normal(x, σ) for a Normal prior, a TruncatedNormal of width 0.1 (high −
+    low) for a Uniform one) and the prior, keeping the transition log-ratio
+    for the acceptance test (0 for LMH and for a site with no kernel)."""
+    from .inference.mcmc import RMH_ALPHA, _rmh_kernel, rmh_log_ratio, rmh_log_ratio_scalar
+
+    ctx.metropolis_hastings_site_transition_log_prob = 0.0
+    if ctx.inference_engine == InferenceEngine.RANDOM_WALK_METROPOLIS_HASTINGS:
+        old = ctx.metropolis_hastings_trace.variables_dict_address[address]
+        old_value = _host_tensor(old.value)
+        forward = _rmh_kernel(distribution, old_value)
+        if forward is not None:
+            if float(torch.rand((), generator=rng)) < RMH_ALPHA:
+                value = forward.sample(rng)
+            else:
+                value = distribution.sample(rng)
+            value = _as_value(distribution, value)
+            log_prob = _score(distribution, value)
+            if distribution.batch_shape == () and value.dim() == 0:
+                t = rmh_log_ratio_scalar(distribution, old_value, float(old.log_prob), value, log_prob)
+            else:
+                t = float(rmh_log_ratio(distribution, old_value, float(old.log_prob), value, log_prob, torch.sum))
+            ctx.metropolis_hastings_site_transition_log_prob = t
+            return value, log_prob
+    value = _as_value(distribution, distribution.sample(rng))
+    return value, _score(distribution, value)
 
 
 def _sample_from_prior(distribution, rng):
@@ -477,11 +619,14 @@ def _init_traces(
     inference_engine=InferenceEngine.IMPORTANCE_SAMPLING,
     inference_network=None,
     observe=None,
+    metropolis_hastings_trace=None,
     likelihood_importance=1.0,
 ):
     """Set up the thread's context for a run of traces of ``func``.
-    Observed values become CPU tensors once here."""
-    if trace_mode == TraceMode.POSTERIOR and inference_engine not in _WEIGHTED:
+    Observed values become CPU tensors once here.  Under LMH / RMH with the
+    chain's current trace, one of its controlled sites is chosen to be
+    resampled, uniformly."""
+    if trace_mode == TraceMode.POSTERIOR and inference_engine not in _WEIGHTED + _MCMC:
         raise _engines_later(inference_engine.name)
     util.device()  # raises without a card unless the CPU was asked for
     ctx = _ctx_local.value
@@ -490,6 +635,15 @@ def _init_traces(
     ctx.prior_inflation = prior_inflation
     ctx.likelihood_importance = likelihood_importance
     ctx.root_function_name = func.__code__.co_name
+    ctx.metropolis_hastings_trace = metropolis_hastings_trace
+    ctx.metropolis_hastings_site_address = None
+    ctx.metropolis_hastings_site_transition_log_prob = None
+    if metropolis_hastings_trace is not None:
+        variables = metropolis_hastings_trace.variables_controlled
+        if not variables:
+            raise RuntimeError("Cannot run MCMC on a trace with no sample sites.")
+        pick = int(torch.randint(len(variables), (), generator=_get_rng()))
+        ctx.metropolis_hastings_site_address = variables[pick].address
     if observe is None:
         ctx.observed_variables = {}
     else:

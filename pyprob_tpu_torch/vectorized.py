@@ -12,7 +12,10 @@ here, and with ``vectorized=None`` the entry points mark its class
 ``rejection_sample`` do run here: the block becomes a masked retry loop
 over the batch (``VectorizedHandler.rejection_sample``).  Results stay on
 the device until the end of a run; the ESS and log Z of a result come from
-the ``log_weight_stats`` kernel over the run's ``[N]`` log-weights.
+the ``log_weight_stats`` kernel over the run's ``[N]`` log-weights.  The
+MCMC engines route to ``inference.mcmc``, whose ``ReplayHandler`` (a
+``VectorizedHandler``) replays ``forward`` over the chains through
+``run_forward``.
 """
 
 from __future__ import annotations
@@ -493,33 +496,12 @@ class _RejectionAttemptHandler:
         raise RuntimeError("nested rejection_sample is not supported on the batched tier")
 
 
-def run_traced(
-    model,
-    num_particles,
-    observed,
-    trace_mode,
-    inference_engine,
-    prior_inflation=PriorInflation.DISABLED,
-    likelihood_importance=1.0,
-    proposal_step=None,
-    generator=None,
-    args=(),
-    kwargs=None,
-):
-    """Run ``forward`` once over ``num_particles`` particles under the
-    batched handler; returns (outputs, handler).  Outputs hold [n] device
-    tensors keyed as the JAX package's."""
-    handler = VectorizedHandler(
-        num_particles=num_particles,
-        generator=generator if generator is not None else util.generator(),
-        trace_mode=trace_mode,
-        inference_engine=inference_engine,
-        observed=observed,
-        root_function_name=model.forward.__code__.co_name,
-        prior_inflation=prior_inflation,
-        likelihood_importance=likelihood_importance,
-        proposal_step=proposal_step,
-    )
+def run_forward(model, handler, args=(), kwargs=None):
+    """Run ``forward`` once under ``handler`` (a ``VectorizedHandler`` or a
+    subclass of it, such as the MCMC tier's ``ReplayHandler``); returns its
+    result with a number, or a 0-d tensor, spread over the handler's
+    particles.  A model that branches on sampled values raises
+    ``NotImplementedError``."""
     prev = state._set_handler(handler)
     try:
         result = model.forward(*args, **(kwargs or {}))
@@ -539,14 +521,21 @@ def run_traced(
         # the same for every particle (or one particle's own)
         result = torch.tensor(float(result), dtype=util.dtype(), device=handler.device)
     if isinstance(result, torch.Tensor):
-        result = result.expand(num_particles) if result.dim() == 0 else result
-    outputs = {
+        result = result.expand(handler.n) if result.dim() == 0 else result
+    return result
+
+
+def handler_outputs(handler, result):
+    """The outputs of a ``forward`` run under ``handler``: [n] device
+    tensors keyed as the JAX package's."""
+    n = handler.n
+    return {
         "result": result,
         "log_importance_weight": handler.log_importance_weight,
         "log_prob_observed": handler.log_prob_observed,
         "log_prob_total": handler.log_prob_total,
         "values": {
-            s.address: v.expand(num_particles) if v.dim() == 0 else v
+            s.address: v.expand(n) if v.dim() == 0 else v
             for s, v in zip(handler.sites, handler.values)
             if v is not None
         },
@@ -556,7 +545,40 @@ def run_traced(
             if lp is not None
         },
     }
-    return outputs, handler
+
+
+def run_traced(
+    model,
+    num_particles,
+    observed,
+    trace_mode,
+    inference_engine,
+    prior_inflation=PriorInflation.DISABLED,
+    likelihood_importance=1.0,
+    proposal_step=None,
+    generator=None,
+    args=(),
+    kwargs=None,
+    handler=None,
+):
+    """Run ``forward`` once over ``num_particles`` particles under the
+    batched handler (or under ``handler``, built by the caller); returns
+    (outputs, handler).  Outputs hold [n] device tensors keyed as the JAX
+    package's."""
+    if handler is None:
+        handler = VectorizedHandler(
+            num_particles=num_particles,
+            generator=generator if generator is not None else util.generator(),
+            trace_mode=trace_mode,
+            inference_engine=inference_engine,
+            observed=observed,
+            root_function_name=model.forward.__code__.co_name,
+            prior_inflation=prior_inflation,
+            likelihood_importance=likelihood_importance,
+            proposal_step=proposal_step,
+        )
+    result = run_forward(model, handler, args, kwargs)
+    return handler_outputs(handler, result), handler
 
 
 @torch.no_grad()
@@ -589,6 +611,7 @@ def _run_batched(
     args=(),
     kwargs=None,
     fetch=None,
+    make_handler=None,
 ):
     """Run ``forward`` over chunks of at most ``_BATCH_LIMIT`` particles;
     returns the outputs concatenated to ``num_traces`` on the device
@@ -598,7 +621,10 @@ def _run_batched(
     sizes.  A chunk that runs out of device memory is retried at half its
     size (down to one particle, where the error is raised), and the size
     that worked caps this model's later chunks (``_oom_batch_limit``), as
-    the JAX package backs off; the run stays on the device."""
+    the JAX package backs off; the run stays on the device.
+    ``make_handler(n, begin, generator, observed)``, when given, builds the
+    handler of the chunk of ``n`` particles from particle ``begin`` on (the
+    MCMC tier's replay passes)."""
     device = util.device()
     observed = {
         k: util.to_tensor(v, device) for k, v in (observed or {}).items()
@@ -614,6 +640,9 @@ def _run_batched(
                 model, n, observed, trace_mode, inference_engine, prior_inflation,
                 likelihood_importance, proposal_step=proposal_step,
                 generator=generator, args=args, kwargs=kwargs,
+                handler=None if make_handler is None else make_handler(
+                    n, num_traces - remaining, generator, observed
+                ),
             )
         except torch.cuda.OutOfMemoryError:
             if n <= 1:
@@ -897,12 +926,39 @@ def vectorized_posterior(
     file_name=None,
     likelihood_importance=1.0,
     fallback=False,
+    initial_trace=None,
+    thinning_steps=None,
+    num_chains=None,
+    burn_in=None,
+    return_chains=False,
     *args,
     **kwargs,
 ):
     """Batched posterior by importance sampling, from the prior (IS) or
-    from the model's inference network (IC); None when ``fallback`` and
-    the model cannot run on this tier (``vectorized_traces``)."""
+    from the model's inference network (IC), or by parallel LMH / RMH
+    chains (``inference.mcmc.vectorized_mcmc_posterior``, which takes
+    ``initial_trace``, ``thinning_steps``, ``num_chains``, ``burn_in`` and
+    ``return_chains``); None when ``fallback`` and the model cannot run on
+    this tier (``vectorized_traces``)."""
+    if inference_engine in state._MCMC:
+        from .inference.mcmc import vectorized_mcmc_posterior
+
+        return vectorized_mcmc_posterior(
+            model,
+            num_traces=num_traces,
+            inference_engine=inference_engine,
+            map_func=map_func,
+            observe=observe,
+            file_name=file_name,
+            initial_trace=initial_trace,
+            thinning_steps=thinning_steps,
+            num_chains=num_chains,
+            burn_in=burn_in,
+            return_chains=return_chains,
+            fallback=fallback,
+            args=args,
+            kwargs=kwargs,
+        )
     if _skips_batched_tier(model, fallback):
         return None
     if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
@@ -920,10 +976,7 @@ def vectorized_posterior(
                 f"{type(network).__name__} has no batched proposal step"
             )
     else:
-        raise NotImplementedError(
-            f"{inference_engine.name} is not ported yet; it comes with the "
-            "engines slice"
-        )
+        raise state._engines_later(inference_engine.name)
     try:
         emp = vectorized_traces(
             model,

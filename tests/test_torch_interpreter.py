@@ -259,7 +259,7 @@ def test_tag_records_and_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="engines slice"):
         TorchGUM().posterior_results(
             5, observe=OBSERVE, vectorized=False,
-            inference_engine=TEngine.RANDOM_WALK_METROPOLIS_HASTINGS,
+            inference_engine=TEngine.SEQUENTIAL_MONTE_CARLO,
         )
     with pytest.raises(RuntimeError, match="No inference network"):
         TorchGUM().posterior_results(5, observe=OBSERVE, vectorized=False, inference_engine=IC)

@@ -151,7 +151,7 @@ def test_unsupported_paths_raise():
     for vectorized in (None, False):
         with pytest.raises(NotImplementedError, match="engines slice"):
             model.posterior_results(
-                10, observe=OBSERVE, inference_engine=TEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS,
+                10, observe=OBSERVE, inference_engine=TEngine.SEQUENTIAL_MONTE_CARLO,
                 vectorized=vectorized,
             )
     with pytest.raises(RuntimeError, match="No inference network"):
