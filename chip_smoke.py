@@ -17,7 +17,9 @@ LARC, the CNN observe embeddings with MiniCaptcha, training from trace
 files with validation and keep_best, and file-backed results; and for
 the MCMC engines (LMH and RMH, batched chains and the interpreter chain,
 ChainState resumes, rejection blocks, GP and GaussianMixture chains) and
-the rest of the Model API (posterior_predictive, condition, ParallelModel).
+the rest of the Model API (posterior_predictive, condition, ParallelModel);
+and for SMC on both tiers, with its four resampling schemes, guided by the
+trained networks.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -343,7 +345,36 @@ Phases, each printing one JSON line:
 62. parallel: ParallelModel with 4 workers on the card: prior IS into
     chunk files, guided IC by lockstep in each worker (the lstm128
     network; its ESS within 10 % of an in-process lockstep run's), MCMC
-    refused; the workers' start-up seconds.
+    refused; the workers' start-up seconds;
+63. smc_gum: GaussianUnknownMean under SEQUENTIAL_MONTE_CARLO at 10^6
+    particles in one batch, resample_threshold 1.0, each of the four
+    resampling schemes: mean within 0.2 of 7.25, stddev within 0.1, log Z
+    within 0.25 of the analytic -8.2395, ESS above 5x prior IS's at 10^6
+    (tests/test_smc.py:38-65); kernel 3 once a stage;
+64. smc_lgss: LinearGaussianStateSpace(num_steps=8, a=0.9) on
+    synthesize(rng=0) at 10^6: the mean path within 0.06 and the variance
+    within 0.04 of the RTS smoother, ESS above 5x prior IS's
+    (tests/test_models_builtin.py:292-323);
+65. smc_hmm: the 3-state, 6-step HMM of tests/test_smc.py:124-167 at
+    10^6, its int64 sites replayed, the last state's marginal within 0.03
+    of the forward algorithm; smc_marsaglia: the rejection_sample GUM at
+    10^6 (a retry loop at stage 1, the block replayed whole at stage 2),
+    mean and stddev within 0.2 (tests/test_rejection.py:137-144);
+66. smc_guided: SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK at 10^6
+    with the lstm128, lstm512 and feedforward GUM networks trained above
+    (threshold 1.0: mean 0.2, stddev 0.1, log Z 0.3, ESS > 0.2 N,
+    tests/test_smc.py:226-274) and the Marsaglia LSTM network (mean
+    within 0.25, tests/test_rejection.py:172-180); kernel 1, or kernel 2,
+    on every stage;
+67. smc_interpreter: the while-loop GaussianUnknownMeanMarsaglia with
+    vectorized=None on the interpreter filter at 2,000 particles,
+    systematic and stratified (mean 0.35, stddev 0.25, log Z 0.5,
+    tests/test_smc.py:192-203), and a program whose observe count depends
+    on a draw, run to the end; each SMC phase prints particles/s, its
+    stages, stage ESS and resampled stages, launches by shape, host syncs
+    and peak device memory;
+68. kernels 1 and 2 against their plain versions and timed at the rows the
+    SMC phases launched them at (10^6), beside their bounds.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -673,6 +704,14 @@ MCMC = {"transitions": 262_144, "chains": 1024, "interpreter_steps": 7000,
 # the online arms' ESS fractions at 10^6 (phases 9 and 20), printed beside
 # the offline arms'
 ONLINE_ESS = {}
+# the SMC slice's phases: 10^6 particles in one batch (2,000 on the
+# interpreter), the JAX tests' limits on mean, stddev and log Z
+# (tests/test_smc.py:38-51, :226-274, :192-203) and the HMM of
+# tests/test_smc.py:124-167
+SMC = {"particles": 1_000_000, "interpreter_particles": 2000, "seed": 95,
+       "gum_tol": (0.2, 0.1, 0.25), "guided_tol": (0.2, 0.1, 0.3), "interpreter_tol": (0.35, 0.25, 0.5),
+       "hmm": {"init": [0.5, 0.3, 0.2], "trans": [[0.7, 0.2, 0.1], [0.1, 0.8, 0.1], [0.2, 0.2, 0.6]],
+               "loc": [-1.0, 0.0, 1.5], "scale": 0.6, "ys": [-0.8, -1.2, 0.1, 0.3, 1.4, 1.6]}}
 
 # Published peaks of the H100 SXM at 700 W (NVIDIA's data sheet):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -4980,6 +5019,288 @@ def phase_parallel(device, tmp, lstm_model):
     return launches
 
 
+def smc_hmm_model():
+    """The 3-state, 6-step HMM of tests/test_smc.py:124-167: integer
+    Categorical sites that the staged replay must carry exactly."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Categorical, Normal
+
+    h = SMC["hmm"]
+
+    class SmcHMM(pp.Model):
+        def forward(self):
+            device = pp.util.param_device()
+            trans = torch.tensor(h["trans"], dtype=torch.float32, device=device)
+            locs = torch.tensor(h["loc"], dtype=torch.float32, device=device)
+            z = pp.sample(Categorical(probs=torch.tensor(h["init"], dtype=torch.float32, device=device)),
+                          address="z0")
+            for t in range(len(h["ys"])):
+                pp.observe(Normal(locs[z], h["scale"]), name=f"y{t}")
+                if t < len(h["ys"]) - 1:
+                    z = pp.sample(Categorical(probs=trans[z]), address=f"z{t + 1}")
+            return z
+
+    return SmcHMM(name="SMC HMM")
+
+
+def smc_hmm_truth():
+    """The last state's marginal by the forward algorithm."""
+    h = SMC["hmm"]
+    trans, loc = np.asarray(h["trans"]), np.asarray(h["loc"])
+    alpha = np.asarray(h["init"], np.float64)
+    for t, y in enumerate(h["ys"]):
+        alpha = alpha * np.exp(-0.5 * ((y - loc) / h["scale"]) ** 2)
+        if t < len(h["ys"]) - 1:
+            alpha = alpha @ trans
+    return alpha / alpha.sum()
+
+
+def drawn_observe_count_model():
+    """The second observe is met only where k = 1: at stage 2 the k = 0
+    particles are past their last observe (the interpreter filter's
+    zero increment).  Branches on the draw, so it runs on the interpreter."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Categorical, Normal
+
+    class OneOrTwoObserves(pp.Model):
+        def forward(self):
+            mu = pp.sample(Normal(1.0, math.sqrt(5.0)))
+            k = pp.sample(Categorical(probs=torch.tensor([0.5, 0.5], device=pp.util.param_device())))
+            likelihood = Normal(mu, math.sqrt(2.0))
+            pp.observe(likelihood, name="obs0")
+            if int(k) == 1:
+                pp.observe(likelihood, name="obs1")
+            return k
+
+    return OneOrTwoObserves(name="one or two observes")
+
+
+def smc_run(device, label, run, warm_up=True):
+    """One SMC run timed on the host clock (after a warm-up run), with the
+    kernels' launches, the peak device memory and the filter's metadata:
+    (posterior, the phase line's fields, launches).  On the card kernel 3
+    must have launched once a stage."""
+    import torch
+
+    if warm_up:
+        run()
+    reset_launch_counts()
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    post = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    md = post.metadata[-1]
+    n = md["num_traces"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    if device == "cuda" and md["vectorized"]:
+        check(launches["log_weight_stats"] == md["stages"],
+              f"{label}: kernel 3 launched {launches['log_weight_stats']} times in {md['stages']} stages")
+    fields = {
+        "particles": n, "seconds": seconds, "particles_per_s": n / seconds, "stages": md["stages"],
+        "stage_ess": md["stage_ess"], "resampled_stages": md["resampled_stages"],
+        "ess_fraction": post.effective_sample_size / n, "log_evidence": post.log_evidence,
+        "host_syncs": md.get("host_syncs"), "peak_memory_gib": peak_gib,
+        "launches_by_shape": {k: v for k, v in launches.items() if k.endswith(("_by_rows", "_by_n")) and v},
+    }
+    return post, fields, launches
+
+
+def check_gum_smc(post, label, tol):
+    """GUM's SMC limits (tests/test_smc.py:38-51): mean, stddev and log Z."""
+    mean, std = float(post.mean), float(post.stddev)
+    check(abs(mean - POSTERIOR_MEAN) < tol[0], f"{label}: mean {mean}")
+    check(abs(std - POSTERIOR_STDDEV) < tol[1], f"{label}: stddev {std}")
+    check(abs(post.log_evidence - LOG_EVIDENCE) < tol[2], f"{label}: log Z {post.log_evidence}")
+    return mean, std
+
+
+def phase_smc_gum(device, n=None):
+    """GUM under SMC at 10^6 particles, resample_threshold 1.0, each scheme:
+    tests/test_smc.py:38-65's limits (mean 0.2, stddev 0.1, log Z 0.25
+    of the analytic value) and an ESS above 5x prior IS's at the same N."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    n = n or SMC["particles"]
+    pp.seed(SMC["seed"])
+    prior_ess = GaussianUnknownMean().posterior_results(n, observe=OBSERVE, vectorized=True).effective_sample_size
+    path = {}
+    for scheme in sorted(pp.parallel.RESAMPLING_SCHEMES):
+        label = f"smc_gum_{scheme}"
+        post, fields, path[label] = smc_run(device, label, lambda: GaussianUnknownMean().posterior_results(
+            n, observe=OBSERVE, inference_engine=pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO,
+            resample_threshold=1.0, resampling=scheme))
+        mean, std = check_gum_smc(post, label, SMC["gum_tol"])
+        check(post.effective_sample_size > 5 * prior_ess, f"{label}: ESS {post.effective_sample_size} vs IS {prior_ess}")
+        check(post.metadata[-1]["resampling"] == scheme, f"{label}: metadata")
+        emit({"phase": label, "mean": mean, "stddev": std, "prior_is_ess_fraction": prior_ess / n, **fields})
+    return path
+
+
+def phase_smc_lgss(device, n=None):
+    """LinearGaussianStateSpace(num_steps=8, a=0.9) on synthesize(rng=0) at
+    10^6 particles: the mean path within 0.06 and the variance within 0.04
+    of the RTS smoother, the ESS above 5x prior IS's
+    (tests/test_models_builtin.py:292-323)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import LinearGaussianStateSpace
+
+    n = n or SMC["particles"]
+    pp.seed(SMC["seed"] + 1)
+    model = LinearGaussianStateSpace(num_steps=8, a=0.9)
+    _, ys = model.synthesize(rng=0)
+    sm, sv = model.kalman_smoother(ys)
+    prior_ess = model.posterior_results(n, observe=model.observes(ys), vectorized=True).effective_sample_size
+    post, fields, launches = smc_run(device, "smc_lgss", lambda: model.posterior_results(
+        n, observe=model.observes(ys), inference_engine=pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO))
+    mean_err = float(np.abs(np.asarray(post.mean, np.float64) - sm).max())
+    var_err = float(np.abs(np.asarray(post.variance, np.float64) - sv).max())
+    check(mean_err < 0.06, f"smc_lgss: mean path {mean_err} from the smoother")
+    check(var_err < 0.04, f"smc_lgss: variance {var_err} from the smoother")
+    check(post.effective_sample_size > 5 * prior_ess, f"smc_lgss: ESS {post.effective_sample_size} vs IS {prior_ess}")
+    emit({"phase": "smc_lgss", "mean_path_max_err": mean_err, "variance_max_err": var_err,
+          "prior_is_ess_fraction": prior_ess / n, **fields})
+    return launches
+
+
+def phase_smc_hmm(device, n=None):
+    """The 3-state, 6-step HMM at 10^6 particles: int64 sites, the last
+    state's marginal within 0.03 of the forward algorithm's
+    (tests/test_smc.py:124-167)."""
+    import pyprob_tpu_torch as pp
+
+    n = n or SMC["particles"]
+    pp.seed(SMC["seed"] + 2)
+    ys = SMC["hmm"]["ys"]
+    post, fields, launches = smc_run(device, "smc_hmm", lambda: smc_hmm_model().posterior_results(
+        n, observe={f"y{t}": y for t, y in enumerate(ys)}, inference_engine=pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO))
+    values = np.asarray(post.get_values())
+    check(values.dtype == np.int64, f"smc_hmm: values of {values.dtype}")
+    w = np.asarray(post.weights, np.float64)
+    est = np.array([w[values == k].sum() for k in range(3)])
+    truth = smc_hmm_truth()
+    err = float(np.abs(est - truth).max())
+    check(err < 0.03, f"smc_hmm: marginal {est} vs {truth}")
+    emit({"phase": "smc_hmm", "marginal": est.tolist(), "forward_algorithm": truth.tolist(), "max_err": err,
+          **fields})
+    return launches
+
+
+def phase_smc_marsaglia(device, n=None):
+    """GaussianUnknownMeanMarsagliaRejection at 10^6 particles: the
+    rejection block a masked retry loop at stage 1 and replayed whole at
+    stage 2; mean and stddev within 0.2 (tests/test_rejection.py:137-144)."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsagliaRejection
+
+    n = n or SMC["particles"]
+    pp.seed(SMC["seed"] + 3)
+    post, fields, launches = smc_run(device, "smc_marsaglia", lambda: GaussianUnknownMeanMarsagliaRejection(
+    ).posterior_results(n, observe=OBSERVE, inference_engine=pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO))
+    mean, std = float(post.mean), float(post.stddev)
+    check(abs(mean - POSTERIOR_MEAN) < 0.2 and abs(std - POSTERIOR_STDDEV) < 0.2, f"smc_marsaglia: {mean}, {std}")
+    emit({"phase": "smc_marsaglia", "mean": mean, "stddev": std, **fields})
+    return launches
+
+
+def phase_smc_guided(device, networks, marsaglia_model, n=None):
+    """SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK at 10^6 particles,
+    unchunked, with the trained GUM networks (``networks``: label -> model)
+    at resample_threshold 1.0, held to tests/test_smc.py:226-274's limits
+    (mean 0.2, stddev 0.1, log Z 0.3, ESS > 0.2 N), and with the Marsaglia
+    LSTM network at the default threshold, mean within 0.25
+    (tests/test_rejection.py:172-180); kernel 1 (GUM) or kernel 2
+    (Marsaglia's Uniform head) launched on every stage."""
+    import pyprob_tpu_torch as pp
+
+    n = n or SMC["particles"]
+    engine = pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK
+    path = {}
+    runs = [(label, model, "mixture_normal_log_prob", {"resample_threshold": 1.0}) for label, model in networks.items()]
+    runs.append(("marsaglia_lstm128", marsaglia_model, "mixture_truncated_normal_log_prob", {}))
+    for i, (label, model, kernel, kwargs) in enumerate(runs):
+        phase = f"smc_guided_{label}"
+        pp.seed(SMC["seed"] + 10 + i)
+        post, fields, path[phase] = smc_run(device, phase, lambda: model.posterior_results(
+            n, observe=OBSERVE, inference_engine=engine, **kwargs))
+        md = post.metadata[-1]
+        if device == "cuda":
+            check(path[phase][kernel] >= md["stages"], f"{phase}: {kernel} launched {path[phase][kernel]} times")
+        if label.startswith("marsaglia"):
+            mean, std = float(post.mean), float(post.stddev)
+            check(abs(mean - POSTERIOR_MEAN) < 0.25, f"{phase}: mean {mean}")
+        else:
+            mean, std = check_gum_smc(post, phase, SMC["guided_tol"])
+            check(post.effective_sample_size > 0.2 * n, f"{phase}: ESS {post.effective_sample_size}")
+        check("WITH_INFERENCE_NETWORK" in md["inference_engine"], f"{phase}: metadata")
+        emit({"phase": phase, "mean": mean, "stddev": std, "kernel": kernel, "kernel_launches": path[phase][kernel],
+              **fields})
+    return path
+
+
+def phase_smc_interpreter(device, n=None):
+    """The while-loop GaussianUnknownMeanMarsaglia with vectorized=None:
+    SMC falls back to the interpreter filter, 2,000 particles, systematic
+    and stratified, held to tests/test_smc.py:192-203 (mean 0.35, stddev
+    0.25, log Z 0.5, metadata vectorized False); then a program whose
+    observe count depends on a draw, run to the end, its share of k = 1
+    within 0.03 of the analytic 0.0548."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMeanMarsaglia
+
+    n = n or SMC["interpreter_particles"]
+    engine = pp.InferenceEngine.SEQUENTIAL_MONTE_CARLO
+    path = {}
+    for i, scheme in enumerate(("systematic", "stratified")):
+        phase = f"smc_interpreter_{scheme}"
+        pp.seed(SMC["seed"] + 20 + i)
+        post, fields, path[phase] = smc_run(device, phase, lambda: GaussianUnknownMeanMarsaglia().posterior_results(
+            n, observe=OBSERVE, inference_engine=engine, resample_threshold=1.0, resampling=scheme), warm_up=False)
+        check(post.metadata[-1]["vectorized"] is False, f"{phase}: ran on the batched tier")
+        mean, std = check_gum_smc(post, phase, SMC["interpreter_tol"])
+        emit({"phase": phase, "mean": mean, "stddev": std, **fields})
+    pp.seed(SMC["seed"] + 22)
+    post, fields, path["smc_interpreter_drawn_observes"] = smc_run(
+        device, "smc_interpreter_drawn_observes", lambda: drawn_observe_count_model().posterior_results(
+            n, observe=OBSERVE, inference_engine=engine, resample_threshold=1.0), warm_up=False)
+    p8 = math.exp(-0.5 * 49.0 / 7.0) / math.sqrt(2 * math.pi * 7.0)
+    share = math.exp(LOG_EVIDENCE) / (p8 + math.exp(LOG_EVIDENCE))
+    got = float(post.mean)
+    check(post.metadata[-1]["stages"] == 2 and abs(got - share) < 0.03, f"drawn observes: share {got} vs {share}")
+    emit({"phase": "smc_interpreter_drawn_observes", "share_k1": got, "analytic": share, **fields})
+    return path
+
+
+def phase_smc_kernel_shapes(path, floor_ms):
+    """Kernels 1 and 2 held against their plain versions (with the special
+    rows) and timed at every row count the SMC phases launched them at
+    (10^6 unchunked), beside their bounds and the launch floor."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    Kc = MIXTURE_COMPONENTS
+    launches = {}  # rows -> {kernel: launches}
+    for counts in path.values():
+        for name in FORWARD_KERNELS:
+            for rows, count in counts.get(name + "_by_rows", {}).items():
+                launches.setdefault(rows, {}).setdefault(name, 0)
+                launches[rows][name] += count
+    for rows, by_name in sorted(launches.items()):
+        checked = check_round_forwards(rows, seed=rows)
+        for name, count in sorted(by_name.items()):
+            inputs, err = checked[name]
+            cost = mixture_cost if name == FORWARD_KERNELS[0] else tnorm_cost
+            emit_shape(name, lambda: getattr(K, name)(*inputs), lambda: getattr(K, name + "_plain")(*inputs),
+                       *cost(rows, Kc), [rows, Kc], err, iters=10, path="SMC", launches=count,
+                       launch_floor_ms=floor_ms)
+    emit({"phase": "smc_kernel_checks", "launches_by_rows": launches})
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -5113,6 +5434,18 @@ def main():
         phase_conditional("cuda")
         torch.cuda.empty_cache()  # the workers make CUDA contexts of their own
         path["parallel"] = phase_parallel("cuda", tmp, trained_arms[128])
+    # SMC on both tiers, after every earlier phase (whose draws stay as they
+    # were): the staged-replay filter at 10^6 particles in one batch, guided
+    # by the trained GUM and Marsaglia networks, and the interpreter filter
+    smc_path = phase_smc_gum("cuda")
+    smc_path["smc_lgss"] = phase_smc_lgss("cuda")
+    smc_path["smc_hmm"] = phase_smc_hmm("cuda")
+    smc_path["smc_marsaglia"] = phase_smc_marsaglia("cuda")
+    smc_path.update(phase_smc_guided(
+        "cuda", {"lstm128": trained_arms[128], "lstm512": trained_arms[512], "ff": ff_gum}, marsaglia))
+    smc_path.update(phase_smc_interpreter("cuda"))
+    phase_smc_kernel_shapes(smc_path, floor_ms)
+    path.update(smc_path)
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

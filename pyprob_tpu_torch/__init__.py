@@ -28,7 +28,10 @@ inverse, and the fused MVN quadratic form and log-determinant
 (``ops.mvn_quad_logdet``) are hand-written CUDA kernels
 (``pyprob_tpu_torch.ops``).  Its MCMC engines, LMH and RMH, run as
 parallel chains on the batched tier (resumable from a ``ChainState``) and
-as one sequential chain on the interpreter tier; ``Model`` also gives
+as one sequential chain on the interpreter tier, and SMC (a staged-replay
+particle filter with systematic, stratified, residual or multinomial
+resampling, ``pyprob_tpu_torch.parallel``) on both tiers, guided by a
+trained network on the batched tier; ``Model`` also gives
 posterior-predictive draws, ``ConditionalModel`` (``Model.condition``) and
 ``ParallelModel`` (``Model.parallel``: trace generation over spawned
 processes).
@@ -54,6 +57,7 @@ from .inference import ChainState
 from . import distributions
 from . import models
 from . import ops
+from . import parallel
 from . import util
 
 __all__ = [
@@ -81,5 +85,6 @@ __all__ = [
     "distributions",
     "models",
     "ops",
+    "parallel",
     "util",
 ]

@@ -19,9 +19,10 @@ the files), and keeps it in a file (``save_inference_network``,
 ``file_name=``.  ``sample`` draws one interpreter-tier trace
 (``get_trace`` is its deprecated name).  LMH and RMH run as parallel chains
 on the batched tier (``inference.mcmc``, resumable from a ``ChainState``)
-and as the reference's sequential chain on the interpreter tier.
-``posterior_predictive`` replays a trace-valued posterior's latents with
-fresh observes; ``condition`` (``filter``) wraps a model in a
+and as the reference's sequential chain on the interpreter tier.  SMC
+(``inference.smc``) is a staged-replay particle filter on both tiers,
+guided by the network on the batched tier.  ``posterior_predictive``
+replays a trace-valued posterior's latents with fresh observes; ``condition`` (``filter``) wraps a model in a
 ``ConditionalModel`` that keeps the traces meeting a criterion;
 ``parallel`` gives a ``ParallelModel`` that spreads interpreter-tier
 traces over spawned processes.  The other engines come with later slices
@@ -263,12 +264,14 @@ class Model:
         burn_in=None,
         return_chains=False,
         mesh=None,
+        resample_threshold=0.5,
+        resampling="systematic",
         lockstep=None,
         *args,
         **kwargs,
     ):
-        """IS from the prior or from the inference network (IC), or an LMH /
-        RMH chain.  On the interpreter tier IC runs lockstep when
+        """IS from the prior or from the inference network (IC), an LMH /
+        RMH chain, or SMC.  On the interpreter tier IC runs lockstep when
         ``num_traces >= 8``: a pool of worker threads (64, or ``lockstep``
         when it is an int) whose proposal sites are answered a round at a
         time by one batched network step on the card; ``lockstep=False``
@@ -278,8 +281,14 @@ class Model:
         ``ChainState`` or a ``Trace``, ``num_chains``, ``burn_in``,
         ``thinning_steps``, ``return_chains``) and the reference's one
         sequential chain on the interpreter tier (``initial_trace`` a
-        ``Trace``, ``thinning_steps``).  ``mesh`` (chains over several
-        cards) comes with the distributed slice."""
+        ``Trace``, ``thinning_steps``).  SMC (``inference.smc``;
+        ``resample_threshold``, ``resampling``: 'systematic', 'stratified',
+        'residual' or 'multinomial') runs on the batched tier unless
+        ``vectorized=False``; unguided SMC falls back to the interpreter
+        filter for a model that cannot run there, and guided SMC
+        (``SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK``) raises for it.
+        ``mesh`` (chains or particles over several cards) comes with the
+        distributed slice."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chains or particles over several cards) is not ported yet; "
@@ -303,11 +312,34 @@ class Model:
                 num_chains=num_chains,
                 burn_in=burn_in,
                 return_chains=return_chains,
+                resample_threshold=resample_threshold,
+                resampling=resampling,
                 *args,
                 **kwargs,
             )
             if posterior is not None:
                 return posterior
+        if inference_engine in state._SMC:
+            if inference_engine == InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK:
+                raise RuntimeError(
+                    "SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK requires a model that runs "
+                    "on the batched tier; for this model use SEQUENTIAL_MONTE_CARLO (the "
+                    "interpreter filter) or IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK."
+                )
+            from .inference.smc import interpreter_smc_posterior
+
+            return interpreter_smc_posterior(
+                self,
+                num_traces=num_traces,
+                observe=observe,
+                map_func=map_func,
+                file_name=file_name,
+                resample_threshold=resample_threshold,
+                resampling=resampling,
+                likelihood_importance=likelihood_importance,
+                args=args,
+                kwargs=kwargs,
+            )
         if num_chains is not None or burn_in is not None or return_chains:
             warnings.warn(
                 "num_chains/burn_in/return_chains only apply to the batched MCMC tier "
@@ -496,6 +528,8 @@ class Model:
         *args,
         **kwargs,
     ):
+        """``posterior`` with ``map_func=trace_result``; the engines' other
+        arguments (``resample_threshold``, ``resampling``, ...) pass through."""
         return self.posterior(
             num_traces=num_traces,
             inference_engine=inference_engine,

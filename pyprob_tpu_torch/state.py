@@ -29,10 +29,12 @@ a model that calls ``float(x)`` never waits on the card.  Distributions
 built from plain numbers inside a trace put their parameters on the CPU
 (``util.param_device``); the network, the loss and the kernels run on the
 card.  ``_set_smc_replay`` pins controlled sites to given values in the
-prior modes (``Model.posterior_predictive``).  The other engines and
-``sample(mask=)``/``observe(mask=)`` come with the engines and Markov/SMC
-slices and raise here.  Without a handler or a trace, ``sample`` just
-draws and ``rejection_sample`` is a plain host loop.
+prior modes (``Model.posterior_predictive``) and under IS
+(``inference.smc.interpreter_smc_posterior``'s prefix replay).  The
+gradient engines and ``sample(mask=)``/``observe(mask=)`` come with the
+gradient-engine and Markov slices and raise here.  Without a handler or
+a trace, ``sample`` just draws and ``rejection_sample`` is a plain host
+loop.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ _MCMC = (
     InferenceEngine.LIGHTWEIGHT_METROPOLIS_HASTINGS,
     InferenceEngine.RANDOM_WALK_METROPOLIS_HASTINGS,
 )
+_SMC = (
+    InferenceEngine.SEQUENTIAL_MONTE_CARLO,
+    InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK,
+)
 # mixture weight on the learned proposal for rejection-retry attempts
 # (defensive importance sampling, Hesterberg 1995)
 _DEFENSIVE_PI = 0.5
@@ -66,7 +72,7 @@ _DEFENSIVE_PI = 0.5
 
 def _engines_later(what):
     return NotImplementedError(
-        f"{what} is not ported yet; it comes with the engines slice"
+        f"{what} is not ported yet; it comes with the gradient engines slice"
     )
 
 
@@ -93,7 +99,8 @@ class _Context:
         self.metropolis_hastings_site_address = None
         self.metropolis_hastings_site_transition_log_prob = None
         # {full_address: value}: controlled sites take these values in the
-        # prior modes (the posterior-predictive replay)
+        # prior modes (the posterior-predictive replay) and under IS (SMC's
+        # prefix replay)
         self.smc_replay_values = None
 
 
@@ -358,11 +365,17 @@ def sample(distribution, name=None, address=None, control=True, mask=None):
             )
         )
         return value
-    if ctx.trace_mode != TraceMode.POSTERIOR and control and ctx.smc_replay_values is not None:
+    if (
+        control
+        and ctx.smc_replay_values is not None
+        and (ctx.trace_mode != TraceMode.POSTERIOR or engine == InferenceEngine.IMPORTANCE_SAMPLING)
+    ):
         replayed = ctx.smc_replay_values.get(full_address)
         if replayed is not None:
-            # the posterior-predictive replay: the latent keeps a posterior
-            # draw's value while the observes draw theirs
+            # the posterior-predictive replay (the latent keeps a posterior
+            # draw's value while the observes draw theirs) and SMC's prefix
+            # replay (the site keeps its resampled ancestor's value, scored
+            # and unweighted)
             trace.add(
                 Variable(
                     distribution=distribution,

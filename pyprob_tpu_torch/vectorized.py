@@ -15,7 +15,9 @@ the device until the end of a run; the ESS and log Z of a result come from
 the ``log_weight_stats`` kernel over the run's ``[N]`` log-weights.  The
 MCMC engines route to ``inference.mcmc``, whose ``ReplayHandler`` (a
 ``VectorizedHandler``) replays ``forward`` over the chains through
-``run_forward``.
+``run_forward``; the SMC engines to ``inference.smc``, whose stages run
+``forward`` under a ``VectorizedHandler`` that replays the resampled
+prefix (``replay_values``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from . import state, util
 from .address import extract_address
 from .distributions import Categorical, Empirical, Factor, Normal
 from .distributions.empirical import values_of
-from .ops import kernels
+from .parallel.collectives import log_weight_stats_host
 from .trace import Trace, Variable
 from .util import InferenceEngine, PriorInflation, TraceMode
 
@@ -95,6 +97,8 @@ class VectorizedHandler:
         prior_inflation=PriorInflation.DISABLED,
         likelihood_importance=1.0,
         proposal_step=None,
+        replay_values=None,
+        record_site_log_iws=False,
     ):
         self.n = num_particles
         self.generator = generator
@@ -106,13 +110,20 @@ class VectorizedHandler:
         self.prior_inflation = prior_inflation
         self.likelihood_importance = likelihood_importance
         self.proposal_step = proposal_step
+        # {full_address: [n, *event] value}: controlled sites in the dict
+        # take the given value (SMC's prefix replay, ``inference.smc``)
+        self.replay_values = replay_values or None
+        # per-site prior - proposal deltas, an output only guided SMC reads
+        self.record_site_log_iws = record_site_log_iws
         if proposal_step is not None:
             proposal_step.reset(num_particles)
         self.sites = []
         self.values = []
         self.log_probs = []
+        self.site_log_iws = []
         self.instance_counts = {}
         self.rejection_rounds = []  # attempts run by each rejection block
+        self.host_syncs = 0  # the retry loops' reads of whether a lane is pending
         zeros = lambda: torch.zeros(  # noqa: E731
             (num_particles,), dtype=util.dtype(), device=self.device
         )
@@ -152,10 +163,11 @@ class VectorizedHandler:
             InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK,
         )
 
-    def _record(self, site, value, log_prob):
+    def _record(self, site, value, log_prob, log_iw=None):
         self.sites.append(site)
         self.values.append(value)
         self.log_probs.append(log_prob)
+        self.site_log_iws.append(log_iw)
 
     def _per_particle_value(self, distribution, value):
         """An observed value as one row per particle (a trace takes row i).
@@ -195,16 +207,28 @@ class VectorizedHandler:
             self._record(site, self._per_particle_value(distribution, value), log_prob)
             return value
 
+        if control and self.replay_values is not None and full in self.replay_values:
+            value = self.replay_values[full]
+            if self.proposal_step is not None:
+                # advance the proposal network through the replayed site
+                # (guided SMC keeps the LSTM's chain of sites intact)
+                self.proposal_step(
+                    site, distribution, self.generator, self.observed, forced_value=value
+                )
+            log_prob = self._per_particle(distribution.log_prob(value))
+            self.log_prob_total = self.log_prob_total + log_prob
+            self._record(site, value, log_prob)
+            return value
+
         if control and self._ic_proposals():
             value, proposal_log_prob = self.proposal_step(
                 site, distribution, self.generator, self.observed
             )
             log_prob = self._per_particle(distribution.log_prob(value))
-            self.log_importance_weight = (
-                self.log_importance_weight + log_prob - proposal_log_prob
-            )
+            delta = log_prob - proposal_log_prob
+            self.log_importance_weight = self.log_importance_weight + delta
             self.log_prob_total = self.log_prob_total + log_prob
-            self._record(site, value, log_prob)
+            self._record(site, value, log_prob, delta if self.record_site_log_iws else None)
             return value
 
         inflated = self._inflate(distribution) if control else None
@@ -303,12 +327,20 @@ class VectorizedHandler:
         importance weight takes log p − log q of every attempt a lane
         executed, accepted or not: exact by the extended-space argument
         (the target and the proposal processes both define densities over
-        the sequence of executed attempts, with ratio Π p(x_i)/q(x_i))."""
+        the sequence of executed attempts, with ratio Π p(x_i)/q(x_i)).
+
+        Under guided SMC (replay, per-site weights) retries draw from the
+        prior and only the first attempt's correction counts: exact by the
+        same argument with q = p on retries.  A block whose sites are all
+        replayed runs no retry: its values were accepted when drawn."""
         max_attempts = int(max_attempts) if max_attempts else _REJECTION_MAX_ATTEMPTS
         base_counts = dict(self.instance_counts)
         step = self.proposal_step
-        ic_retry = self._ic_proposals() and all(
-            hasattr(step, a) for a in ("get_state", "set_state", "select_state")
+        ic_retry = (
+            self._ic_proposals()
+            and self.replay_values is None
+            and not self.record_site_log_iws
+            and all(hasattr(step, a) for a in ("get_state", "set_state", "select_state"))
         )
         defensive = (
             _REJECTION_DEFENSIVE_PI
@@ -339,9 +371,15 @@ class VectorizedHandler:
         dists = [s.distribution for s in sub0.sites]
         pstate = step.get_state() if ic_retry else None
         rounds = 1
+        replay_all = self.replay_values is not None and all(
+            a in self.replay_values for a in addresses
+        )
         pending = ~accept
         # one host sync per round: whether any lane is still pending
-        while rounds < max_attempts and bool(pending.any()):
+        while not replay_all and rounds < max_attempts:
+            self.host_syncs += 1
+            if not bool(pending.any()):
+                break
             if ic_retry:
                 step.set_state(s0)
             o, acc, sub = run_attempt(use_proposal=ic_retry, defensive=defensive)
@@ -368,17 +406,18 @@ class VectorizedHandler:
             pending = pending & ~acc
             rounds += 1
         self.rejection_rounds.append(rounds)
-        self.log_importance_weight = torch.where(
-            accept, self.log_importance_weight,
-            torch.full_like(self.log_importance_weight, -math.inf),
-        )
+        if not replay_all:
+            self.log_importance_weight = torch.where(
+                accept, self.log_importance_weight,
+                torch.full_like(self.log_importance_weight, -math.inf),
+            )
         if ic_retry:
             step.set_state(pstate)
-        for site, value, lp, dist in zip(sub0.sites, values, log_probs, dists):
+        for site, value, lp, dist, iw in zip(sub0.sites, values, log_probs, dists, sub0.log_iws):
             site.distribution = dist
             if site.control:
                 self.log_prob_total = self.log_prob_total + lp
-            self._record(site, value, lp)
+            self._record(site, value, lp, iw if self.record_site_log_iws else None)
         return out
 
 
@@ -458,7 +497,14 @@ class _RejectionAttemptHandler:
             rejection=True,
         )
         log_iw = None
-        if self.use_proposal and control and outer._ic_proposals():
+        if outer.replay_values is not None and full in outer.replay_values:
+            value = outer.replay_values[full]
+            if self.use_proposal and outer.proposal_step is not None:
+                # keep the proposal network's chain through replayed block
+                # sites (guided SMC's prefix replay)
+                outer.proposal_step(site, distribution, outer.generator, outer.observed, forced_value=value)
+            lp = outer._per_particle(distribution.log_prob(value))
+        elif self.use_proposal and control and outer._ic_proposals():
             kwargs = {} if self.defensive is None else {"defensive": self.defensive}
             value, proposal_log_prob = outer.proposal_step(
                 site, distribution, outer.generator, outer.observed, **kwargs
@@ -543,6 +589,11 @@ def handler_outputs(handler, result):
             s.address: lp
             for s, lp in zip(handler.sites, handler.log_probs)
             if lp is not None
+        },
+        "site_log_iws": {
+            s.address: iw
+            for s, iw in zip(handler.sites, handler.site_log_iws)
+            if iw is not None
         },
     }
 
@@ -846,11 +897,7 @@ def vectorized_traces(
     else:
         lw = torch.where(finite, lw, neg_inf)
     # ESS and log Z from the device-resident weights, one host fetch
-    m, s1, s2 = kernels.log_weight_stats_packed(lw).cpu().tolist()
-    if m == -math.inf:
-        ess, log_evidence = 0.0, -math.inf
-    else:
-        ess, log_evidence = s1 * s1 / s2, m + math.log(s1)
+    ess, log_evidence = log_weight_stats_host(lw)
     log_weights = _host(lw).astype(np.float64)
     keep = np.isfinite(log_weights)
     if not keep.all():
@@ -917,6 +964,20 @@ def vectorized_prior(
     return emp
 
 
+def _network_proposal_step(model, observe):
+    """The batched proposal step of the model's trained network."""
+    network = model._inference_network
+    if network is None:
+        raise RuntimeError(
+            "No inference network available. Use learn_inference_network "
+            "or load_inference_network first."
+        )
+    proposal_step = network.cached_vectorized_proposal_step(observe)
+    if proposal_step is None:
+        raise NotImplementedError(f"{type(network).__name__} has no batched proposal step")
+    return proposal_step
+
+
 def vectorized_posterior(
     model,
     num_traces,
@@ -931,15 +992,38 @@ def vectorized_posterior(
     num_chains=None,
     burn_in=None,
     return_chains=False,
+    resample_threshold=0.5,
+    resampling="systematic",
     *args,
     **kwargs,
 ):
     """Batched posterior by importance sampling, from the prior (IS) or
-    from the model's inference network (IC), or by parallel LMH / RMH
+    from the model's inference network (IC), by parallel LMH / RMH
     chains (``inference.mcmc.vectorized_mcmc_posterior``, which takes
     ``initial_trace``, ``thinning_steps``, ``num_chains``, ``burn_in`` and
-    ``return_chains``); None when ``fallback`` and the model cannot run on
-    this tier (``vectorized_traces``)."""
+    ``return_chains``), or by SMC, guided by the network or not
+    (``inference.smc.vectorized_smc_posterior``, which takes
+    ``resample_threshold`` and ``resampling``); None when ``fallback`` and
+    the model cannot run on this tier (``vectorized_traces``), and for SMC
+    whenever it cannot (the caller runs the interpreter filter or raises)."""
+    if inference_engine in state._SMC:
+        from .inference.smc import vectorized_smc_posterior
+
+        guided = inference_engine == InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK
+        proposal_step = _network_proposal_step(model, observe) if guided else None
+        return vectorized_smc_posterior(
+            model,
+            num_traces=num_traces,
+            observe=observe,
+            map_func=map_func,
+            file_name=file_name,
+            resample_threshold=resample_threshold,
+            resampling=resampling,
+            likelihood_importance=likelihood_importance,
+            proposal_step=proposal_step,
+            args=args,
+            kwargs=kwargs,
+        )
     if inference_engine in state._MCMC:
         from .inference.mcmc import vectorized_mcmc_posterior
 
@@ -964,17 +1048,7 @@ def vectorized_posterior(
     if inference_engine == InferenceEngine.IMPORTANCE_SAMPLING:
         proposal_step, label = None, "IS"
     elif inference_engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK:
-        network = model._inference_network
-        if network is None:
-            raise RuntimeError(
-                "No inference network available. Use learn_inference_network "
-                "or load_inference_network first."
-            )
-        proposal_step, label = network.cached_vectorized_proposal_step(observe), "IC"
-        if proposal_step is None:
-            raise NotImplementedError(
-                f"{type(network).__name__} has no batched proposal step"
-            )
+        proposal_step, label = _network_proposal_step(model, observe), "IC"
     else:
         raise state._engines_later(inference_engine.name)
     try:

@@ -45,8 +45,8 @@ def test_signatures_match_the_jax_package():
         assert params(getattr(pp.Model, name)) == params(getattr(pyprob_tpu.Model, name)), name
     for cls in ("ConditionalModel", "ParallelModel"):
         assert params(getattr(pp, cls).__init__) == params(getattr(pyprob_tpu, cls).__init__)
-    # the engines' arguments of later slices (resample_threshold on) are not taken yet
-    assert params(pp.Model.posterior)[:14] == params(pyprob_tpu.Model.posterior)[:14]
+    # the engines' arguments of later slices (vi_steps on) are not taken yet
+    assert params(pp.Model.posterior)[:16] == params(pyprob_tpu.Model.posterior)[:16]
     assert {"ChainState", "ConditionalModel", "ParallelModel"} <= set(pp.__all__)
 
 
