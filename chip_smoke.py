@@ -18,8 +18,10 @@ files with validation and keep_best, and file-backed results; and for
 the MCMC engines (LMH and RMH, batched chains and the interpreter chain,
 ChainState resumes, rejection blocks, GP and GaussianMixture chains) and
 the rest of the Model API (posterior_predictive, condition, ParallelModel);
-and for SMC on both tiers, with its four resampling schemes, guided by the
-trained networks.
+for SMC on both tiers, with its four resampling schemes, guided by the
+trained networks; and for the gradient engines (HMC, NUTS, LAPLACE and
+map_estimate), their potentials differentiated through the batched replay
+with kernels 1, 1b and 4 under the gradient.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -374,7 +376,38 @@ Phases, each printing one JSON line:
     stages, stage ESS and resampled stages, launches by shape, host syncs
     and peak device memory;
 68. kernels 1 and 2 against their plain versions and timed at the rows the
-    SMC phases launched them at (10^6), beside their bounds.
+    SMC phases launched them at (10^6), beside their bounds;
+69. gradient_gum: GaussianUnknownMean under HAMILTONIAN_MONTE_CARLO and
+    NO_U_TURN_SAMPLER at 1,024 chains and 102,400 kept draws, held to
+    _check_gum; acceptance, step size, transitions/s, potentials (replays
+    forward and backward) a transition, NUTS's tree depth and host syncs;
+70. gradient_gmm: GaussianMixture K = 2 on 40 data under HMC and NUTS at
+    1,024 chains, the sorted means within mcmc_gmm's limit of 10^6 prior
+    IS; kernels 1 and 1b at least once a potential at 40,960 rows; the JAX
+    test's frozen NUTS chains (1,600 draws, tests/test_models_builtin.py:
+    245-290) and HMC with learn_weights at its counts; kernel 1b timed at
+    [40,960, 2];
+71. hmc_gp: GP regression at N = 256 under HMC with 256 chains, the mean
+    within 0.6 grid stddevs; kernel 4 four times a potential (the panel
+    Cholesky under autograd, ops.blocked_linalg.PanelCholesky), no library
+    Cholesky; kernel 4 timed at B = 256;
+72. gradient_card_vs_cpu: the potential and its gradient at fixed z on the
+    card (GaussianMixture with learn_weights through kernels 1 and 1b; the
+    GP at N = 256 through kernel 4) against the plain versions on the card
+    and the GP's against float64 torch.linalg.cholesky (GRADIENT's
+    tolerances);
+73. nuts_builtin: the JAX tests' HMC/NUTS criteria at their own counts on
+    EightSchools (against 10^6 prior IS: the test's tempered-SMC reference
+    is not ported), the logistic regression, GP at N = 25, the state
+    space, an LKJ correlation, Tobit, InverseGamma, Pareto,
+    Beta-NegativeBinomial and Gumbel/HalfNormal latents;
+74. gradient_resume: final_gradient_state resumed (no warmup, the carried
+    step size), under a changed observation, and pickled
+    (tests/test_gradient_resume.py);
+75. laplace: LAPLACE exact on GUM, map_estimate, the Gamma-Poisson
+    posterior by reweighting and its MAP, BayesianLinearRegression
+    (tests/test_laplace.py, tests/test_models_builtin.py:178-200), kernel
+    3 on each run's weights.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -959,13 +992,13 @@ def phase_stats_shapes(path):
 
 
 def kernel_functions():
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from pyprob_tpu_torch.ops import kernels as K, mvn_logpdf, tile_chol
+    """Each kernel's wrapper, whose ``launches`` counts its launches: the
+    port's one list (``ops.counted_kernels``, which also decides which
+    gradient potentials stay out of CUDA graphs), named as KERNEL_NAMES."""
+    from pyprob_tpu_torch.ops import counted_kernels
 
-    fns = {name: getattr(K, name) for name in KERNEL_NAMES[:5]}
-    fns["chol_inv_tile"] = tile_chol.chol_inv_tile
-    fns["mvn_quad_logdet"] = mvn_logpdf._quad_logdet_stacked
-    fns["mvn_quad_logdet_single"] = mvn_logpdf._quad_logdet_single
+    fns = counted_kernels()
+    check(tuple(fns) == KERNEL_NAMES, f"the port's counted kernels {tuple(fns)} are not {KERNEL_NAMES}")
     return fns
 
 
@@ -5301,6 +5334,643 @@ def phase_smc_kernel_shapes(path, floor_ms):
     emit({"phase": "smc_kernel_checks", "launches_by_rows": launches})
 
 
+
+# the gradient engines' phases (69-76), after every earlier phase (whose
+# draws stay as they were): GUM and GaussianMixture chains at 1,024 chains,
+# the GP at N = 256 with 256 chains, the JAX tests' criteria at their own
+# counts (tests/test_models_builtin.py:158-330, tests/test_lkj.py:131,
+# tests/test_censored_zi.py:116, tests/test_distributions_new.py:142,
+# tests/test_distributions_r3.py:137-200, tests/test_gradient_resume.py,
+# tests/test_laplace.py), and each gradient on the card against its plain
+# versions there
+GRADIENT = {"chains": 1024, "traces": 102_400, "gmm_traces": 25_600, "gmm_burn_in": 100, "gp_chains": 256,
+            "gp_traces": 12_800,
+            "gp_burn_in": 200, "seed": 100, "reference_is": 1_000_000, "builtin_reference_is": 400_000,
+            # |kernel − plain| <= tol (1 + |plain|) of each gradient at fixed z
+            "gmm_grad_tol": 1e-4, "gp_grad_tol": 2e-3, "gp_library_tol": 5e-3}
+
+
+def grad_engines():
+    import pyprob_tpu_torch as pp
+
+    return {"hmc": pp.InferenceEngine.HAMILTONIAN_MONTE_CARLO, "nuts": pp.InferenceEngine.NO_U_TURN_SAMPLER}
+
+
+def gradient_line(post, seconds):
+    """A gradient-chain run's figures from its metadata: chains, steps,
+    acceptance, step size, transitions/s of the step loop (host clock),
+    potentials (forward and backward replays) a transition, NUTS's tree
+    depth, divergences and host syncs."""
+    meta = post.metadata[-1]
+    check("batched" in post.name, f"not the batched chains: {post.name}")
+    C, T = meta["num_chains"], meta["transitions"] // meta["num_chains"]
+    replays = meta.get("replays_per_transition", meta.get("leapfrog_steps"))
+    line = {"chains": C, "steps": T, "burn_in": meta["burn_in"], "kept": post.length,
+            "acceptance_rate": meta["acceptance_rate"], "final_step_size": meta["final_step_size"],
+            "step_loop_seconds": meta["step_seconds"], "transitions_per_s": C * T / meta["step_seconds"],
+            "replays_per_transition": replays, "potentials": 1 + T * replays,
+            "ms_per_potential": meta["step_seconds"] / (T * replays) * 1e3, "seconds": seconds,
+            "potential_graph": meta["potential_graph"]}
+    for k in ("mean_tree_depth", "divergences", "max_replays_per_transition", "host_syncs"):
+        if k in meta:
+            line[k] = meta[k]
+    return line
+
+
+def phase_gradient_gum(device):
+    """GUM under HMC and NUTS at 1,024 chains and GRADIENT["traces"] kept
+    draws, held to _check_gum.  Returns the launches by run."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    g = GRADIENT
+    pp.seed(g["seed"])
+    model = GaussianUnknownMean()
+    launches, out = {}, {}
+    for name, engine in grad_engines().items():
+        (post, seconds), launches[f"{name}_gum"] = counted(device, lambda: host_timed(
+            lambda: model.posterior_results(g["traces"], inference_engine=engine, observe=OBSERVE,
+                                            num_chains=g["chains"])))
+        line = gradient_line(post, seconds)
+        check(line["chains"] == g["chains"] and post.length == g["traces"], f"{name}_gum: {line}")
+        out[name] = {**line, **check_gum_chain(post, f"{name}_gum")}
+    emit({"phase": "gradient_gum", **out, "launches": launches})
+    return launches
+
+
+def phase_gradient_gmm(device, floor_ms):
+    """GaussianMixture K = 2 on 40 data (tests/test_models_builtin.py:
+    245-290) under HMC and NUTS at 1,024 chains (25 kept transitions after
+    a burn-in of 100: the lockstep NUTS transition of 1,024 chains runs
+    the deepest chain's tree, and this potential, with kernels 1 and 1b in
+    it, is not captured as a CUDA graph): the sorted component means
+    within mcmc_gmm's 0.25 of 10^6 prior IS's stddev; kernel 1 at 1,024 x
+    40 rows and kernel 1b (the observe's gradient) at least once a
+    potential; the JAX test's criterion that NUTS chains freeze in one
+    label mode (1,600 traces, burn-in 200, return_chains: all chains but
+    one), and HMC with learn_weights at its counts (200 draws, burn-in
+    150, one chain: 40 rows); kernels 1 and 1b held against their plain
+    versions at every row count the runs launched kernel 1 at
+    (``check_gmm_kernels``) and timed beside their bounds at 40,960 and
+    40 rows."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianMixture
+    from pyprob_tpu_torch.ops import kernels as K
+
+    g = GRADIENT
+    pp.seed(g["seed"] + 1)
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D)
+    y = gm.synthesize([-2.0, 2.0], rng=0)
+    ref = sorted_means(gm.posterior_results(g["reference_is"], observe={"y": y}))
+    rows = g["chains"] * D
+    launches, out = {}, {}
+    for name, engine in grad_engines().items():
+        (post, seconds), launches[f"{name}_gmm"] = counted(device, lambda: host_timed(
+            lambda: gm.posterior_results(g["gmm_traces"], inference_engine=engine, observe={"y": y},
+                                         num_chains=g["chains"], burn_in=g["gmm_burn_in"])))
+        got = sorted_means(post)
+        for (mean, _), (ref_mean, ref_std), which in zip(got, ref, ("min", "max")):
+            check(abs(mean - ref_mean) < MCMC["gmm_tol"] * ref_std,
+                  f"{name}_gmm: {which} mean {mean} vs IS {ref_mean} +- {ref_std}")
+        line = gradient_line(post, seconds)
+        counts = launches[f"{name}_gmm"]
+        at_rows = counts["mixture_normal_log_prob_by_rows"].get(rows, 0)
+        backward = counts["mixture_normal_log_prob_backward"]
+        check(device != "cuda" or (at_rows >= line["potentials"] and backward >= line["potentials"]),
+              f"{name}_gmm: kernel 1 {at_rows} times at {rows} rows, kernel 1b {backward} times, "
+              f"for {line['potentials']} potentials")
+        out[name] = {**line, "sorted_means": got, "kernel1_at_chain_rows": at_rows, "kernel1b": backward}
+    nuts = gm.posterior(1600, observe={"y": y}, burn_in=200, return_chains=True,
+                        inference_engine=grad_engines()["nuts"])
+    shares = [float((np.asarray(c.values_numpy(), np.float64)[:, 0] < 0).mean()) for c in nuts]
+    frozen = sum(s < 0.05 or s > 0.95 for s in shares)
+    check(frozen >= len(nuts) - 1, f"gradient_gmm: {frozen} of {len(nuts)} NUTS chains frozen")
+    mw = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D, learn_weights=True)
+    (hw, _), weights_counts = counted(device, lambda: host_timed(lambda: mw.posterior(
+        200, observe={"y": y}, inference_engine=grad_engines()["hmc"], burn_in=150)))
+    check(hw.length == 200, f"gradient_gmm: learn_weights HMC gave {hw.length} draws")
+    check(device != "cuda" or (weights_counts["mixture_normal_log_prob"] >= 1
+                               and weights_counts["mixture_normal_log_prob_backward"] >= 1),
+          f"gradient_gmm learn_weights: {weights_counts}")
+    launches["hmc_gmm_weights"] = weights_counts
+    if device == "cuda":
+        # kernels 1 and 1b against their plain versions at every row count
+        # this phase launched kernel 1 at (the chains' C x 40 rows, the
+        # one-chain learn_weights run's 40, the probes' and the decodes'),
+        # with shared logits, and per chain as learn_weights gives them;
+        # each timed beside its bound at the potentials' rows
+        checked = {(rows_at, run == "hmc_gmm_weights")
+                   for run, counts in launches.items() for rows_at in counts["mixture_normal_log_prob_by_rows"]}
+        errors = {}
+        for rows_at, per_chain in sorted(checked):
+            err_f, err_b, inputs, out_k, cot = check_gmm_kernels(rows_at // D, D, per_chain)
+            errors[f"{rows_at}{' per chain' if per_chain else ''}"] = {"forward": err_f, "backward": err_b}
+            if rows_at not in (rows, D):
+                continue
+            where = "GaussianMixture potential" + (" (learn_weights, one chain)" if per_chain else "")
+            emit_shape("mixture_normal_log_prob", lambda: K.mixture_normal_log_prob(*inputs),
+                       lambda: K.mixture_normal_log_prob_plain(*inputs), *mixture_cost(rows_at, 2),
+                       [rows_at, 2], err_f, iters=50, path=where, launch_floor_ms=floor_ms)
+            emit_shape("mixture_normal_log_prob_backward",
+                       lambda: K.mixture_normal_log_prob_backward(*inputs, out_k, cot, need_x=False),
+                       lambda: K.mixture_normal_log_prob_backward_plain(*inputs, out_k, cot),
+                       *mixture_backward_cost(rows_at, 2), [rows_at, 2], err_b, iters=50,
+                       path=where + "'s gradient", launch_floor_ms=floor_ms)
+        check((rows, False) in checked and (D, True) in checked,
+              f"gradient_gmm: kernel 1 not launched at {rows} and {D} rows: {sorted(checked)}")
+        out["kernel_checks"] = errors
+    emit({"phase": "gradient_gmm", "data": D, "reference_is_sorted_means": ref, **out,
+          "nuts_chain_shares_below_0": shares, "nuts_frozen": frozen, "launches": launches})
+    return launches
+
+
+def check_gmm_kernels(chains, data, per_chain, seed=5):
+    """Kernel 1 and kernel 1b (dμ and dlogits, as the potential's gradient
+    asks for them) on GaussianMixture's observe inputs at ``chains`` x
+    ``data`` rows against their plain versions: the forward within 1e-5
+    (1 + |ref|), the gradients within 1e-5 + 1e-4 |ref|.  Returns both max
+    abs errors, the inputs, the forward's output and the cotangent."""
+    import torch
+    from pyprob_tpu_torch.ops import kernels as K
+
+    rows = chains * data
+    inputs = gmm_inputs(chains, data, 2, per_chain, "cuda", seed=seed)
+    out_k, ref = K.mixture_normal_log_prob(*inputs), K.mixture_normal_log_prob_plain(*inputs)
+    check(bool(torch.isfinite(out_k).all()) and bool(torch.isfinite(ref).all()),
+          f"kernel 1 at {rows} rows: non-finite output")
+    err_f = float((out_k - ref).abs().max())
+    check(bool(((out_k - ref).abs() <= 1e-5 * (1 + ref.abs())).all()), f"kernel 1 at {rows} rows: {err_f}")
+    cot = torch.ones_like(out_k)
+    got_b = K.mixture_normal_log_prob_backward(*inputs, out_k, cot, need_x=False)
+    plain_b = K.mixture_normal_log_prob_backward_plain(*inputs, out_k, cot)
+    err_b = max(float((a - b).abs().max()) for a, b in zip(got_b[1:], plain_b[1:]))
+    check(all(bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all()) for a, b in zip(got_b[1:], plain_b[1:])),
+          f"kernel 1b at {rows} rows: {err_b}")
+    return err_f, err_b, inputs, out_k, cot
+
+
+def phase_hmc_gp(device, floor_ms):
+    """GaussianProcessRegression at N = 256 (gp_model) under HMC with 256
+    chains, GRADIENT["gp_traces"] kept draws after a burn-in of 200: the
+    log-lengthscale's mean within 0.6 grid stddevs (the JAX test's,
+    tests/test_models_builtin.py:225-243); kernel 4 four times a potential
+    (the panel Cholesky under autograd, PanelCholesky), no library
+    Cholesky; peak memory; kernel 4 timed at [256, 64, 64] for each panel
+    beside its bound."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.ops import tile_chol
+
+    g = GRADIENT
+    pp.seed(g["seed"] + 2)
+    model, y = gp_model(256)
+    grid_mean, grid_std = model.true_posterior_moments(y)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with CountCholesky() as library:
+        (post, seconds), launches = counted(device, lambda: host_timed(lambda: model.posterior_results(
+            g["gp_traces"], inference_engine=grad_engines()["hmc"], observe={"y": y}, num_chains=g["gp_chains"],
+            burn_in=g["gp_burn_in"])))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    line = gradient_line(post, seconds)
+    mean = float(np.asarray(post.mean).reshape(-1)[0])
+    check(abs(mean - grid_mean) <= MCMC["gp_mean_tol"] * grid_std,
+          f"hmc_gp: mean {mean} vs grid {grid_mean} +- {grid_std}")
+    check(device != "cuda" or library.calls == 0, f"hmc_gp: torch.linalg.cholesky called {library.calls} times")
+    check(device != "cuda" or launches["chol_inv_tile"] >= 4 * line["potentials"],
+          f"hmc_gp: kernel 4 launched {launches['chol_inv_tile']} times for {line['potentials']} potentials")
+    for P in range(256, 0, -64) if device == "cuda" else ():
+        tiles, out_rows, err = check_tile(g["gp_chains"], 64, "cuda", P)
+        emit_shape("chol_inv_tile", lambda: tile_chol.chol_inv_tile_into(tiles, out_rows),
+                   lambda: tile_chol.chol_inv_tile_plain(tiles),
+                   tile_bytes(g["gp_chains"], 64, P), 2 * 64**3 * g["gp_chains"] // 3, [g["gp_chains"], 64, 64],
+                   err, iters=20, entry="chol_inv_tile_into", l_row_width=P, panel_of=256,
+                   path="GP potential under HMC", launch_floor_ms=floor_ms)
+        del tiles, out_rows
+    emit({"phase": "hmc_gp", "N": 256, **line, "mean": mean, "stddev": float(np.asarray(post.stddev).reshape(-1)[0]),
+          "grid_mean": grid_mean, "grid_stddev": grid_std, "mean_error_in_grid_stddevs": (mean - grid_mean) / grid_std,
+          "peak_memory_gib": peak_gib, "library_cholesky_calls": library.calls,
+          "kernel4_launches": launches["chol_inv_tile"],
+          "kernel4_launches_per_potential": launches["chol_inv_tile"] / line["potentials"], "launches": launches})
+    return launches
+
+
+class PlainKernels:
+    """While active, the mixture forward and the panel loop's tile factor
+    take their plain PyTorch versions on the card (autograd of the plain
+    forward for the mixture's gradient)."""
+
+    def __enter__(self):
+        from pyprob_tpu_torch.ops import blocked_linalg, kernels as K, tile_chol
+
+        self.saved = (K.mixture_normal_log_prob, blocked_linalg.chol_inv_tile_into)
+
+        def tile_into(tile, l_out):
+            L, M = tile_chol.chol_inv_tile_plain(tile)
+            P = tile.shape[-1]
+            l_out[:, :, :P] = L
+            l_out[:, :, P:] = 0
+            return M
+
+        K.mixture_normal_log_prob = K.mixture_normal_log_prob_plain
+        blocked_linalg.chol_inv_tile_into = tile_into
+        return self
+
+    def __exit__(self, *exc):
+        from pyprob_tpu_torch.ops import blocked_linalg, kernels as K
+
+        K.mixture_normal_log_prob, blocked_linalg.chol_inv_tile_into = self.saved
+
+
+def gp_potential_float64(model, y, z, device):
+    """The GP potential (Normal prior on the log-lengthscale, MVN marginal
+    likelihood) and its gradient in float64 on the card through
+    torch.linalg.cholesky: the library reference of the panel path."""
+    import torch
+
+    z = torch.as_tensor(z, dtype=torch.float64, device=device).reshape(-1).requires_grad_(True)
+    sq = torch.as_tensor(model._sq_dists, dtype=torch.float64, device=device)
+    ell = torch.exp(z)[:, None, None]
+    N = sq.shape[0]
+    K = torch.exp(-0.5 * sq / (ell * ell)) + (model.fixed["noise"] ** 2 + 1e-6) * torch.eye(N, dtype=torch.float64,
+                                                                                            device=device)
+    L = torch.linalg.cholesky(K)
+    yv = torch.as_tensor(y, dtype=torch.float64, device=device).expand(z.shape[0], N)
+    a = torch.linalg.solve_triangular(L, yv.unsqueeze(-1), upper=False).squeeze(-1)
+    loglik = -0.5 * (a * a).sum(-1) - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1) \
+        - 0.5 * N * math.log(2 * math.pi)
+    prior = -0.5 * ((z - model.prior_mean) / model.prior_stddev) ** 2 - math.log(model.prior_stddev) \
+        - 0.5 * math.log(2 * math.pi)
+    u = -(loglik + prior)
+    (grad,) = torch.autograd.grad(u.sum(), z)
+    return u.detach(), grad
+
+
+def phase_gradient_card_vs_cpu(device):
+    """Each new gradient at fixed z on the card against its plain versions
+    on the card: GaussianMixture with learn_weights at 1,024 chains (its
+    observe on kernels 1 and 1b, against autograd of the plain forward)
+    within GRADIENT["gmm_grad_tol"] (1 + |plain|), and the GP at N = 256 at
+    256 log-lengthscales in [-2, 2] (the panel path with kernel 4 under
+    PanelCholesky, against the panel path with the plain tile factor)
+    within GRADIENT["gp_grad_tol"] (1 + |plain|), and against float64
+    torch.linalg.cholesky within GRADIENT["gp_library_tol"] (1 + |ref|).
+    Prints each measured error."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.inference import hmc
+    from pyprob_tpu_torch.models import GaussianMixture
+
+    g = GRADIENT
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D, learn_weights=True)
+    y = gm.synthesize([-2.0, 2.0], rng=0)
+    obs = {"y": torch.as_tensor(y, dtype=torch.float32, device=device)}
+    fm = hmc._functionalize(gm, obs, 1.0, "HAMILTONIAN_MONTE_CARLO", (), None)
+    rng = np.random.default_rng(g["seed"] + 3)
+    z = rng.normal(size=(g["chains"], fm.dim)).astype(np.float32)
+    z[:, :2] = np.array([-2.0, 2.0]) + 0.5 * rng.normal(size=(g["chains"], 2))
+    zt = torch.as_tensor(z, device=device)
+    (u_k, g_k), counts = counted(device, lambda: fm.value_and_grad(zt, obs))
+    with PlainKernels():
+        u_p, g_p = fm.value_and_grad(zt, obs)
+    gmm_err = {"potential": float((u_k - u_p).abs().max()), "gradient": float((g_k - g_p).abs().max()),
+               "gradient_rel": float(((g_k - g_p).abs() / (1 + g_p.abs())).max())}
+    check(device != "cuda" or (counts["mixture_normal_log_prob"] >= 1
+                               and counts["mixture_normal_log_prob_backward"] >= 1),
+          f"gradient_card_vs_cpu: kernels 1/1b not launched: {counts}")
+    tol = g["gmm_grad_tol"]
+    check(bool(((u_k - u_p).abs() <= tol * (1 + u_p.abs())).all()
+               and ((g_k - g_p).abs() <= tol * (1 + g_p.abs())).all()),
+          f"gradient_card_vs_cpu gmm: {gmm_err} over {tol} (1 + |plain|)")
+    model, ygp = gp_model(256)
+    obs_gp = {"y": torch.as_tensor(ygp, dtype=torch.float32, device=device)}
+    fm_gp = hmc._functionalize(model, obs_gp, 1.0, "HAMILTONIAN_MONTE_CARLO", (), None)
+    zg = torch.linspace(-2.0, 2.0, 256, device=device).reshape(-1, 1)
+    with CountCholesky() as library:
+        (u_k, g_k), counts_gp = counted(device, lambda: fm_gp.value_and_grad(zg, obs_gp))
+    check(device != "cuda" or (counts_gp["chol_inv_tile"] == 4 and library.calls == 0),
+          f"gradient_card_vs_cpu gp: kernel 4 {counts_gp['chol_inv_tile']} times, library {library.calls}")
+    with PlainKernels():
+        u_p, g_p = fm_gp.value_and_grad(zg, obs_gp)
+    u_64, g_64 = gp_potential_float64(model, ygp, zg.cpu().numpy(), device)
+    gp_err = {"potential": float((u_k - u_p).abs().max()), "gradient": float((g_k - g_p).abs().max()),
+              "gradient_rel": float(((g_k - g_p).abs() / (1 + g_p.abs())).max()),
+              "gradient_vs_float64_rel": float(((g_k.double().reshape(-1) - g_64).abs() / (1 + g_64.abs())).max()),
+              "potential_vs_float64_rel": float(((u_k.double() - u_64).abs() / (1 + u_64.abs())).max())}
+    check(bool(((g_k - g_p).abs() <= g["gp_grad_tol"] * (1 + g_p.abs())).all()),
+          f"gradient_card_vs_cpu gp vs plain tile: {gp_err}")
+    check(gp_err["gradient_vs_float64_rel"] <= g["gp_library_tol"]
+          and gp_err["potential_vs_float64_rel"] <= g["gp_library_tol"],
+          f"gradient_card_vs_cpu gp vs float64: {gp_err}")
+    emit({"phase": "gradient_card_vs_cpu", "gmm": {"chains": g["chains"], "dim": fm.dim, "tol": tol, **gmm_err},
+          "gp": {"N": 256, "points": 256, "tol_plain": g["gp_grad_tol"], "tol_float64": g["gp_library_tol"],
+                 **gp_err},
+          "launches": {"gmm": counts, "gp": counts_gp}})
+
+
+def lkj_corr_model():
+    """tests/test_lkj.py:106-118: an LKJ prior on a 2 x 2 correlation's
+    Cholesky factor, a HalfNormal scale, 8 bivariate observes."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import HalfNormal, LKJCholesky, MultivariateNormal
+
+    class CorrModel(pp.Model):
+        def forward(self):
+            L = pp.sample(LKJCholesky(2, 1.0))
+            sigma = pp.sample(HalfNormal(2.0))
+            lik = MultivariateNormal(torch.zeros(2, device=L.device), scale_tril=sigma[..., None, None] * L)
+            for i in range(8):
+                pp.observe(lik, name=f"y{i}")
+            return torch.stack([L[..., 1, 0], sigma], -1)
+
+    rng = np.random.default_rng(5)
+    ys = rng.multivariate_normal([0, 0], np.array([[1.0, 0.7], [0.7, 1.0]]), size=8)
+    return CorrModel(name="LKJ correlation"), {f"y{i}": ys[i] for i in range(8)}
+
+
+def small_latent_models():
+    """tests/test_distributions_r3.py:137-200 and tests/test_distributions_new.py:
+    142-170: the InverseGamma variance, Pareto and HalfNormal/Gumbel
+    latents."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Gumbel, HalfNormal, InverseGamma, Normal, Pareto
+
+    class Variance(pp.Model):
+        def forward(self):
+            sigma2 = pp.sample(InverseGamma(3.0, 2.0), name="sigma2")
+            for i in range(4):
+                pp.observe(Normal(0.0, torch.sqrt(sigma2)), name=f"x{i}")
+            return sigma2
+
+    class ParetoLatent(pp.Model):
+        def forward(self):
+            x = pp.sample(Pareto(1.0, 3.0), name="x")
+            pp.observe(Normal(x, 0.5), name="y")
+            return x
+
+    class LocScale(pp.Model):
+        def forward(self):
+            loc = pp.sample(Gumbel(0.0, 1.0))
+            scale = pp.sample(HalfNormal(2.0))
+            pp.observe(Normal(loc, scale), name="y")
+            return torch.stack([loc, scale], -1)
+
+    return Variance(name="InverseGamma variance"), ParetoLatent(name="Pareto"), LocScale(name="Gumbel-HalfNormal")
+
+
+def phase_nuts_builtin(device):
+    """The JAX tests' gradient-engine criteria at their own counts (chain
+    counts by the default, min(max(1, n // 256), 1024), unless the test
+    gives them): EightSchools NUTS 20,000 (mu, tau means in (3.2, 5.6),
+    (2.2, 5.2); the test's tempered-SMC reference is not ported yet, so
+    within 0.6 of 10^6 prior IS on the card); logistic regression NUTS
+    600 (burn-in 200; mean and stddev within 0.5 grid stddevs); GP N = 25
+    HMC 400 (burn-in 200; within 0.6 grid stddevs); the state space NUTS
+    4,000 (burn-in 0; mean path within 0.08 of the RTS smoother); the LKJ
+    correlation NUTS 2,000 of 16 chains (within 0.1 of 400,000 prior IS,
+    above 0.1); Tobit NUTS 2,000 of 8 chains (within 0.07 of the grid);
+    InverseGamma NUTS 20,000 (within 0.15 of the conjugate moments);
+    Pareto HMC 20,000 and Beta-NegativeBinomial NUTS 20,000 (within 0.05
+    and 0.03 of 400,000 prior IS); HalfNormal/Gumbel NUTS 2,000 of 16
+    chains (within 0.25 of 400,000 prior IS).  Returns the launches by
+    run."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import (
+        BayesianLogisticRegression, EightSchools, GaussianProcessRegression, LinearGaussianStateSpace,
+    )
+
+    g = GRADIENT
+    pp.seed(g["seed"] + 4)
+    hmc_, nuts_ = grad_engines()["hmc"], grad_engines()["nuts"]
+    ref_n = g["builtin_reference_is"]
+    launches, lines = {}, {}
+
+    def run(name, fn):
+        (post, seconds), launches[f"builtin_{name}"] = counted(device, lambda: host_timed(fn))
+        return post, gradient_line(post, seconds) if not isinstance(post, list) else {"seconds": seconds}
+
+    es = EightSchools()
+    post, line = run("eight_schools_nuts", lambda: es.posterior_results(
+        20000, observe=es.observes(), inference_engine=nuts_))
+    mean = np.asarray(post.mean, np.float64)
+    is_mean = np.asarray(es.posterior_results(g["reference_is"], observe=es.observes()).mean, np.float64)
+    (mu_lo, mu_hi), (tau_lo, tau_hi) = BUILTIN["eight_schools_bands"]
+    check(mu_lo < mean[0] < mu_hi and tau_lo < mean[1] < tau_hi, f"eight_schools nuts: mean {mean}")
+    check(float(np.abs(mean - is_mean).max()) < 0.6, f"eight_schools nuts {mean} vs prior IS {is_mean}")
+    lines["eight_schools"] = {**line, "mean": mean.tolist(), "prior_is_mean": is_mean.tolist()}
+
+    logr = BayesianLogisticRegression(np.random.default_rng(4).normal(size=(60, 1)))
+    y = logr.synthesize([1.2], rng=2)
+    tmean, tstd = logr.true_posterior_moments(y)
+    post, line = run("logistic_nuts", lambda: logr.posterior(600, observe={"y": y}, inference_engine=nuts_,
+                                                              burn_in=200))
+    draws = np.stack([np.asarray(t.result, np.float64) for t in post.get_values()])
+    check(abs(draws.mean() - tmean[0]) < 0.5 * tstd[0] and abs(draws.std() - tstd[0]) < 0.5 * tstd[0],
+          f"logistic nuts: {draws.mean()}, {draws.std()} vs {tmean[0]}, {tstd[0]}")
+    lines["logistic_regression"] = {**line, "mean": float(draws.mean()), "stddev": float(draws.std()),
+                                    "grid": [float(tmean[0]), float(tstd[0])]}
+
+    gp = GaussianProcessRegression(np.linspace(0, 4, 25), learn=("lengthscale",), noise=0.2)
+    ygp = gp.synthesize(rng=3, lengthscale=1.0)
+    gmean, gstd = gp.true_posterior_moments(ygp)
+    post, line = run("gp25_hmc", lambda: gp.posterior(400, observe={"y": ygp}, inference_engine=hmc_, burn_in=200))
+    d = np.array([float(np.asarray(t.result).reshape(-1)[0]) for t in post.get_values()])
+    check(abs(d.mean() - gmean) < 0.6 * gstd, f"gp25 hmc: {d.mean()} vs {gmean} +- {gstd}")
+    lines["gp_25"] = {**line, "mean": float(d.mean()), "grid": [gmean, gstd]}
+
+    lgss = LinearGaussianStateSpace(num_steps=8, a=0.9)
+    ys = lgss.synthesize(rng=0)[1]
+    sm, _ = lgss.kalman_smoother(ys)
+    post, line = run("state_space_nuts", lambda: lgss.posterior_results(
+        4000, observe=lgss.observes(ys), burn_in=0, inference_engine=nuts_))
+    err = float(np.abs(np.asarray(post.mean, np.float64) - sm).max())
+    check(err < 0.08, f"state space nuts: mean path off by {err}")
+    lines["state_space"] = {**line, "max_err": err}
+
+    corr, obs_corr = lkj_corr_model()
+    post, line = run("lkj_nuts", lambda: corr.posterior_results(2000, observe=obs_corr, inference_engine=nuts_,
+                                                                 num_chains=16))
+    xs = np.asarray(post.values_numpy(), np.float64)
+    ref = corr.posterior_results(ref_n, observe=obs_corr)
+    ref_rho = float(np.sum(np.asarray(ref.values_numpy(), np.float64)[:, 0] * ref.weights))
+    check(bool(np.all(np.abs(xs[:, 0]) <= 1.0) and np.all(xs[:, 1] > 0)), "lkj nuts: out of support")
+    check(abs(xs[:, 0].mean() - ref_rho) < 0.1 and xs[:, 0].mean() > 0.1,
+          f"lkj nuts: rho {xs[:, 0].mean()} vs IS {ref_rho}")
+    lines["lkj"] = {**line, "rho": float(xs[:, 0].mean()), "prior_is_rho": ref_rho}
+
+    t_mean, t_std = tobit_grid_truth()
+    post, line = run("tobit_nuts", lambda: tobit_model().posterior_results(
+        2000, observe=TOBIT["observe"], inference_engine=nuts_, num_chains=8))
+    v = np.asarray(post.values_numpy(), np.float64)
+    check(abs(v.mean() - t_mean) < 0.07 and abs(v.std() - t_std) < 0.07, f"tobit nuts: {v.mean()}, {v.std()}")
+    lines["tobit"] = {**line, "mean": float(v.mean()), "stddev": float(v.std()), "grid": [t_mean, t_std]}
+
+    variance, pareto, loc_scale = small_latent_models()
+    obs_v = {"x0": 1.2, "x1": -0.8, "x2": 2.1, "x3": 0.3}
+    ssq = sum(x * x for x in obs_v.values())
+    a_post, b_post = 5.0, 2.0 + ssq / 2.0
+    v_mean, v_std = b_post / (a_post - 1.0), math.sqrt(b_post**2 / ((a_post - 1.0) ** 2 * (a_post - 2.0)))
+    post, line = run("inverse_gamma_nuts", lambda: variance.posterior_results(20000, observe=obs_v,
+                                                                                 inference_engine=nuts_))
+    check(abs(float(post.mean) - v_mean) < 0.15 and abs(float(post.stddev) - v_std) < 0.15,
+          f"inverse gamma nuts: {float(post.mean)}, {float(post.stddev)} vs {v_mean}, {v_std}")
+    lines["inverse_gamma"] = {**line, "mean": float(post.mean), "stddev": float(post.stddev),
+                              "truth": [v_mean, v_std]}
+
+    for name, model, engine, observe, tol in (
+        ("pareto_hmc", pareto, hmc_, {"y": 2.0}, 0.05),
+        ("negative_binomial_nuts", beta_nb_model(), nuts_, {"k0": 7.0, "k1": 9.0}, 0.03),
+    ):
+        post, line = run(name, lambda: model.posterior_results(20000, observe=observe, inference_engine=engine))
+        ref = model.posterior_results(ref_n, observe=observe)
+        check(abs(float(post.mean) - float(ref.mean)) < tol and abs(float(post.stddev) - float(ref.stddev)) < tol,
+              f"{name}: {float(post.mean)}, {float(post.stddev)} vs IS {float(ref.mean)}, {float(ref.stddev)}")
+        lines[name] = {**line, "mean": float(post.mean), "stddev": float(post.stddev),
+                       "prior_is": [float(ref.mean), float(ref.stddev)]}
+
+    post, line = run("gumbel_halfnormal_nuts", lambda: loc_scale.posterior_results(
+        2000, observe={"y": 1.5}, inference_engine=nuts_, num_chains=16))
+    xs = np.asarray(post.values_numpy(), np.float64)
+    ref = loc_scale.posterior_results(200_000, observe={"y": 1.5})
+    rv, rw = np.asarray(ref.values_numpy(), np.float64), np.asarray(ref.weights, np.float64)
+    ref_means = [float(np.sum(rv[:, i] * rw)) for i in range(2)]
+    check(bool(np.all(xs[:, 1] > 0)) and all(abs(xs[:, i].mean() - ref_means[i]) < 0.25 for i in range(2)),
+          f"gumbel/halfnormal nuts: {xs.mean(0)} vs IS {ref_means}")
+    lines["gumbel_halfnormal"] = {**line, "means": xs.mean(0).tolist(), "prior_is_means": ref_means}
+    emit({"phase": "nuts_builtin", **lines, "launches": launches})
+    return launches
+
+
+def phase_gradient_resume(device):
+    """tests/test_gradient_resume.py on GUM, HMC and NUTS: 8,000 draws of 64
+    chains, a resume from final_gradient_state (burn-in 0, the carried step
+    size; mean and stddev within 0.1), a changed observation rescored (50
+    steps of burn-in; the new posterior's 2.25 within 0.15, stddev within
+    0.1), a pickled state resumed (within 0.25), the validation errors."""
+    import pickle
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    g = GRADIENT
+    pp.seed(g["seed"] + 5)
+    m = GaussianUnknownMean()
+    launches, out = {}, {}
+    for name, engine in grad_engines().items():
+        def runs():
+            post = m.posterior_results(8000, observe=OBSERVE, inference_engine=engine, num_chains=64)
+            state = post.final_gradient_state
+            post2 = m.posterior_results(8000, observe=OBSERVE, inference_engine=engine, initial_trace=state)
+            post3 = m.posterior_results(8000, observe={"obs0": 2.0, "obs1": 3.0}, inference_engine=engine,
+                                        initial_trace=state, burn_in=50)
+            post4 = m.posterior_results(4000, observe=OBSERVE, inference_engine=engine,
+                                        initial_trace=pickle.loads(pickle.dumps(state)))
+            return state, post2, post3, post4
+
+        (state, post2, post3, post4), launches[f"gradient_resume_{name}"] = counted(device, runs)
+        meta = post2.metadata[-1]
+        check(state.num_chains == 64 and state.dim == 1 and np.all(state.step_size > 0), f"{name}: {state}")
+        check(meta["burn_in"] == 0 and abs(meta["final_step_size"] - float(np.mean(state.step_size))) < 1e-5,
+              f"{name} resume: {meta}")
+        check(abs(float(post2.mean) - POSTERIOR_MEAN) < 0.1 and abs(float(post2.stddev) - POSTERIOR_STDDEV) < 0.1,
+              f"{name} resume: {float(post2.mean)}, {float(post2.stddev)}")
+        check(abs(float(post3.mean) - 2.25) < 0.15 and abs(float(post3.stddev) - POSTERIOR_STDDEV) < 0.1,
+              f"{name} changed observation: {float(post3.mean)}, {float(post3.stddev)}")
+        check(abs(float(post4.mean) - POSTERIOR_MEAN) < 0.25, f"{name} pickled: {float(post4.mean)}")
+        out[name] = {"resumed": [float(post2.mean), float(post2.stddev)], "changed": [float(post3.mean),
+                     float(post3.stddev)], "pickled_mean": float(post4.mean),
+                     "carried_step_size": float(np.mean(state.step_size))}
+    try:
+        m.posterior_results(100, observe=OBSERVE, inference_engine=grad_engines()["hmc"], initial_trace="no")
+        check(False, "gradient_resume: a wrong initial_trace did not raise")
+    except RuntimeError as e:
+        check("GradientChainState" in str(e), f"gradient_resume: {e}")
+    emit({"phase": "gradient_resume", **out, "launches": launches})
+    return launches
+
+
+def phase_laplace(device):
+    """tests/test_laplace.py and tests/test_models_builtin.py:178-200 on the
+    card: LAPLACE exact on GUM at 4,000 (ESS > 0.99 N, mean and stddev
+    within 0.05, both evidence estimates within 0.02 of -8.2395);
+    map_estimate on GUM (7.25 and log joint -9.0672 within 0.01); the
+    Gamma-Poisson posterior Gamma(13, 3) by reweighting at 20,000 (ESS >
+    0.5 N, mean and stddev within 0.05) and its MAP 4.0 within 0.03;
+    BayesianLinearRegression at 1,500 (mean within 0.05, variances within
+    0.4 of the largest plus 0.003); kernel 3 launched on each run's
+    weights at the run's N, and held there against its plain version and
+    float64 (``check_stats_values``)."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Gamma, Poisson
+    from pyprob_tpu_torch.models import BayesianLinearRegression, GaussianUnknownMean
+
+    pp.seed(GRADIENT["seed"] + 6)
+    lap = pp.InferenceEngine.LAPLACE
+    launches, weights = {}, {}
+    (post, seconds), launches["laplace_gum"] = counted(device, lambda: host_timed(
+        lambda: GaussianUnknownMean().posterior_results(4000, observe=OBSERVE, inference_engine=lap)))
+    check(post.effective_sample_size > 0.99 * 4000 and abs(float(post.mean) - POSTERIOR_MEAN) < 0.05
+          and abs(float(post.stddev) - POSTERIOR_STDDEV) < 0.05 and abs(post.log_evidence - LOG_EVIDENCE) < 0.02
+          and abs(post.log_evidence_laplace - LOG_EVIDENCE) < 0.02,
+          f"laplace gum: ESS {post.effective_sample_size}, {float(post.mean)}, {float(post.stddev)}, "
+          f"{post.log_evidence}, {post.log_evidence_laplace}")
+    weights["laplace_gum"] = post.log_weights
+    gum = {"seconds": seconds, "ess": post.effective_sample_size, "mean": float(post.mean),
+           "stddev": float(post.stddev), "log_evidence": post.log_evidence,
+           "log_evidence_laplace": post.log_evidence_laplace}
+    res = GaussianUnknownMean().map_estimate(observe=OBSERVE)
+    (mode,) = res.values.values()
+    check(abs(float(mode) - POSTERIOR_MEAN) < 0.01 and abs(res.log_joint + 9.0672) < 0.01,
+          f"map_estimate gum: {mode}, {res.log_joint}")
+
+    class GammaPoisson(pp.Model):
+        def forward(self):
+            lam = pp.sample(Gamma(3.0, 1.0), name="lam")
+            pp.observe(Poisson(lam), name="c0")
+            pp.observe(Poisson(lam), name="c1")
+            return lam
+
+    obs = {"c0": 4.0, "c1": 6.0}
+    gp = GammaPoisson(name="Gamma-Poisson")
+    (post, seconds), launches["laplace_gamma_poisson"] = counted(device, lambda: host_timed(
+        lambda: gp.posterior_results(20000, observe=obs, inference_engine=lap)))
+    check(post.effective_sample_size > 0.5 * 20000 and abs(float(post.mean) - 13 / 3) < 0.05
+          and abs(float(post.stddev) - math.sqrt(13) / 3) < 0.05,
+          f"laplace gamma-poisson: ESS {post.effective_sample_size}, {float(post.mean)}, {float(post.stddev)}")
+    weights["laplace_gamma_poisson"] = post.log_weights
+    gamma = {"seconds": seconds, "ess": post.effective_sample_size, "mean": float(post.mean),
+             "stddev": float(post.stddev), "map": float(gp.map_estimate(observe=obs).values["lam"])}
+    check(abs(gamma["map"] - 4.0) < 0.03, f"map_estimate gamma-poisson: {gamma['map']}")
+    blr = BayesianLinearRegression(np.random.default_rng(0).normal(size=(40, 2)))
+    y = blr.synthesize([1.5, -0.7], rng=1)
+    mean, cov = blr.true_posterior(y)
+    (post, seconds), launches["laplace_linear_regression"] = counted(device, lambda: host_timed(
+        lambda: blr.posterior(1500, observe={"y": y}, inference_engine=lap)))
+    weights["laplace_linear_regression"] = post.log_weights
+    draws = np.stack([np.asarray(t.result, np.float64) for t in post.get_values()])
+    check(np.abs(draws.mean(0) - mean).max() < 0.05
+          and np.abs(draws.var(0) - np.diag(cov)).max() < 0.4 * np.diag(cov).max() + 0.003,
+          f"laplace linear regression: {draws.mean(0)}, {draws.var(0)} vs {mean}, {np.diag(cov)}")
+    stats_err = {}
+    for run, n in (("laplace_gum", 4000), ("laplace_gamma_poisson", 20000), ("laplace_linear_regression", 1500)):
+        check(device != "cuda" or launches[run]["log_weight_stats_by_n"].get(n, 0) >= 1,
+              f"{run}: kernel 3 not launched at N={n}: {launches[run]['log_weight_stats_by_n']}")
+        if device == "cuda":
+            # kernel 3 on the run's own weights (float32 on the card; the
+            # result keeps them widened to float64, which narrows back exactly)
+            lw_np = weights[run].astype(np.float32)
+            check(lw_np.shape == (n,), f"{run}: {lw_np.shape[0]} weights, not {n}")
+            stats_err[run] = check_stats_values(lw_np, torch.from_numpy(lw_np).to(device), f"{run}'s weights")[2]
+    emit({"phase": "laplace", "gum": gum, "map_gum": [float(mode), res.log_joint], "gamma_poisson": gamma,
+          "linear_regression": {"seconds": seconds, "mean": draws.mean(0).tolist(), "truth": mean.tolist()},
+          "kernel3_rel_err_on_weights": stats_err, "launches": launches})
+    return launches
+
+
 def main():
     kind, smi = phase_device()
     import torch
@@ -5446,6 +6116,18 @@ def main():
     smc_path.update(phase_smc_interpreter("cuda"))
     phase_smc_kernel_shapes(smc_path, floor_ms)
     path.update(smc_path)
+    # the gradient engines, after every earlier phase (whose draws stay as
+    # they were): HMC and NUTS chains on GUM and GaussianMixture (kernels 1
+    # and 1b in every potential) and on the GP at N = 256 (kernel 4 under
+    # autograd), each gradient against its plain versions, the JAX tests'
+    # criteria, resumes, and LAPLACE / map_estimate (kernel 3 on the weights)
+    path.update(phase_gradient_gum("cuda"))
+    path.update(phase_gradient_gmm("cuda", floor_ms))
+    path["hmc_gp"] = phase_hmc_gp("cuda", floor_ms)
+    phase_gradient_card_vs_cpu("cuda")
+    path.update(phase_nuts_builtin("cuda"))
+    path.update(phase_gradient_resume("cuda"))
+    path.update(phase_laplace("cuda"))
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

@@ -31,7 +31,10 @@ parallel chains on the batched tier (resumable from a ``ChainState``) and
 as one sequential chain on the interpreter tier, and SMC (a staged-replay
 particle filter with systematic, stratified, residual or multinomial
 resampling, ``pyprob_tpu_torch.parallel``) on both tiers, guided by a
-trained network on the batched tier; ``Model`` also gives
+trained network on the batched tier; the gradient engines, HMC and NUTS
+(parallel chains resumable from a ``GradientChainState``) and LAPLACE
+with ``Model.map_estimate``, differentiate one batched replay of
+``forward`` over the chains; ``Model`` also gives
 posterior-predictive draws, ``ConditionalModel`` (``Model.condition``) and
 ``ParallelModel`` (``Model.parallel``: trace generation over spawned
 processes).

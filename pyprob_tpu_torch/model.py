@@ -21,7 +21,10 @@ the files), and keeps it in a file (``save_inference_network``,
 on the batched tier (``inference.mcmc``, resumable from a ``ChainState``)
 and as the reference's sequential chain on the interpreter tier.  SMC
 (``inference.smc``) is a staged-replay particle filter on both tiers,
-guided by the network on the batched tier.  ``posterior_predictive``
+guided by the network on the batched tier.  The gradient engines (HMC,
+NUTS, LAPLACE, and ``map_estimate``; ``inference.hmc``, ``nuts``,
+``laplace``) differentiate one batched replay of ``forward`` and run on
+the batched tier only.  ``posterior_predictive``
 replays a trace-valued posterior's latents with fresh observes; ``condition`` (``filter``) wraps a model in a
 ``ConditionalModel`` that keeps the traces meeting a criterion;
 ``parallel`` gives a ``ParallelModel`` that spreads interpreter-tier
@@ -267,12 +270,19 @@ class Model:
         resample_threshold=0.5,
         resampling="systematic",
         lockstep=None,
+        leapfrog_steps=None,
+        target_accept=None,
+        step_size=None,
+        max_tree_depth=None,
+        map_steps=None,
+        num_starts=None,
+        learning_rate=None,
         *args,
         **kwargs,
     ):
         """IS from the prior or from the inference network (IC), an LMH /
-        RMH chain, or SMC.  On the interpreter tier IC runs lockstep when
-        ``num_traces >= 8``: a pool of worker threads (64, or ``lockstep``
+        RMH chain, SMC, or a gradient engine.  On the interpreter tier IC
+        runs lockstep when ``num_traces >= 8``: a pool of worker threads (64, or ``lockstep``
         when it is an int) whose proposal sites are answered a round at a
         time by one batched network step on the card; ``lockstep=False``
         runs the sequential loop, one network step a site.  The MCMC engines
@@ -287,8 +297,16 @@ class Model:
         ``vectorized=False``; unguided SMC falls back to the interpreter
         filter for a model that cannot run there, and guided SMC
         (``SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK``) raises for it.
-        ``mesh`` (chains or particles over several cards) comes with the
-        distributed slice."""
+        The gradient engines run on the batched tier only: HMC and NUTS as
+        parallel chains (``inference.hmc`` / ``inference.nuts``:
+        ``leapfrog_steps`` (HMC), ``max_tree_depth`` (NUTS),
+        ``target_accept``, ``step_size``, ``num_chains``, ``burn_in``,
+        ``thinning_steps``, ``return_chains``; ``initial_trace`` a
+        ``GradientChainState``, ``posterior.final_gradient_state``) and
+        LAPLACE (``inference.laplace``: ``map_steps``, ``num_starts``,
+        ``learning_rate``); a model that does not run there raises
+        RuntimeError.  ``mesh`` (chains or particles over several cards)
+        comes with the distributed slice."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chains or particles over several cards) is not ported yet; "
@@ -314,11 +332,22 @@ class Model:
                 return_chains=return_chains,
                 resample_threshold=resample_threshold,
                 resampling=resampling,
+                leapfrog_steps=leapfrog_steps,
+                target_accept=target_accept,
+                step_size=step_size,
+                max_tree_depth=max_tree_depth,
+                map_steps=map_steps,
+                num_starts=num_starts,
+                learning_rate=learning_rate,
                 *args,
                 **kwargs,
             )
             if posterior is not None:
                 return posterior
+        if inference_engine in state._GRADIENT:
+            from .inference.hmc import no_interpreter_tier
+
+            raise no_interpreter_tier(inference_engine.name, self)
         if inference_engine in state._SMC:
             if inference_engine == InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK:
                 raise RuntimeError(
@@ -540,6 +569,28 @@ class Model:
             thinning_steps=thinning_steps,
             *args,
             **kwargs,
+        )
+
+    def map_estimate(self, observe=None, map_steps=None, num_starts=None, learning_rate=None,
+                     likelihood_importance=1.0, *args, **kwargs):
+        """Posterior mode of the continuous latents: multi-start gradient
+        descent on the unconstrained-space potential, enumerable discrete
+        sites marginalized and drawn from their exact conditional at the
+        mode (``inference.laplace.map_estimate``).  Returns a ``MAPResult``
+        with ``values`` (constrained-space mode per latent site), ``result``
+        (forward() at the mode) and ``log_joint``.  Needs a model that runs
+        on the batched tier."""
+        from .inference.laplace import map_estimate as _map_estimate
+
+        return _map_estimate(
+            self,
+            observe=observe,
+            map_steps=map_steps,
+            num_starts=num_starts,
+            learning_rate=learning_rate,
+            likelihood_importance=likelihood_importance,
+            args=args,
+            kwargs=kwargs,
         )
 
     def posterior_predictive(self, posterior, num_traces=1000, map_func=None, file_name=None, *args, **kwargs):

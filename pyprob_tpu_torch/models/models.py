@@ -542,10 +542,18 @@ class GaussianProcessRegression(Model):
 
         ell, amp = per_matrix(ell), per_matrix(amp)
         K = (-0.5 * sq).expand(batch + sq.shape).div(ell * ell)
-        K.exp_().mul_(amp * amp)
         jitter = noise * noise + 1e-6
         if isinstance(jitter, torch.Tensor):
             jitter = jitter[..., None]
+        differentiated = torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in (ell, amp, jitter)
+        )
+        if differentiated:
+            # the same operations out of place, for autograd (the gradient
+            # engines): the same bits, adding 0 off the diagonal
+            K = torch.exp(K) * (amp * amp)
+            return K + jitter * torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        K.exp_().mul_(amp * amp)
         K.diagonal(dim1=-2, dim2=-1).add_(jitter)
         return K
 

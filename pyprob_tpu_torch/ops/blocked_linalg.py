@@ -17,7 +17,9 @@ in the GEMM's epilogue, which saves one ``[B, m, m]`` temporary), all in
 full float32 (TF32 is off, ``util``), as the JAX package runs them at
 ``Precision.HIGHEST``.
 
-Dispatch: on ``cuda`` at N ≥ 128 ``cholesky`` takes the panel path; else
+Dispatch: on ``cuda`` at N ≥ 128 ``cholesky`` takes the panel path (under
+autograd through ``PanelCholesky``, the same forward with the Cholesky
+VJP as its backward); else
 ``torch.linalg.cholesky_ex`` with the lower triangle of a
 non-positive-definite matrix's factor set to NaN, which is what
 ``jnp.linalg.cholesky`` returns (``torch.linalg.cholesky`` would raise, and
@@ -81,6 +83,33 @@ def blocked_cholesky(a):
     return panel_cholesky(a)
 
 
+class PanelCholesky(torch.autograd.Function):
+    """The panel Cholesky under autograd.  The forward is ``chol_panels``
+    unchanged (the same bits, kernel 4 once a panel); it writes L in place
+    and its diagonal blocks come from the kernel, so autograd cannot see
+    through it, and the backward is the Cholesky VJP from the saved L:
+    with Φ the lower triangle with its diagonal halved,
+    Ā = ½ (S + Sᵀ), S = L⁻ᵀ Φ(Lᵀ L̄) L⁻¹, by two triangular solves (the
+    JAX package has no backward kernel for kernel 4: library calls).  The
+    backward is itself differentiable (a Hessian through it works)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        L = panel_cholesky(a)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, grad_L):
+        (L,) = ctx.saved_tensors
+        P = torch.matmul(L.mT, grad_L).tril()
+        phi = P - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+        # X = Φ L⁻¹, then S = L⁻ᵀ X
+        X = torch.linalg.solve_triangular(L, phi, upper=False, left=False)
+        S = torch.linalg.solve_triangular(L.mT, X, upper=True, left=True)
+        return 0.5 * (S + S.mT)
+
+
 def _use_panels(a):
     return a.is_cuda and a.dim() >= 2 and a.shape[-1] >= _PANEL_MIN_N
 
@@ -97,8 +126,12 @@ def cholesky_nan(a):
 
 def cholesky(a):
     """Lower Cholesky factor of ``a`` [..., N, N]; NaN where ``a`` is not
-    positive definite."""
+    positive definite.  On the panel path a gradient taken through it
+    (grad enabled and ``a`` requiring grad, as under the gradient engines)
+    goes through ``PanelCholesky``, whose forward is the same panel loop."""
     if _use_panels(a):
+        if torch.is_grad_enabled() and a.requires_grad:
+            return PanelCholesky.apply(a)
         return panel_cholesky(a)
     return cholesky_nan(a)
 

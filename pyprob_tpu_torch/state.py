@@ -65,6 +65,13 @@ _SMC = (
     InferenceEngine.SEQUENTIAL_MONTE_CARLO,
     InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK,
 )
+# the chain engines of the gradient engines' base (inference/hmc.py)
+_GRADIENT_CHAINS = (
+    InferenceEngine.HAMILTONIAN_MONTE_CARLO,
+    InferenceEngine.NO_U_TURN_SAMPLER,
+)
+# the gradient engines: batched tier only
+_GRADIENT = _GRADIENT_CHAINS + (InferenceEngine.LAPLACE,)
 # mixture weight on the learned proposal for rejection-retry attempts
 # (defensive importance sampling, Hesterberg 1995)
 _DEFENSIVE_PI = 0.5
@@ -72,7 +79,7 @@ _DEFENSIVE_PI = 0.5
 
 def _engines_later(what):
     return NotImplementedError(
-        f"{what} is not ported yet; it comes with the gradient engines slice"
+        f"{what} is not ported yet; it comes with the tempered and variational engines slice"
     )
 
 

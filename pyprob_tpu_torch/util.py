@@ -151,11 +151,44 @@ def dtype():
     return _dtype
 
 
+# Constant tensors on a card made from plain numbers (a distribution's
+# parameters given as floats, a short list of probabilities): a tensor made
+# anew from host memory is a synchronous copy from the host, which a CUDA
+# graph cannot capture (the gradient engines capture their potential,
+# ``inference/hmc.py``).  Each is made once per (value, dtype, device) and
+# handed out as a clone on the card, a device copy.
+_CONSTANTS = {}
+_CONSTANTS_MAX = 4096
+
+
+def _constant_key(value):
+    """A cache key for a number or a short flat list of numbers (the float's
+    hex keeps -0.0 apart from 0.0), else None."""
+    if isinstance(value, (bool, int, float)):
+        return float(value).hex()
+    if isinstance(value, (list, tuple)) and len(value) <= 64 and all(
+        isinstance(v, (bool, int, float)) for v in value
+    ):
+        return tuple(float(v).hex() for v in value)
+    return None
+
+
 def to_tensor(value, device_=None):
     """Float tensor of the configured dtype on ``device_`` (default: the
     device of ``value`` if it is a tensor, else ``device()``)."""
     if device_ is None:
         device_ = value.device if isinstance(value, torch.Tensor) else device()
+    if not isinstance(value, torch.Tensor):
+        d = torch.device(device_)
+        key = _constant_key(value) if d.type == "cuda" else None
+        if key is not None:
+            key = (key, _dtype, d)
+            t = _CONSTANTS.get(key)
+            if t is None:
+                if len(_CONSTANTS) >= _CONSTANTS_MAX:
+                    _CONSTANTS.clear()
+                t = _CONSTANTS[key] = torch.as_tensor(value, dtype=_dtype, device=d)
+            return t.clone()
     return torch.as_tensor(value, dtype=_dtype, device=device_)
 
 

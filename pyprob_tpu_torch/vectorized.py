@@ -17,7 +17,10 @@ MCMC engines route to ``inference.mcmc``, whose ``ReplayHandler`` (a
 ``VectorizedHandler``) replays ``forward`` over the chains through
 ``run_forward``; the SMC engines to ``inference.smc``, whose stages run
 ``forward`` under a ``VectorizedHandler`` that replays the resampled
-prefix (``replay_values``).
+prefix (``replay_values``); the gradient engines (HMC, NUTS, LAPLACE) to
+``inference.hmc`` / ``nuts`` / ``laplace``, whose potential is one replay
+of ``forward`` over the chains under ``_TransformedReplayHandler``, run
+with autograd on.
 """
 
 from __future__ import annotations
@@ -171,10 +174,14 @@ class VectorizedHandler:
 
     def _per_particle_value(self, distribution, value):
         """An observed value as one row per particle (a trace takes row i).
-        A value with no dims beyond the distribution's event dims is the
-        same for every particle and becomes a [n, ...] view; one with a
-        leading particle dim (computed from latents) is kept as it is."""
-        if value.dim() > len(distribution.event_shape):
+        A value with a leading particle dim (computed from latents: dims
+        beyond the distribution's batch and event dims' count less the
+        particle dim, and n rows) is kept as it is; any other is the same
+        for every particle and becomes a [n, ...] view (a data vector [D]
+        observed under a [n, D] batch too)."""
+        event = len(distribution.event_shape)
+        if (value.dim() > event and value.dim() >= len(distribution.batch_shape) + event
+                and value.shape[0] == self.n):
             return value
         return value.expand((self.n,) + tuple(value.shape))
 
@@ -994,6 +1001,13 @@ def vectorized_posterior(
     return_chains=False,
     resample_threshold=0.5,
     resampling="systematic",
+    leapfrog_steps=None,
+    target_accept=None,
+    step_size=None,
+    max_tree_depth=None,
+    map_steps=None,
+    num_starts=None,
+    learning_rate=None,
     *args,
     **kwargs,
 ):
@@ -1001,11 +1015,66 @@ def vectorized_posterior(
     from the model's inference network (IC), by parallel LMH / RMH
     chains (``inference.mcmc.vectorized_mcmc_posterior``, which takes
     ``initial_trace``, ``thinning_steps``, ``num_chains``, ``burn_in`` and
-    ``return_chains``), or by SMC, guided by the network or not
+    ``return_chains``), by SMC, guided by the network or not
     (``inference.smc.vectorized_smc_posterior``, which takes
-    ``resample_threshold`` and ``resampling``); None when ``fallback`` and
-    the model cannot run on this tier (``vectorized_traces``), and for SMC
+    ``resample_threshold`` and ``resampling``), or by the gradient engines:
+    HMC and NUTS chains (``inference.hmc`` / ``inference.nuts``, which take
+    ``leapfrog_steps`` / ``max_tree_depth``, ``target_accept``,
+    ``step_size`` and a ``GradientChainState`` as ``initial_trace``) and
+    LAPLACE (``inference.laplace``: ``map_steps``, ``num_starts``,
+    ``learning_rate``); None when ``fallback`` and the model cannot run on
+    this tier (``vectorized_traces``), and for SMC and the gradient engines
     whenever it cannot (the caller runs the interpreter filter or raises)."""
+    if inference_engine == InferenceEngine.LAPLACE:
+        from .inference.laplace import vectorized_laplace_posterior
+
+        return vectorized_laplace_posterior(
+            model,
+            num_traces=num_traces,
+            observe=observe,
+            map_func=map_func,
+            file_name=file_name,
+            map_steps=map_steps,
+            num_starts=num_starts,
+            learning_rate=learning_rate,
+            likelihood_importance=likelihood_importance,
+            args=args,
+            kwargs=kwargs,
+        )
+    if inference_engine in state._GRADIENT_CHAINS:
+        # initial_trace doubles as the warm-start slot for the gradient
+        # engines: a GradientChainState from final_gradient_state
+        from .inference.hmc import GradientChainState
+
+        if initial_trace is not None and not isinstance(initial_trace, GradientChainState):
+            raise RuntimeError(
+                f"{inference_engine.name} resumes from a "
+                "GradientChainState (posterior.final_gradient_state), "
+                f"got {type(initial_trace).__name__}"
+            )
+        common = dict(
+            num_traces=num_traces,
+            observe=observe,
+            map_func=map_func,
+            file_name=file_name,
+            num_chains=num_chains,
+            burn_in=burn_in,
+            thinning_steps=thinning_steps,
+            target_accept=target_accept,
+            step_size=step_size,
+            likelihood_importance=likelihood_importance,
+            return_chains=return_chains,
+            initial_state=initial_trace,
+            args=args,
+            kwargs=kwargs,
+        )
+        if inference_engine == InferenceEngine.NO_U_TURN_SAMPLER:
+            from .inference.nuts import vectorized_nuts_posterior
+
+            return vectorized_nuts_posterior(model, max_tree_depth=max_tree_depth, **common)
+        from .inference.hmc import vectorized_hmc_posterior
+
+        return vectorized_hmc_posterior(model, leapfrog_steps=leapfrog_steps, **common)
     if inference_engine in state._SMC:
         from .inference.smc import vectorized_smc_posterior
 

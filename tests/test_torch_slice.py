@@ -149,9 +149,9 @@ def test_sites_get_equal_addresses(models):
 def test_unsupported_paths_raise():
     model = GaussianUnknownMean()
     for vectorized in (None, False):
-        with pytest.raises(NotImplementedError, match="gradient engines slice"):
+        with pytest.raises(NotImplementedError, match="variational engines slice"):
             model.posterior_results(
-                10, observe=OBSERVE, inference_engine=TEngine.HAMILTONIAN_MONTE_CARLO,
+                10, observe=OBSERVE, inference_engine=TEngine.VARIATIONAL_INFERENCE,
                 vectorized=vectorized,
             )
     with pytest.raises(RuntimeError, match="No inference network"):

@@ -517,9 +517,9 @@ def test_errors():
         pp.inference.vectorized_smc_posterior(TorchGUM(), 10, observe=OBSERVE, mesh=object())
     with pytest.raises(NotImplementedError, match="distributed slice"):
         TorchGUM().posterior(num_traces=10, observe=OBSERVE, inference_engine=SMC, mesh=object())
-    for engine in (pp.InferenceEngine.HAMILTONIAN_MONTE_CARLO, pp.InferenceEngine.TEMPERED_SMC):
+    for engine in (pp.InferenceEngine.PARALLEL_TEMPERING, pp.InferenceEngine.TEMPERED_SMC):
         for vectorized in (None, False):
-            with pytest.raises(NotImplementedError, match="gradient engines slice"):
+            with pytest.raises(NotImplementedError, match="variational engines slice"):
                 TorchGUM().posterior_results(10, observe=OBSERVE, inference_engine=engine, vectorized=vectorized)
 
 
