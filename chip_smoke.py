@@ -19,9 +19,11 @@ the MCMC engines (LMH and RMH, batched chains and the interpreter chain,
 ChainState resumes, rejection blocks, GP and GaussianMixture chains) and
 the rest of the Model API (posterior_predictive, condition, ParallelModel);
 for SMC on both tiers, with its four resampling schemes, guided by the
-trained networks; and for the gradient engines (HMC, NUTS, LAPLACE and
+trained networks; for the gradient engines (HMC, NUTS, LAPLACE and
 map_estimate), their potentials differentiated through the batched replay
-with kernels 1, 1b and 4 under the gradient.
+with kernels 1, 1b and 4 under the gradient; and for the tempered and
+variational engines (parallel tempering, tempered SMC, VI, SVGD), with
+GaussianMixture's label-switching posterior on kernels 1, 1b and 3.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -397,8 +399,8 @@ Phases, each printing one JSON line:
     and the GP's against float64 torch.linalg.cholesky (GRADIENT's
     tolerances);
 73. nuts_builtin: the JAX tests' HMC/NUTS criteria at their own counts on
-    EightSchools (against 10^6 prior IS: the test's tempered-SMC reference
-    is not ported), the logistic regression, GP at N = 25, the state
+    EightSchools (its means against tempered SMC in phase 80), the
+    logistic regression, GP at N = 25, the state
     space, an LKJ correlation, Tobit, InverseGamma, Pareto,
     Beta-NegativeBinomial and Gumbel/HalfNormal latents;
 74. gradient_resume: final_gradient_state resumed (no warmup, the carried
@@ -407,7 +409,32 @@ Phases, each printing one JSON line:
 75. laplace: LAPLACE exact on GUM, map_estimate, the Gamma-Poisson
     posterior by reweighting and its MAP, BayesianLinearRegression
     (tests/test_laplace.py, tests/test_models_builtin.py:178-200), kernel
-    3 on each run's weights.
+    3 on each run's weights;
+76. pt_bimodal: PARALLEL_TEMPERING at the JAX tests' counts
+    (tests/test_pt.py): one ensemble crossing the Bimodal valley, 7 of 8
+    ensembles hopping where 8 HMC chains stay stuck, GUM, BoundedBimodal,
+    the two enumerated models against 400,000 prior IS, the replica-ladder
+    resume (tests/test_gradient_resume.py:122-140), the errors;
+77. pt_gmm: GaussianMixture K = 2 on 40 data, 256 ensembles x 8
+    temperatures: both sites' unsorted means and stddevs within 0.25 grid
+    stddevs of the float64 grid, the share with mu0 < mu1 in (0.3, 0.7);
+    kernels 1 and 1b once a potential at 81,920 rows, held against their
+    plain versions there; the tempered gradient against the plain kernels;
+78. tempered_smc_gum: TEMPERED_SMC at the JAX tests' counts
+    (tests/test_tempered_smc.py), then GUM at 10^6 particles with kernel 3's
+    launches a stage (28);
+79. tempered_smc_gmm: GaussianMixture at 65,536 particles, the whole
+    posterior and log Z (within 0.3) against the grid; kernels 1 and 1b at
+    2,621,440 rows against their plain versions;
+80. tempered_smc_eight_schools: EightSchools at 20,000 particles, the
+    reference of phase 73's NUTS means (within 0.6,
+    tests/test_models_builtin.py:158-181);
+81. vi: VARIATIONAL_INFERENCE at the JAX tests' counts (tests/test_vi.py:
+    the three guides), then GUM served at 10^6 reweighted draws, kernel 3
+    on their weights within 1e-6 of float64;
+82. svgd: STEIN_VARIATIONAL_GRADIENT_DESCENT at the JAX tests' counts
+    (tests/test_svgd.py, 512 particles), then GUM and the hierarchy at the
+    default cap of 1,024 particles; then the seconds of phases 76-82.
 
 Then the main path's launches by phase (kernel 3's also by N, the
 forwards' by rows), kernel 3
@@ -5726,8 +5753,8 @@ def phase_nuts_builtin(device):
     """The JAX tests' gradient-engine criteria at their own counts (chain
     counts by the default, min(max(1, n // 256), 1024), unless the test
     gives them): EightSchools NUTS 20,000 (mu, tau means in (3.2, 5.6),
-    (2.2, 5.2); the test's tempered-SMC reference is not ported yet, so
-    within 0.6 of 10^6 prior IS on the card); logistic regression NUTS
+    (2.2, 5.2); within 0.6 of the test's tempered-SMC reference, in
+    tempered_smc_eight_schools, after this phase); logistic regression NUTS
     600 (burn-in 200; mean and stddev within 0.5 grid stddevs); GP N = 25
     HMC 400 (burn-in 200; within 0.6 grid stddevs); the state space NUTS
     4,000 (burn-in 0; mean path within 0.08 of the RTS smoother); the LKJ
@@ -5737,7 +5764,7 @@ def phase_nuts_builtin(device):
     Pareto HMC 20,000 and Beta-NegativeBinomial NUTS 20,000 (within 0.05
     and 0.03 of 400,000 prior IS); HalfNormal/Gumbel NUTS 2,000 of 16
     chains (within 0.25 of 400,000 prior IS).  Returns the launches by
-    run."""
+    run and EightSchools' NUTS means."""
     import pyprob_tpu_torch as pp
     from pyprob_tpu_torch.models import (
         BayesianLogisticRegression, EightSchools, GaussianProcessRegression, LinearGaussianStateSpace,
@@ -5756,12 +5783,10 @@ def phase_nuts_builtin(device):
     es = EightSchools()
     post, line = run("eight_schools_nuts", lambda: es.posterior_results(
         20000, observe=es.observes(), inference_engine=nuts_))
-    mean = np.asarray(post.mean, np.float64)
-    is_mean = np.asarray(es.posterior_results(g["reference_is"], observe=es.observes()).mean, np.float64)
+    es_mean = np.asarray(post.mean, np.float64)
     (mu_lo, mu_hi), (tau_lo, tau_hi) = BUILTIN["eight_schools_bands"]
-    check(mu_lo < mean[0] < mu_hi and tau_lo < mean[1] < tau_hi, f"eight_schools nuts: mean {mean}")
-    check(float(np.abs(mean - is_mean).max()) < 0.6, f"eight_schools nuts {mean} vs prior IS {is_mean}")
-    lines["eight_schools"] = {**line, "mean": mean.tolist(), "prior_is_mean": is_mean.tolist()}
+    check(mu_lo < es_mean[0] < mu_hi and tau_lo < es_mean[1] < tau_hi, f"eight_schools nuts: mean {es_mean}")
+    lines["eight_schools"] = {**line, "mean": es_mean.tolist()}
 
     logr = BayesianLogisticRegression(np.random.default_rng(4).normal(size=(60, 1)))
     y = logr.synthesize([1.2], rng=2)
@@ -5842,7 +5867,7 @@ def phase_nuts_builtin(device):
           f"gumbel/halfnormal nuts: {xs.mean(0)} vs IS {ref_means}")
     lines["gumbel_halfnormal"] = {**line, "means": xs.mean(0).tolist(), "prior_is_means": ref_means}
     emit({"phase": "nuts_builtin", **lines, "launches": launches})
-    return launches
+    return launches, es_mean.tolist()
 
 
 def phase_gradient_resume(device):
@@ -5968,6 +5993,687 @@ def phase_laplace(device):
     emit({"phase": "laplace", "gum": gum, "map_gum": [float(mode), res.log_joint], "gamma_poisson": gamma,
           "linear_regression": {"seconds": seconds, "mean": draws.mean(0).tolist(), "truth": mean.tolist()},
           "kernel3_rel_err_on_weights": stats_err, "launches": launches})
+    return launches
+
+
+# the tempered and variational engines' phases, after every earlier phase
+# (whose draws stay as they were): the JAX tests' criteria at their own
+# counts (tests/test_pt.py, tests/test_tempered_smc.py, tests/test_vi.py,
+# tests/test_svgd.py, tests/test_gradient_resume.py:122-140,
+# tests/test_models_builtin.py:158-181), GaussianMixture's label-switching
+# posterior held whole against its float64 grid, kernels 1 and 1b at PT's
+# and tempered SMC's rows and kernel 3 at tempered SMC's and VI's N against
+# their plain versions
+TEMPERED = {"seed": 110, "gmm_ensembles": 256, "gmm_burn_in": 200, "gmm_kept": 200, "gmm_particles": 65_536,
+            "gum_particles": 1_000_000, "eight_schools_particles": 20_000, "vi_draws": 1_000_000,
+            "reference_is": 400_000, "grid_tol": 0.25, "gmm_log_z_tol": 0.3, "label_share": (0.3, 0.7),
+            "eight_schools_tol": 0.6, "kernel3_rel_tol": 1e-6, "svgd_cap": 1024, "banana_seeds": 8}
+# seeds on which the JAX package met tests/test_vi.py's Banana criteria
+# (flow ESS above fullrank's + 0.3 N, ELBO above, moments within 0.08 of
+# prior IS), of seeds run, on the CPU (``python tests/vi_reference.py
+# --paths banana --seeds 0 24``): one seed's fit is a draw, so vi holds
+# the criteria over TEMPERED["banana_seeds"] seeds, needing the JAX
+# package's share of them less four, one at least (as EVENT_IC_JAX_MET)
+VI_BANANA_JAX_MET = (14, 24)
+
+
+def tempered_engines():
+    import pyprob_tpu_torch as pp
+
+    E = pp.InferenceEngine
+    return {"pt": E.PARALLEL_TEMPERING, "tsmc": E.TEMPERED_SMC, "vi": E.VARIATIONAL_INFERENCE,
+            "svgd": E.STEIN_VARIATIONAL_GRADIENT_DESCENT, "hmc": E.HAMILTONIAN_MONTE_CARLO}
+
+
+def tempered_models():
+    """The JAX tests' small models (tests/test_pt.py, test_tempered_smc.py,
+    test_vi.py, test_svgd.py), as port models by name."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.distributions import Categorical, Exponential, Normal, Uniform
+
+    class Bimodal(pp.Model):
+        def __init__(self, stddev):
+            super().__init__(name=f"Bimodal({stddev})")
+            self.stddev = stddev
+
+        def forward(self):
+            mu = pp.sample(Normal(0.0, 3.0))
+            pp.observe(Normal(mu * mu, self.stddev), name="y")
+            return mu
+
+    class BoundedBimodal(pp.Model):
+        def forward(self):
+            mu = pp.sample(Uniform(-10.0, 10.0))
+            pp.observe(Normal(mu * mu, 1.0), name="y")
+            return mu
+
+    class Hierarchy(pp.Model):
+        def __init__(self, both):
+            super().__init__(name="Hierarchy")
+            self.both = both
+
+        def forward(self):
+            x1 = pp.sample(Normal(0.0, 1.0))
+            x2 = pp.sample(Normal(x1, 1.0))
+            pp.observe(Normal(x2, 1.0), name="y")
+            return torch.stack([x1, x2], -1) if self.both else x1
+
+    class UniformGUM(pp.Model):
+        def forward(self):
+            mu = pp.sample(Uniform(0.0, 20.0))
+            lik = Normal(mu, math.sqrt(2.0))
+            pp.observe(lik, name="obs0")
+            pp.observe(lik, name="obs1")
+            return mu
+
+    class Positive(pp.Model):
+        def forward(self):
+            lam = pp.sample(Exponential(1.0))
+            pp.observe(Normal(lam, 0.5), name="y")
+            return lam
+
+    class Mix(pp.Model):
+        def forward(self):
+            mu = pp.sample(Normal(0.0, 5.0))
+            k = pp.sample(Categorical(probs=[0.5, 0.5]))
+            pp.observe(Normal(mu + torch.where(k == 0, -2.0, 2.0), 1.0), name="y")
+            return mu
+
+    class DepMix(pp.Model):
+        def forward(self):
+            d = pp.sample(Categorical(probs=[0.3, 0.7]))
+            # the centers [-3, 3][d] without a tensor made from a list in
+            # forward (a copy from the host, which a CUDA graph refuses)
+            x = pp.sample(Normal(torch.where(d == 0, -3.0, 3.0), 1.0))
+            pp.observe(Normal(x, 0.5), name="y")
+            return x
+
+    class Banana(pp.Model):
+        def forward(self):
+            x = pp.sample(Normal(0.0, 1.0))
+            y = pp.sample(Normal(0.0, 2.0))
+            pp.observe(Normal(y - x * x, 0.3), name="w")
+            return torch.stack([x, y], -1)
+
+    class Disc(pp.Model):
+        def forward(self):
+            k = pp.sample(Categorical(probs=[0.5, 0.5]))
+            pp.observe(Normal(1.0 * k, 1.0), name="y")
+            return k
+
+    return {"bimodal": Bimodal(1.0), "bimodal_sharp": Bimodal(0.5), "bounded_bimodal": BoundedBimodal(),
+            "hierarchy": Hierarchy(False), "hierarchy_both": Hierarchy(True), "uniform_gum": UniformGUM(),
+            "positive": Positive(), "mix": Mix(), "depmix": DepMix(), "banana": Banana(), "disc": Disc()}
+
+
+def timed_run(device, fn):
+    """``fn()`` timed on the host clock with the kernels' launches counted
+    and the peak device memory: (result, seconds, launches, peak GiB)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (out, seconds), launches = counted(device, lambda: host_timed(fn))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    return out, seconds, launches, peak_gib
+
+
+def pt_line(post, seconds, peak_gib):
+    """A PT run's figures: ensembles, transitions, acceptance and swap rate,
+    potentials (L + 1 a transition: the move's leapfrogs and the gradient
+    at the swapped β) and host ms a potential of the step loop."""
+    md = post.metadata[-1]
+    C, L = md["num_chains"], md["leapfrog_steps"]
+    T = md["transitions"] // C
+    return {"ensembles": C, "temperatures": md["num_temperatures"], "transitions": T, "burn_in": md["burn_in"],
+            "kept": post.length, "acceptance_rate": md["acceptance_rate"],
+            "swap_acceptance_rate": md["swap_acceptance_rate"], "final_step_size": md["final_step_size"],
+            "potentials": 1 + T * (L + 1), "ms_per_potential": md["step_seconds"] / (T * (L + 1)) * 1e3,
+            "step_loop_seconds": md["step_seconds"], "seconds": seconds, "potential_graph": md["potential_graph"],
+            "peak_memory_gib": peak_gib}
+
+
+def check_close(label, got, want, tol):
+    check(abs(got - want) < tol, f"{label}: {got} vs {want} (limit {tol})")
+
+
+def phase_pt_bimodal(device):
+    """tests/test_pt.py and tests/test_gradient_resume.py:122-140 at their
+    own counts: Bimodal (modes at ±4) one ensemble of 8,000 draws (burn-in
+    500) with the share above 0 in (0.3, 0.7), mean |mu| within 0.15 of 4,
+    swap rate > 0.2; 8 HMC chains stuck in their modes and 7 of 8 PT
+    ensembles hopping (return_chains); GUM within 0.1 / 0.12 (8 ensembles,
+    K = 6); BoundedBimodal; the two enumerated models within 0.12 / 0.1 of
+    400,000 prior IS; the replica-ladder resume and the rank check; the
+    errors.  Returns the launches by run."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    pp.seed(TEMPERED["seed"])
+    E, M = tempered_engines(), tempered_models()
+    launches, out = {}, {}
+
+    def run(name, fn):
+        post, seconds, launches[f"pt_{name}"], peak = timed_run(device, fn)
+        return post, (pt_line(post, seconds, peak) if not isinstance(post, list) else {"seconds": seconds})
+
+    post, out["bimodal"] = run("bimodal", lambda: M["bimodal"].posterior_results(
+        8000, observe={"y": 16.0}, inference_engine=E["pt"], num_chains=1, burn_in=500))
+    vals = np.asarray(post.values_numpy(), np.float64).ravel()
+    share, abs_mean = float(np.mean(vals > 0)), float(np.mean(np.abs(vals)))
+    check(0.3 < share < 0.7 and abs(abs_mean - 4.0) < 0.15, f"pt bimodal: share {share}, |mu| {abs_mean}")
+    check(out["bimodal"]["swap_acceptance_rate"] > 0.2 and post.metadata[-1]["num_temperatures"] == 8,
+          f"pt bimodal: {out['bimodal']}")
+    out["bimodal"].update(share_above_0=share, mean_abs=abs_mean)
+    chains, out["hmc_bimodal_chains"] = run("hmc_bimodal_chains", lambda: M["bimodal"].posterior_results(
+        8000, observe={"y": 16.0}, inference_engine=E["hmc"], num_chains=8, burn_in=500, return_chains=True))
+    hmc_shares = [float(np.mean(np.asarray(c.values_numpy(), np.float64) > 0)) for c in chains]
+    check(all(min(s, 1 - s) < 0.02 for s in hmc_shares), f"hmc bimodal chains not stuck: {hmc_shares}")
+    chains, out["bimodal_chains"] = run("bimodal_chains", lambda: M["bimodal"].posterior_results(
+        8000, observe={"y": 16.0}, inference_engine=E["pt"], num_chains=8, burn_in=500, return_chains=True))
+    pt_shares = [float(np.mean(np.asarray(c.values_numpy(), np.float64) > 0)) for c in chains]
+    hopped = sum(0.1 < s < 0.9 for s in pt_shares)
+    check(hopped >= 7, f"pt bimodal: {hopped} of 8 ensembles hopped: {pt_shares}")
+    out["bimodal_chains"].update(hmc_shares_above_0=hmc_shares, pt_shares_above_0=pt_shares, hopped=hopped)
+
+    post, out["gum"] = run("gum", lambda: GaussianUnknownMean().posterior_results(
+        8000, observe=OBSERVE, inference_engine=E["pt"], num_chains=8, burn_in=300, num_temperatures=6))
+    check_close("pt gum mean", float(post.mean), POSTERIOR_MEAN, 0.1)
+    check_close("pt gum stddev", float(post.stddev), POSTERIOR_STDDEV, 0.12)
+    out["gum"].update(mean=float(post.mean), stddev=float(post.stddev))
+    post, out["bounded_bimodal"] = run("bounded_bimodal", lambda: M["bounded_bimodal"].posterior_results(
+        6000, observe={"y": 9.0}, inference_engine=E["pt"], num_chains=2, burn_in=400))
+    vals = np.asarray(post.values_numpy(), np.float64).ravel()
+    share, abs_mean = float(np.mean(vals > 0)), float(np.mean(np.abs(vals)))
+    check(vals.min() > -10.0 and vals.max() < 10.0 and abs(abs_mean - 3.0) < 0.2 and 0.25 < share < 0.75,
+          f"pt bounded bimodal: [{vals.min()}, {vals.max()}], |mu| {abs_mean}, share {share}")
+    out["bounded_bimodal"].update(share_above_0=share, mean_abs=abs_mean)
+    for name, tol in (("mix", 0.12), ("depmix", 0.1)):
+        model = M[name]
+        ref = model.posterior_results(TEMPERED["reference_is"], observe={"y": 1.0})
+        post, out[name] = run(name, lambda: model.posterior_results(
+            12000, observe={"y": 1.0}, inference_engine=E["pt"], num_chains=4, burn_in=300, num_temperatures=4))
+        check_close(f"pt {name} mean", float(post.mean), float(ref.mean), tol)
+        check_close(f"pt {name} stddev", float(post.stddev), float(ref.stddev), tol)
+        out[name].update(mean=float(post.mean), stddev=float(post.stddev),
+                         prior_is=[float(ref.mean), float(ref.stddev)])
+
+    gum = GaussianUnknownMean()
+
+    def resume():
+        post = gum.posterior_results(4000, observe=OBSERVE, inference_engine=E["pt"], num_chains=16,
+                                     num_temperatures=4)
+        state = post.final_gradient_state
+        post2 = gum.posterior_results(4000, observe=OBSERVE, inference_engine=E["pt"], num_temperatures=4,
+                                      initial_trace=state)
+        return state, post2
+
+    (state, post2), seconds, launches["pt_resume"], _ = timed_run(device, resume)
+    check(state.z.shape == (16, 4, 1) and state.step_size.shape == (16, 4), f"pt resume: {state}")
+    check(abs(float(post2.mean) - POSTERIOR_MEAN) < 0.2 and post2.metadata[-1]["burn_in"] == 0,
+          f"pt resume: {float(post2.mean)}, {post2.metadata[-1]['burn_in']}")
+    hmc_state = gum.posterior_results(1000, observe=OBSERVE, inference_engine=E["hmc"],
+                                      num_chains=8).final_gradient_state
+    for engine, st in ((E["pt"], hmc_state), (E["hmc"], state)):
+        try:
+            gum.posterior_results(100, observe=OBSERVE, inference_engine=engine, num_temperatures=4,
+                                  initial_trace=st)
+            check(False, f"pt resume: a rank-{st.z.ndim} state warm-started {engine.name}")
+        except RuntimeError as e:
+            check("rank" in str(e), f"pt resume: {e}")
+    out["resume"] = {"seconds": seconds, "resumed_mean": float(post2.mean), "state_shape": list(state.z.shape)}
+    for fn, kind, text in (
+        (lambda: gum.posterior_results(100, observe=OBSERVE, inference_engine=E["pt"], num_temperatures=1),
+         ValueError, "num_temperatures"),
+        (lambda: M["disc"].posterior_results(100, observe={"y": 1.0}, inference_engine=E["pt"]),
+         RuntimeError, "no continuous latent"),
+    ):
+        try:
+            fn()
+            check(False, f"pt: no {kind.__name__} ({text})")
+        except kind as e:
+            check(text in str(e), f"pt: {e}")
+    emit({"phase": "pt_bimodal", **out, "launches": launches})
+    return launches
+
+
+def gmm_grid_truth(gm, y):
+    """GaussianMixture's (K = 2, fixed weights) exact posterior on the
+    float64 grid that ``true_posterior_moments`` integrates (both label
+    orders): (means [2], stddevs [2], log evidence), the evidence the
+    logsumexp of the normalized log joint over the grid plus log of the cell
+    area."""
+    means, stds = gm.true_posterior_moments(y)
+    lim, n = 3.0, 201
+    grid = np.linspace(gm.prior_mean - lim * gm.prior_stddev, gm.prior_mean + lim * gm.prior_stddev, n)
+    y = np.asarray(y, np.float64)
+    per = (-0.5 * ((y[None, :] - grid[:, None]) / gm.obs_stddev) ** 2 - math.log(gm.obs_stddev)
+           - 0.5 * math.log(2 * math.pi))  # [n, data]: log N(y_i; mu, sigma)
+    a = np.log(gm.weights[0]) + per[:, None, :]
+    b = np.log(gm.weights[1]) + per[None, :, :]
+    hi = np.maximum(a, b)
+    loglik = np.sum(hi + np.log(np.exp(a - hi) + np.exp(b - hi)), -1)
+    logprior = (-0.5 * ((grid - gm.prior_mean) / gm.prior_stddev) ** 2 - math.log(gm.prior_stddev)
+                - 0.5 * math.log(2 * math.pi))
+    lj = loglik + logprior[:, None] + logprior[None, :]
+    top = lj.max()
+    log_z = float(top + np.log(np.exp(lj - top).sum()) + 2 * math.log(grid[1] - grid[0]))
+    return means, stds, log_z
+
+
+def check_gmm_whole(label, post, truth):
+    """GaussianMixture's label-switching posterior held whole: both sites'
+    means and stddevs within TEMPERED["grid_tol"] grid stddevs of the grid,
+    and the share of draws with mu0 < mu1 in TEMPERED["label_share"]."""
+    means, stds, _ = truth
+    v = np.asarray(post.values_numpy(), np.float64)
+    w = np.asarray(post.weights, np.float64)
+    got_m = (w[:, None] * v).sum(0)
+    got_s = np.sqrt((w[:, None] * (v - got_m) ** 2).sum(0))
+    tol = TEMPERED["grid_tol"] * stds
+    check(bool(np.all(np.abs(got_m - means) < tol) and np.all(np.abs(got_s - stds) < tol)),
+          f"{label}: means {got_m}, stddevs {got_s} vs grid {means}, {stds}")
+    share = float((w * (v[:, 0] < v[:, 1])).sum())
+    lo, hi = TEMPERED["label_share"]
+    check(lo < share < hi, f"{label}: share with mu0 < mu1 {share}")
+    return {"means": got_m.tolist(), "stddevs": got_s.tolist(), "grid_means": list(means),
+            "grid_stddevs": list(stds), "share_mu0_below_mu1": share}
+
+
+def gmm_kernel_rows(label, rows, floor_ms, where):
+    """Kernels 1 and 1b against their plain versions at ``rows`` rows of
+    GaussianMixture's observe (``check_gmm_kernels``), each timed beside
+    its bound."""
+    from pyprob_tpu_torch.ops import kernels as K
+
+    D = BUILTIN["mixture_data"]
+    err_f, err_b, inputs, out_k, cot = check_gmm_kernels(rows // D, D, False)
+    emit_shape("mixture_normal_log_prob", lambda: K.mixture_normal_log_prob(*inputs),
+               lambda: K.mixture_normal_log_prob_plain(*inputs), *mixture_cost(rows, 2), [rows, 2], err_f,
+               iters=50, path=where, launch_floor_ms=floor_ms)
+    emit_shape("mixture_normal_log_prob_backward",
+               lambda: K.mixture_normal_log_prob_backward(*inputs, out_k, cot, need_x=False),
+               lambda: K.mixture_normal_log_prob_backward_plain(*inputs, out_k, cot),
+               *mixture_backward_cost(rows, 2), [rows, 2], err_b, iters=50, path=where + "'s gradient",
+               launch_floor_ms=floor_ms)
+    return {"forward_max_abs_err": err_f, "backward_max_abs_err": err_b}
+
+
+def phase_pt_gmm(device, floor_ms):
+    """GaussianMixture K = 2 on 40 data (as gradient_gmm builds it) under PT:
+    256 ensembles x 8 temperatures (2,048 replicas), 200 burn-in and 200
+    kept transitions; the whole label-switching posterior against the
+    float64 grid (``check_gmm_whole``); kernels 1 and 1b once a potential at
+    81,920 rows, each held against its plain version there and timed, and
+    the tempered potential's gradient at those rows against the plain
+    kernels' within GRADIENT["gmm_grad_tol"] (1 + |plain|).  Returns the
+    launches."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.inference import hmc
+    from pyprob_tpu_torch.models import GaussianMixture
+
+    t = TEMPERED
+    pp.seed(t["seed"] + 1)
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D)
+    y = gm.synthesize([-2.0, 2.0], rng=0)
+    truth = gmm_grid_truth(gm, y)
+    C, K = t["gmm_ensembles"], 8
+    rows = C * K * D
+    post, seconds, launches, peak = timed_run(device, lambda: gm.posterior_results(
+        C * t["gmm_kept"], observe={"y": y}, inference_engine=tempered_engines()["pt"], num_chains=C,
+        burn_in=t["gmm_burn_in"]))
+    line = pt_line(post, seconds, peak)
+    whole = check_gmm_whole("pt_gmm", post, truth)
+    at_rows = launches["mixture_normal_log_prob_by_rows"].get(rows, 0)
+    backward = launches["mixture_normal_log_prob_backward"]
+    check(device != "cuda" or (at_rows >= line["potentials"] and backward >= line["potentials"]),
+          f"pt_gmm: kernel 1 {at_rows} times at {rows} rows, kernel 1b {backward}, {line['potentials']} potentials")
+    out = {**line, **whole, "kernel1_at_replica_rows": at_rows, "kernel1b": backward}
+    if device == "cuda":
+        out["kernel_checks"] = gmm_kernel_rows("pt_gmm", rows, floor_ms, "GaussianMixture PT potential")
+        obs = {"y": torch.as_tensor(y, dtype=torch.float32, device=device)}
+        fm = hmc._functionalize(gm, obs, 1.0, "PARALLEL_TEMPERING", (), None)
+        rng = np.random.default_rng(t["seed"])
+        z = torch.as_tensor((np.array([-2.0, 2.0]) + 1.5 * rng.normal(size=(C * K, 2))).astype(np.float32),
+                            device=device)
+        beta = torch.as_tensor(np.tile([(k / (K - 1)) ** 2 for k in range(K)], C).astype(np.float32),
+                               device=device)
+        (u_k, g_k, _, _), counts = counted(device, lambda: fm.value_and_grad_beta(z, beta, obs))
+        with PlainKernels():
+            u_p, g_p, _, _ = fm.value_and_grad_beta(z, beta, obs)
+        tol = GRADIENT["gmm_grad_tol"]
+        err = float(((g_k - g_p).abs() / (1 + g_p.abs())).max())
+        check(counts["mixture_normal_log_prob_backward"] == 1 and err <= tol
+              and bool(((u_k - u_p).abs() <= tol * (1 + u_p.abs())).all()),
+              f"pt_gmm tempered gradient vs plain: {err}, launches {counts['mixture_normal_log_prob_backward']}")
+        out["tempered_gradient_rel_err"] = err
+    emit({"phase": "pt_gmm", "data": D, "grid_log_evidence": truth[2], **out, "launches": launches})
+    return launches
+
+
+def tsmc_line(post, seconds, launches, peak_gib):
+    """A tempered-SMC run's figures: stages, final β, log Z, acceptance,
+    seconds and ms a stage, kernel 3's launches a stage."""
+    md = post.metadata[-1]
+    return {"particles": md["num_traces"], "stages": md["stages"], "final_beta": md["final_beta"],
+            "log_evidence": post.log_evidence, "acceptance_rate": md["acceptance_rate"],
+            "final_step_size": md["final_step_size"], "seconds": seconds, "anneal_seconds": md["anneal_seconds"],
+            "ms_per_stage": md["anneal_seconds"] / md["stages"] * 1e3, "host_syncs": md["host_syncs"],
+            "kernel3_per_stage": launches["log_weight_stats"] / md["stages"],
+            "potential_graph": md["potential_graph"], "peak_memory_gib": peak_gib}
+
+
+def phase_tempered_smc_gum(device):
+    """tests/test_tempered_smc.py at its own counts (GUM 8,000 with log Z
+    within 0.15 of -8.2395, final β 1 and >= 2 stages; the hierarchy, the
+    bimodal transport, the enumerated models against 400,000 prior IS, the
+    knobs at 4,000, the errors), then GUM at 10^6 particles held the same
+    way, with kernel 3's launches a stage (28: the check at β = 1, 26
+    bisection steps, the log Z increment).  Returns the launches."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    t = TEMPERED
+    pp.seed(t["seed"] + 2)
+    E, M = tempered_engines(), tempered_models()
+    launches, out = {}, {}
+
+    def run(name, model, n, observe, **kw):
+        post, seconds, launches[f"tsmc_{name}"], peak = timed_run(device, lambda: model.posterior_results(
+            n, observe=observe, inference_engine=E["tsmc"], **kw))
+        out[name] = tsmc_line(post, seconds, launches[f"tsmc_{name}"], peak)
+        return post
+
+    def gum_checks(name, post):
+        md = post.metadata[-1]
+        check_close(f"{name} mean", float(post.mean), POSTERIOR_MEAN, 0.1)
+        check_close(f"{name} stddev", float(post.stddev), POSTERIOR_STDDEV, 0.1)
+        check_close(f"{name} log Z", post.log_evidence, LOG_EVIDENCE, 0.15)
+        check(md["final_beta"] == 1.0 and md["stages"] >= 2 and 0.2 < md["acceptance_rate"] <= 1.0,
+              f"{name}: {md}")
+        out[name].update(mean=float(post.mean), stddev=float(post.stddev))
+
+    gum_checks("gum", run("gum", GaussianUnknownMean(), 8000, OBSERVE))
+    post = run("hierarchy", M["hierarchy"], 8000, {"y": 2.0})
+    check_close("tsmc hierarchy mean", float(post.mean), 2.0 / 3.0, 0.08)
+    check_close("tsmc hierarchy log Z", post.log_evidence, -2.135, 0.1)
+    post = run("bimodal", M["bimodal"], 8000, {"y": 16.0})
+    vals = np.asarray(post.values_numpy(), np.float64).ravel()
+    check(abs(float(np.mean(np.abs(vals))) - 4.0) < 0.15 and 0.3 < float(np.mean(vals > 0)) < 0.7,
+          f"tsmc bimodal: {np.mean(np.abs(vals))}, {np.mean(vals > 0)}")
+    for name, n, tol in (("mix", 8000, 0.12), ("depmix", 12000, 0.1)):
+        ref = M[name].posterior_results(t["reference_is"], observe={"y": 1.0})
+        post = run(name, M[name], n, {"y": 1.0})
+        check_close(f"tsmc {name} mean", float(post.mean), float(ref.mean), tol)
+        check_close(f"tsmc {name} stddev", float(post.stddev), float(ref.stddev), tol)
+        if name == "depmix":
+            check_close("tsmc depmix log Z", post.log_evidence, -2.984, 0.12)
+    post = run("knobs", GaussianUnknownMean(), 4000, OBSERVE, resample_threshold=0.7, rejuvenation_steps=3,
+               leapfrog_steps=5)
+    md = post.metadata[-1]
+    check(abs(float(post.mean) - POSTERIOR_MEAN) < 0.15 and md["rejuvenation_steps"] == 3
+          and md["leapfrog_steps"] == 5, f"tsmc knobs: {float(post.mean)}, {md}")
+    try:
+        GaussianUnknownMean().posterior(num_traces=100, inference_engine=E["tsmc"])
+        check(False, "tsmc: no observe did not raise")
+    except RuntimeError as e:
+        check("observe" in str(e), f"tsmc: {e}")
+    n = t["gum_particles"]
+    post = run("gum_1e6", GaussianUnknownMean(), n, OBSERVE)
+    gum_checks("gum_1e6", post)
+    stages = post.metadata[-1]["stages"]
+    at_n = launches["tsmc_gum_1e6"]["log_weight_stats_by_n"].get(n, 0)
+    check(device != "cuda" or at_n == 28 * stages, f"tsmc gum 1e6: kernel 3 {at_n} times at N={n}, {stages} stages")
+    out["gum_1e6"]["kernel3_at_n_per_stage"] = at_n / stages
+    emit({"phase": "tempered_smc_gum", **out, "launches": launches})
+    return launches
+
+
+def phase_tempered_smc_gmm(device, floor_ms):
+    """GaussianMixture (as pt_gmm) under tempered SMC at 65,536 particles:
+    the whole label-switching posterior against the grid
+    (``check_gmm_whole``), log Z within 0.3 of the grid's log evidence;
+    kernels 1 and 1b at 2,621,440 rows in every potential, each held
+    against its plain version there and timed.  Returns the launches."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import GaussianMixture
+
+    t = TEMPERED
+    pp.seed(t["seed"] + 3)
+    D = BUILTIN["mixture_data"]
+    gm = GaussianMixture(num_components=2, obs_stddev=0.6, num_data=D)
+    y = gm.synthesize([-2.0, 2.0], rng=0)
+    truth = gmm_grid_truth(gm, y)
+    n = t["gmm_particles"]
+    rows = n * D
+    post, seconds, launches, peak = timed_run(device, lambda: gm.posterior_results(
+        n, observe={"y": y}, inference_engine=tempered_engines()["tsmc"]))
+    line = tsmc_line(post, seconds, launches, peak)
+    whole = check_gmm_whole("tempered_smc_gmm", post, truth)
+    check_close("tempered_smc_gmm log Z", post.log_evidence, truth[2], t["gmm_log_z_tol"])
+    md = post.metadata[-1]
+    check(md["final_beta"] == 1.0, f"tempered_smc_gmm: final beta {md['final_beta']}")
+    # a stage's potentials: the gradient at the new β and M moves of L leapfrogs
+    potentials = md["stages"] * (1 + md["rejuvenation_steps"] * md["leapfrog_steps"])
+    at_rows = launches["mixture_normal_log_prob_by_rows"].get(rows, 0)
+    backward = launches["mixture_normal_log_prob_backward"]
+    check(device != "cuda" or (at_rows >= potentials and backward >= potentials),
+          f"tempered_smc_gmm: kernel 1 {at_rows} times at {rows} rows, kernel 1b {backward}, {potentials} potentials")
+    out = {**line, **whole, "potentials": potentials, "kernel1_at_particle_rows": at_rows, "kernel1b": backward,
+           "ms_per_potential": md["anneal_seconds"] / potentials * 1e3}
+    if device == "cuda":
+        out["kernel_checks"] = gmm_kernel_rows("tempered_smc_gmm", rows, floor_ms,
+                                               "GaussianMixture tempered-SMC potential")
+    emit({"phase": "tempered_smc_gmm", "data": D, "grid_log_evidence": truth[2], **out, "launches": launches})
+    return launches
+
+
+def phase_tempered_smc_eight_schools(device, nuts_mean):
+    """EightSchools under tempered SMC at 20,000 particles, the reference
+    the JAX test holds NUTS to (tests/test_models_builtin.py:158-181): the
+    NUTS means of nuts_builtin within 0.6 of it.  Returns the launches."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.models import EightSchools
+
+    pp.seed(TEMPERED["seed"] + 4)
+    es = EightSchools()
+    post, seconds, launches, peak = timed_run(device, lambda: es.posterior_results(
+        TEMPERED["eight_schools_particles"], observe=es.observes(), inference_engine=tempered_engines()["tsmc"]))
+    mean = np.asarray(post.mean, np.float64)
+    diff = float(np.abs(np.asarray(nuts_mean) - mean).max())
+    check(diff < TEMPERED["eight_schools_tol"], f"eight_schools: nuts {nuts_mean} vs tempered SMC {mean}")
+    emit({"phase": "tempered_smc_eight_schools", **tsmc_line(post, seconds, launches, peak),
+          "mean": mean.tolist(), "nuts_mean": list(nuts_mean), "max_abs_diff": diff, "launches": launches})
+    return launches
+
+
+def late_elbo(post):
+    """The mean of a VI run's last 100 ELBO estimates.  The JAX tests compare
+    the last step's alone, a 32-particle estimate (its standard deviation
+    about 0.125 at an exact fit, 0.5·χ²₃₂/32): on GUM it lay from -0.27 to
+    +0.099 from log Z over 16 seeds in the JAX package, three within 0.012
+    of the +0.1 bound, while the mean of the last 100 lay within 0.025 of log
+    Z in the port (``tests/vi_reference.py --paths gum_elbo``); a gap of
+    0.14 (meanfield's KL on the hierarchy) is within the last step's
+    noise."""
+    return float(np.mean(post.metadata[-1]["elbo_history"][-100:]))
+
+
+def vi_line(post, seconds, peak_gib):
+    md = post.metadata[-1]
+    return {"guide": md["guide"], "steps": md["vi_steps"], "draws": post.length, "final_elbo": md["final_elbo"],
+            "late_elbo": late_elbo(post),
+            "ess": float(post.effective_sample_size), "log_evidence": post.log_evidence,
+            "fit_seconds": md["fit_seconds"], "ms_per_step": md["fit_seconds"] / max(md["vi_steps"], 1) * 1e3,
+            "seconds": seconds, "step_graph": md["step_graph"], "peak_memory_gib": peak_gib}
+
+
+def phase_vi(device):
+    """tests/test_vi.py at its own counts: GUM meanfield (ESS > 0.9 N, log Z
+    within 0.05, ELBO <= log Z + 0.1), fullrank over meanfield on the
+    hierarchy (each ELBO the mean of the last 100 steps', ``late_elbo``; the
+    last step's printed), the bounded and positive supports, the enumerated
+    model against 400,000 prior IS, the flow over fullrank on Banana (3,000
+    steps; ESS above fullrank's + 0.3 N, the last step's ELBO above, as the
+    JAX test and its share, moments within 0.08 of 400,000 prior IS) on as
+    many of TEMPERED["banana_seeds"] seeds as VI_BANANA_JAX_MET asks, the
+    program cache; then the GUM meanfield fit served at 10^6 reweighted draws with
+    kernel 3 on their weights within TEMPERED["kernel3_rel_tol"] of float64
+    numpy.  Returns the launches."""
+    import torch
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.inference import vi
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    t = TEMPERED
+    pp.seed(t["seed"] + 5)
+    E, M = tempered_engines(), tempered_models()
+    launches, out = {}, {}
+
+    def run(name, model, n, observe, **kw):
+        post, seconds, launches[f"vi_{name}"], peak = timed_run(device, lambda: model.posterior_results(
+            n, observe=observe, inference_engine=E["vi"], **kw))
+        out[name] = vi_line(post, seconds, peak)
+        return post
+
+    post = run("gum", GaussianUnknownMean(), 4000, OBSERVE)
+    md = post.metadata[-1]
+    check(abs(float(post.mean) - POSTERIOR_MEAN) < 0.1 and abs(float(post.stddev) - POSTERIOR_STDDEV) < 0.1
+          and post.effective_sample_size > 0.9 * 4000 and abs(post.log_evidence - LOG_EVIDENCE) < 0.05
+          and md["guide"] == "meanfield" and md["latent_dim"] == 1 and late_elbo(post) <= post.log_evidence + 0.1,
+          f"vi gum: {out['gum']}")
+    posts = {g: run(f"hierarchy_{g}", M["hierarchy"], 4000, {"y": 2.0}, guide=g) for g in ("meanfield", "fullrank")}
+    for g, p in posts.items():
+        check(abs(float(p.mean) - 2.0 / 3.0) < 0.08 and abs(p.log_evidence + 2.135) < 0.1,
+              f"vi hierarchy {g}: {float(p.mean)}, {p.log_evidence}")
+    check(posts["fullrank"].effective_sample_size > posts["meanfield"].effective_sample_size + 0.2 * 4000
+          and late_elbo(posts["fullrank"]) > late_elbo(posts["meanfield"]),
+          f"vi hierarchy: fullrank {out['hierarchy_fullrank']} vs meanfield {out['hierarchy_meanfield']}")
+    post = run("uniform_gum", M["uniform_gum"], 4000, OBSERVE)
+    vals = np.asarray(post.values_numpy(), np.float64)
+    check(abs(float(post.mean) - 8.5) < 0.12 and abs(float(post.stddev) - 1.0) < 0.12 and vals.min() > 0.0
+          and vals.max() < 20.0, f"vi bounded: {float(post.mean)}, {float(post.stddev)}")
+    post = run("positive", M["positive"], 4000, {"y": 2.0})
+    check(np.asarray(post.values_numpy()).min() > 0.0 and abs(float(post.mean) - 1.76) < 0.1,
+          f"vi positive: {float(post.mean)}")
+    ref = M["mix"].posterior_results(t["reference_is"], observe={"y": 1.0})
+    post = run("mix", M["mix"], 8000, {"y": 1.0})
+    check(abs(float(post.mean) - float(ref.mean)) < 0.15 and abs(float(post.stddev) - float(ref.stddev)) < 0.15,
+          f"vi mix: {float(post.mean)}, {float(post.stddev)} vs IS {float(ref.mean)}, {float(ref.stddev)}")
+    ref = M["banana"].posterior_results(t["reference_is"], observe={"w": 0.0})
+    ref_m, ref_s = np.asarray(ref.mean, np.float64), np.asarray(ref.stddev, np.float64)
+    banana = []
+    for seed in range(t["banana_seeds"]):
+        pp.seed(t["seed"] + 100 + seed)
+        fr = run(f"banana_fullrank_{seed}", M["banana"], 8000, {"w": 0.0}, guide="fullrank", vi_steps=3000)
+        fl = run(f"banana_flow_{seed}", M["banana"], 8000, {"w": 0.0}, guide="flow", vi_steps=3000,
+                 learning_rate=0.01)
+        fl_m, fl_s = np.asarray(fl.mean, np.float64), np.asarray(fl.stddev, np.float64)
+        met = {"ess": fl.effective_sample_size > fr.effective_sample_size + 0.3 * 8000,
+               "elbo": fl.metadata[-1]["final_elbo"] > fr.metadata[-1]["final_elbo"],
+               "moments": bool(np.abs(fl_m - ref_m).max() < 0.08 and np.abs(fl_s - ref_s).max() < 0.08)}
+        banana.append(all(met.values()))
+        out[f"banana_flow_{seed}"].update(mean=fl_m.tolist(), stddev=fl_s.tolist(), met=met)
+    need = max(1, -(-t["banana_seeds"] * VI_BANANA_JAX_MET[0] // VI_BANANA_JAX_MET[1]) - 4)
+    out["banana"] = {"seeds_met": sum(banana), "seeds": len(banana), "needed": need,
+                     "prior_is": [ref_m.tolist(), ref_s.tolist()]}
+    check(sum(banana) >= need, f"vi banana: the flow met the JAX test's criteria on {sum(banana)} of "
+          f"{len(banana)} seeds, {need} needed: {out}")
+    gum = GaussianUnknownMean()
+    gum.posterior_results(500, observe=OBSERVE, inference_engine=E["vi"], vi_steps=200)
+    cached = len(vi._vi_cache)
+    post = gum.posterior_results(500, observe={"obs0": -3.0, "obs1": -4.0}, inference_engine=E["vi"], vi_steps=200)
+    check(len(vi._vi_cache) == cached and abs(float(post.mean) + 2.75) < 0.15, f"vi cache: {float(post.mean)}")
+    n = t["vi_draws"]
+    post = run("gum_1e6", gum, n, OBSERVE)
+    check(abs(float(post.mean) - POSTERIOR_MEAN) < 0.1 and abs(post.log_evidence - LOG_EVIDENCE) < 0.05,
+          f"vi gum 1e6: {out['gum_1e6']}")
+    check(device != "cuda" or launches["vi_gum_1e6"]["log_weight_stats_by_n"].get(n, 0) >= 1,
+          f"vi gum 1e6: kernel 3 not launched at N={n}")
+    if device == "cuda":
+        lw_np = np.asarray(post.log_weights, np.float64).astype(np.float32)
+        *_, rel = check_stats_values(lw_np, torch.from_numpy(lw_np).to(device), "vi gum 1e6's weights")
+        check(rel <= t["kernel3_rel_tol"], f"vi gum 1e6: kernel 3 {rel} relative of float64")
+        out["gum_1e6"]["kernel3_rel_err_on_weights"] = rel
+    emit({"phase": "vi", **out, "launches": launches})
+    return launches
+
+
+def phase_svgd(device):
+    """tests/test_svgd.py at its own counts (512 particles, 600 or 800
+    steps): GUM, the hierarchy's correlation, the bounded and positive
+    supports, both modes of the sharp bimodal model, the enumerated model
+    against 400,000 prior IS, the program cache (its second run at 600 steps:
+    the JAX test's 100 leave the ensemble in transit); then GUM and the hierarchy
+    at the default cap of 1,024 particles with their ms a step.  Returns the
+    launches."""
+    import pyprob_tpu_torch as pp
+    from pyprob_tpu_torch.inference import svgd
+    from pyprob_tpu_torch.models import GaussianUnknownMean
+
+    t = TEMPERED
+    pp.seed(t["seed"] + 6)
+    E, M = tempered_engines(), tempered_models()
+    launches, out = {}, {}
+
+    def run(name, model, n, observe, particles=512, steps=600, **kw):
+        post, seconds, launches[f"svgd_{name}"], peak = timed_run(device, lambda: model.posterior_results(
+            n, observe=observe, inference_engine=E["svgd"], svgd_particles=particles, svgd_steps=steps, **kw))
+        md = post.metadata[-1]
+        out[name] = {"particles": md["svgd_particles"], "steps": md["svgd_steps"], "draws": post.length,
+                     "final_mean_update_norm": md["final_mean_update_norm"], "fit_seconds": md["fit_seconds"],
+                     "ms_per_step": md["fit_seconds"] / steps * 1e3, "seconds": seconds,
+                     "step_graph": md["step_graph"], "peak_memory_gib": peak}
+        return post
+
+    def check_gum(name, post, n, particles):
+        md = post.metadata[-1]
+        check(post.length == n and abs(float(post.mean) - POSTERIOR_MEAN) < 0.1
+              and abs(float(post.stddev) - POSTERIOR_STDDEV) < 0.15 and md["latent_dim"] == 1
+              and md["svgd_particles"] == particles and np.isfinite(md["final_mean_update_norm"])
+              and post.effective_sample_size > 0.99 * n, f"svgd {name}: {float(post.mean)}, {float(post.stddev)}")
+
+    def check_hierarchy(name, post):
+        xs = np.asarray(post.values_numpy(), np.float64)
+        corr = float(np.corrcoef(xs[:, 0], xs[:, 1])[0, 1])
+        check(abs(xs[:, 0].mean() - 2.0 / 3.0) < 0.1 and abs(xs[:, 1].mean() - 4.0 / 3.0) < 0.1
+              and abs(corr - 0.5) < 0.15 and abs(xs[:, 0].std() - math.sqrt(2.0 / 3.0)) < 0.12,
+              f"svgd {name}: means {xs.mean(0)}, corr {corr}, std {xs[:, 0].std()}")
+        out[name]["corr"] = corr
+
+    check_gum("gum", run("gum", GaussianUnknownMean(), 2000, OBSERVE), 2000, 512)
+    check_hierarchy("hierarchy", run("hierarchy", M["hierarchy_both"], 512, {"y": 2.0}))
+    post = run("uniform_gum", M["uniform_gum"], 1024, OBSERVE)
+    vals = np.asarray(post.values_numpy(), np.float64)
+    check(vals.min() > 0.0 and vals.max() < 20.0 and abs(float(post.mean) - 8.5) < 0.15
+          and abs(float(post.stddev) - 1.0) < 0.15, f"svgd bounded: {float(post.mean)}, {float(post.stddev)}")
+    post = run("positive", M["positive"], 512, {"y": 2.0})
+    check(np.asarray(post.values_numpy()).min() > 0.0 and abs(float(post.mean) - 1.76) < 0.12,
+          f"svgd positive: {float(post.mean)}")
+    post = run("bimodal", M["bimodal_sharp"], 512, {"y": 4.0}, steps=800)
+    vals = np.asarray(post.values_numpy(), np.float64)
+    check(0.2 < float(np.mean(vals > 0)) < 0.8 and abs(np.abs(vals).mean() - 2.0) < 0.2,
+          f"svgd bimodal: {np.mean(vals > 0)}, {np.abs(vals).mean()}")
+    ref = M["mix"].posterior_results(t["reference_is"], observe={"y": 1.0})
+    post = run("mix", M["mix"], 2048, {"y": 1.0}, steps=800)
+    check(abs(float(post.mean) - float(ref.mean)) < 0.2 and abs(float(post.stddev) - float(ref.stddev)) < 0.2,
+          f"svgd mix: {float(post.mean)}, {float(post.stddev)} vs IS {float(ref.mean)}, {float(ref.stddev)}")
+    gum = GaussianUnknownMean()
+    # the JAX test's second run takes 100 steps, which leave the ensemble in
+    # transit (mean below -2.0 in 4 of 8 seeds in the JAX package, 7 of 8 in
+    # the port, on the CPU): 600 here, the other tests' count
+    gum.posterior_results(256, observe=OBSERVE, inference_engine=E["svgd"], svgd_particles=256, svgd_steps=100)
+    cached = len(svgd._svgd_cache)
+    post = gum.posterior_results(256, observe={"obs0": -3.0, "obs1": -4.0}, inference_engine=E["svgd"],
+                                 svgd_particles=256, svgd_steps=600)
+    check(len(svgd._svgd_cache) == cached and float(post.mean) < -2.0, f"svgd cache: {float(post.mean)}")
+    cap = t["svgd_cap"]
+    check_gum("gum_1024", run("gum_1024", GaussianUnknownMean(), 4096, OBSERVE, particles=cap), 4096, cap)
+    check_hierarchy("hierarchy_1024", run("hierarchy_1024", M["hierarchy_both"], cap, {"y": 2.0}, particles=cap))
+    emit({"phase": "svgd", **out, "launches": launches})
     return launches
 
 
@@ -6125,9 +6831,25 @@ def main():
     path.update(phase_gradient_gmm("cuda", floor_ms))
     path["hmc_gp"] = phase_hmc_gp("cuda", floor_ms)
     phase_gradient_card_vs_cpu("cuda")
-    path.update(phase_nuts_builtin("cuda"))
+    nuts_launches, eight_schools_nuts = phase_nuts_builtin("cuda")
+    path.update(nuts_launches)
     path.update(phase_gradient_resume("cuda"))
     path.update(phase_laplace("cuda"))
+    # the tempered and variational engines, after every earlier phase (whose
+    # draws stay as they were): parallel tempering and tempered SMC on the
+    # JAX tests' models and on GaussianMixture's label-switching posterior
+    # (kernels 1 and 1b in every potential), EightSchools' tempered-SMC
+    # reference for nuts_builtin's NUTS, VI and SVGD (kernel 3 on the
+    # weights and in every bisection step)
+    t_new = time.perf_counter()
+    path.update(phase_pt_bimodal("cuda"))
+    path["pt_gmm"] = phase_pt_gmm("cuda", floor_ms)
+    path.update(phase_tempered_smc_gum("cuda"))
+    path["tempered_smc_gmm"] = phase_tempered_smc_gmm("cuda", floor_ms)
+    path["tempered_smc_eight_schools"] = phase_tempered_smc_eight_schools("cuda", eight_schools_nuts)
+    path.update(phase_vi("cuda"))
+    path.update(phase_svgd("cuda"))
+    emit({"phase": "tempered_variational_seconds", "seconds": time.perf_counter() - t_new})
     emit({"phase": "launches_by_phase", "launches": {
         phase: {name: n for name, n in counts.items() if n} for phase, counts in path.items()
     }})

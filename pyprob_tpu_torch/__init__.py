@@ -31,10 +31,12 @@ parallel chains on the batched tier (resumable from a ``ChainState``) and
 as one sequential chain on the interpreter tier, and SMC (a staged-replay
 particle filter with systematic, stratified, residual or multinomial
 resampling, ``pyprob_tpu_torch.parallel``) on both tiers, guided by a
-trained network on the batched tier; the gradient engines, HMC and NUTS
-(parallel chains resumable from a ``GradientChainState``) and LAPLACE
-with ``Model.map_estimate``, differentiate one batched replay of
-``forward`` over the chains; ``Model`` also gives
+trained network on the batched tier; the gradient engines, HMC, NUTS and
+parallel tempering (parallel chains resumable from a
+``GradientChainState``), tempered SMC, VI (meanfield, fullrank and flow
+guides), SVGD and LAPLACE with ``Model.map_estimate``, differentiate one
+batched replay of ``forward`` over the chains (``pyprob_tpu_torch.
+inference``); ``Model`` also gives
 posterior-predictive draws, ``ConditionalModel`` (``Model.condition``) and
 ``ParallelModel`` (``Model.parallel``: trace generation over spawned
 processes).
@@ -58,6 +60,7 @@ from .address import AddressDictionary
 from .model import ConditionalModel, Model, ParallelModel
 from .inference import ChainState
 from . import distributions
+from . import inference
 from . import models
 from . import ops
 from . import parallel
@@ -86,6 +89,7 @@ __all__ = [
     "ChainState",
     "AddressDictionary",
     "distributions",
+    "inference",
     "models",
     "ops",
     "parallel",

@@ -380,7 +380,14 @@ class _FunctionalModel:
                                        marginalized (logsumexp over G)
     potential_nojac(z, obs)         -> [C]: the same without the Jacobian
                                        (MAP's convention)
+    potential_parts(z, obs)         -> (lp [C, G], ll [C, G]): per discrete
+                                       combination, the log prior with the
+                                       Jacobian and the log likelihood
     value_and_grad(z, obs)          -> (potential [C], gradient [C, D])
+    value_and_grad_beta(z, beta [C], obs)
+                                    -> (tempered potential [C], its
+                                       gradient [C, D], lp, ll): the
+                                       potential of prior · likelihood^β
     encode(C, obs, generator)       -> z [C, D] of C fresh prior draws
     decode(z [S, D], obs, ...)      -> the kept draws' outputs (results or
                                        traces); discrete sites drawn from
@@ -392,8 +399,9 @@ class _FunctionalModel:
     def __init__(self, **kw):
         for k, v in kw.items():
             setattr(self, k, v)
-        # (z's shape, jac) -> captured graph of the potential and its
-        # gradient on a card, or None where the potential is not captured
+        # (z's shape, jac, or "beta", or "move" and the leapfrogs) -> the
+        # captured graph of the potential and its gradient (or of a whole
+        # tempered move) on a card, or None where it is not captured
         self._graphs = {}
 
     def _eager_value_and_grad(self, z, obs, jac):
@@ -402,6 +410,14 @@ class _FunctionalModel:
             u = (self.potential if jac else self.potential_nojac)(z, obs)
             (g,) = torch.autograd.grad(u.sum(), z)
         return u.detach(), g
+
+    def _eager_tempered(self, z, beta, obs):
+        with torch.enable_grad():
+            z = z.detach().requires_grad_(True)
+            lp, ll = self.potential_parts(z, obs)
+            u = tempered_potential(lp, ll, beta)
+            (g,) = torch.autograd.grad(u.sum(), z)
+        return u.detach(), g, lp.detach(), ll.detach()
 
     def value_and_grad(self, z, obs, jac=True):
         """(potential [C], its gradient [C, D]).  On a card the replay is
@@ -414,20 +430,61 @@ class _FunctionalModel:
         and its count; so does one whose capture fails."""
         if not z.is_cuda:
             return self._eager_value_and_grad(z, obs, jac)
-        key = (tuple(z.shape), jac)
+        return self._graphed((tuple(z.shape), jac), lambda v: self._eager_value_and_grad(v, obs, jac), (z,), obs)
+
+    def value_and_grad_beta(self, z, beta, obs):
+        """(tempered potential [C], its gradient [C, D], lp [C, G], ll [C,
+        G]) at the rows' inverse temperatures ``beta`` [C]: the potential is
+        -logsumexp_G(lp + β·ll), the target prior · likelihood^β with the
+        discrete sites marginalized per combination (exact when continuous
+        sites' parameters depend on them).  On a card it takes
+        ``value_and_grad``'s decision: captured as a CUDA graph with z and β
+        as its inputs where the potential launches none of the hand-written
+        kernels, else eager."""
+        if not z.is_cuda:
+            return self._eager_tempered(z, beta, obs)
+        return self._graphed((tuple(z.shape), "beta"), lambda v, b: self._eager_tempered(v, b, obs), (z, beta), obs)
+
+    def tempered_move(self, z, lp, ll, g, beta, eps, inv_mass, p0, uniform, leapfrog_steps, obs):
+        """``tempered_hmc_transition`` on this model's tempered potential
+        (all tensors; returns (z, lp, ll, g, alpha)).  On a card the whole
+        move, its leapfrogs and its acceptance, is one CUDA graph per shape
+        where the potential launches none of the hand-written kernels (the
+        host's per-leapfrog launches are most of a small model's time);
+        else it runs eagerly, each potential's launches through their
+        wrappers."""
+
+        def move(*xs):
+            return tempered_hmc_transition(lambda v, b: self._eager_tempered(v, b, obs), *xs, leapfrog_steps)
+
+        inputs = (z, lp, ll, g, beta, eps, inv_mass, p0, uniform)
+        if not z.is_cuda:
+            return move(*inputs)
+        return self._graphed((tuple(z.shape), "move", leapfrog_steps), move, inputs, obs)
+
+    def _graphed(self, key, fn, inputs, obs):
         entry = self._graphs.get(key, False)
         if entry is False or (entry is not None and entry["obs"] is not obs):
             # the first call at this shape runs eagerly and decides
             before = _counted_launches()
-            out = self._eager_value_and_grad(z, obs, jac)
+            out = fn(*inputs)
             launched = _counted_launches() != before
-            self._graphs[key] = None if launched else _capture_value_and_grad(self, z, obs, jac)
+            self._graphs[key] = None if launched else _capture(fn, inputs, obs)
             return out
         if entry is None:
-            return self._eager_value_and_grad(z, obs, jac)
-        entry["z"].copy_(z)
+            return fn(*inputs)
+        for static, x in zip(entry["inputs"], inputs):
+            static.copy_(x)
         entry["graph"].replay()
-        return entry["u"].clone(), entry["g"].clone()
+        return tuple(o.clone() for o in entry["outputs"])
+
+
+def tempered_potential(lp, ll, beta):
+    """-logsumexp_G(lp + β·ll) of per-combination parts [C, G] at the rows'
+    inverse temperatures β [C] (or one 0-d β): the potential of prior ·
+    likelihood^β (G = 1 without discrete sites)."""
+    beta = beta[:, None] if beta.dim() else beta
+    return -torch.logsumexp(lp + beta * ll, -1)
 
 
 def _counted_launches():
@@ -436,27 +493,72 @@ def _counted_launches():
     return tuple(fn.launches for fn in counted_kernels().values())
 
 
-def _capture_value_and_grad(fm, z, obs, jac):
-    """A CUDA graph of ``fm``'s potential and gradient at inputs shaped as
-    z (after an eager call, which made the constants the replay reads,
-    ``util.to_tensor``, and one warm-up call on a side stream); None when
-    the capture failed (the eager path)."""
-    static_z = z.detach().clone()
-    current = torch.cuda.current_stream(z.device)
-    side = torch.cuda.Stream(device=z.device)
+def _capture(fn, inputs, obs):
+    """A CUDA graph of ``fn`` (a potential and its gradient) at inputs
+    shaped as ``inputs`` (after an eager call, which made the constants the
+    replay reads, ``util.to_tensor``, and one warm-up call on a side
+    stream); None when the capture failed (the eager path)."""
+    device = inputs[0].device
+    statics = tuple(x.detach().clone() for x in inputs)
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)
     side.wait_stream(current)
     with torch.cuda.stream(side):
-        fm._eager_value_and_grad(static_z, obs, jac)
+        fn(*statics)
     current.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph):
-            u, g = fm._eager_value_and_grad(static_z, obs, jac)
+            outputs = fn(*statics)
     except RuntimeError as e:
         util.log_print(f"[pyprob_tpu_torch] the potential was not captured as a CUDA graph ({e}); it runs eagerly")
-        torch.cuda.synchronize(z.device)
+        torch.cuda.synchronize(device)
         return None
-    return {"graph": graph, "z": static_z, "u": u, "g": g, "obs": obs}
+    return {"graph": graph, "inputs": statics, "outputs": outputs, "obs": obs}
+
+
+def run_steps(step, steps, device, refresh=None):
+    """``steps`` calls of ``step()``, an optimizer step on tensors that stay
+    in place (VI's guide parameters, SVGD's ensemble) returning a 0-d
+    tensor to keep; ``refresh()``, when given, writes the next step's draws
+    into the tensors ``step`` reads, before each call.  Returns the kept
+    values [steps] and whether a graph ran the steps.  On a card the first
+    call runs eagerly and decides, as
+    the potentials do: if it launched none of the hand-written kernels, the
+    second runs on a side stream (the warm-up a capture wants) and the step
+    is then captured as a CUDA graph that runs every later one (the host's
+    hundreds of small launches a step are most of its time); else, or if
+    the capture fails, every step runs eagerly."""
+    kept, graph, result = [], None, None
+    eager = device.type != "cuda"
+    for t in range(int(steps)):
+        if refresh is not None:
+            refresh()
+        if graph is not None:
+            graph.replay()
+            kept.append(result.clone())
+        elif eager or t == 0:
+            before = _counted_launches()
+            kept.append(step())
+            eager = eager or _counted_launches() != before
+        else:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device=device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                kept.append(step())
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    result = step()
+            except RuntimeError as e:
+                util.log_print(f"[pyprob_tpu_torch] the step was not captured as a CUDA graph ({e}); it runs eagerly")
+                torch.cuda.synchronize(device)
+                graph, eager = None, True
+    if not kept:
+        return torch.zeros((0,), dtype=util.dtype(), device=device), False
+    return torch.stack(kept), graph is not None
 
 
 def _functionalize(model, observed, likelihood_importance, engine_name, args, kwargs, generator=None):
@@ -580,6 +682,20 @@ def _functionalize(model, observed, likelihood_importance, engine_name, args, kw
         lj = handler.log_prob_total + handler.logdet if jac else handler.log_prob_total
         return lj.reshape(z.shape[0], num_combos)
 
+    def potential_parts(z, obs):
+        """Per discrete combination, (log prior with the Jacobian [n, G],
+        log likelihood [n, G]) from the same [n·G]-row replay: the
+        likelihood is the observes' log-density (scaled by
+        ``likelihood_importance``), the prior everything else."""
+        replay, rows = replay_rows(z, None)
+        _, handler = _run_transformed(
+            model, rows, obs, replay, False, likelihood_importance, args, kwargs,
+            discrete=discrete_set, generator=generator,
+        )
+        ll = handler.log_prob_observed
+        lp = handler.log_prob_total - ll + handler.logdet
+        return lp.reshape(z.shape[0], num_combos), ll.reshape(z.shape[0], num_combos)
+
     def potential(z, obs):
         lj = logjoint_rows(z, obs)
         return -(lj[:, 0] if grid is None else torch.logsumexp(lj, -1))
@@ -643,6 +759,7 @@ def _functionalize(model, observed, likelihood_importance, engine_name, args, kw
     return _FunctionalModel(
         potential=potential,
         potential_nojac=potential_nojac,
+        potential_parts=potential_parts,
         encode=encode,
         decode=decode,
         dim=dim,
@@ -757,9 +874,10 @@ def _warmup_adapt(da, wf, inv_mass, z, alpha, t, burn_in, target_accept):
 
 
 class GradientChainState:
-    """Warm-start snapshot of a gradient-engine run (HMC/NUTS): final
+    """Warm-start snapshot of a gradient-engine run (HMC/NUTS/PT): final
     unconstrained positions, the adapted diagonal mass matrix and the
-    dual-averaged step size of every chain.  Returned as
+    dual-averaged step size of every chain (every replica of every
+    ensemble for PT).  Returned as
     ``posterior.final_gradient_state`` and accepted via
     ``posterior(..., initial_trace=state)`` — resuming skips warmup
     (``burn_in`` defaults to 0) and rescoring against a CHANGED
@@ -768,7 +886,8 @@ class GradientChainState:
     Plain numpy arrays: pickles to disk."""
 
     def __init__(self, z, inv_mass, step_size, engine_name):
-        # HMC/NUTS: z/inv_mass [C, D], step_size [C]
+        # HMC/NUTS: z/inv_mass [C, D], step_size [C].  PT ensembles carry
+        # the full replica ladder: z/inv_mass [C, K, D], step_size [C, K].
         self.z = np.asarray(z)
         self.inv_mass = np.asarray(inv_mass)
         self.step_size = np.asarray(step_size)
@@ -798,17 +917,26 @@ class GradientChainState:
 def _gradient_mcmc_posterior(model, engine_name, engine_label, transition, target_accept, metadata_extra,
                              num_traces, observe, map_func, file_name, num_chains, burn_in, thinning_steps,
                              step_size, likelihood_importance, mesh, return_chains, args, kwargs,
-                             initial_state=None, summarize=None):
-    """Shared driver for the gradient-based chain engines (HMC, NUTS):
+                             initial_state=None, summarize=None, replicas=None, start=None):
+    """Shared driver for the gradient-based chain engines (HMC, NUTS, PT):
     resolve the chain geometry, run C chains of ``burn_in`` + kept
     transitions, decode the kept draws and materialize an Empirical (or
     per-chain Empiricals for ``return_chains``).  ``transition(fm, obs, z,
     u, g, eps, inv_mass, generator)`` advances every chain one step and
     returns (z, u, g, alpha [C], stats dict of [C] tensors to sum over the
     kept steps); ``summarize(sums, kept steps)``, when given, turns those
-    sums into metadata.  ``initial_state``: a ``GradientChainState`` from a
-    previous run's ``posterior.final_gradient_state``.  Returns None for a
-    model that does not run on the batched tier (the caller raises)."""
+    sums into metadata.  ``start(fm, obs, z)``, when given, replaces
+    ``fm.value_and_grad`` for the first potential and gradient.
+
+    ``replicas`` K (PT) gives each of the C chains (ensembles) K rows: the
+    state is z [C·K, D] (ensemble-major), every row adapts its own step size
+    and mass (``_warmup_adapt`` over C·K rows), ``alpha`` and the transition
+    cover all C·K rows, and the last replica of each ensemble (the cold one)
+    gives the kept draws, the acceptance rate and the final step size; the
+    saved state is [C, K, D].  ``initial_state``: a ``GradientChainState``
+    from a previous run's ``posterior.final_gradient_state``, of rank 3
+    with replicas and rank 2 without.  Returns None for a model that does
+    not run on the batched tier (the caller raises)."""
     if mesh is not None:
         raise _mesh_later()
     if _skips_batched_tier(model, fallback=True):
@@ -831,6 +959,8 @@ def _gradient_mcmc_posterior(model, engine_name, engine_label, transition, targe
     elif num_chains is None:
         num_chains = int(min(max(1, num_traces // 256), 1024))
     C = int(num_chains)
+    K = 1 if replicas is None else int(replicas)
+    R = C * K
     if burn_in is None:
         # warm start: the chains are already equilibrated and adapted
         burn_in = 0 if initial_state is not None else 200
@@ -857,25 +987,36 @@ def _gradient_mcmc_posterior(model, engine_name, engine_label, transition, targe
                 f"but the model's unconstrained space is {dim}-"
                 f"dimensional"
             )
-        if initial_state.z.ndim != 2:
+        rank = 2 if replicas is None else 3
+        if initial_state.z.ndim != rank:
             raise RuntimeError(
                 f"warm-start state rank {initial_state.z.ndim} does "
-                f"not fit {engine_name} (expects rank 2: HMC/NUTS carry [C, D]; "
-                "PT carries a replica ladder [C, K, D])"
+                f"not fit {engine_name} (expects rank {rank}: PT carries a "
+                "replica ladder [C, K, D]; HMC/NUTS carry [C, D])"
             )
-        z = torch.as_tensor(initial_state.z, device=device).to(util.dtype())
-        inv_mass = torch.as_tensor(initial_state.inv_mass, device=device).to(util.dtype())
-        eps0 = torch.as_tensor(initial_state.step_size, device=device).to(util.dtype())
+        if replicas is not None and initial_state.z.shape[1] != K:
+            raise RuntimeError(
+                f"warm-start state carries {initial_state.z.shape[1]} replicas a ladder, "
+                f"not num_temperatures={K}"
+            )
+        z = torch.as_tensor(initial_state.z, device=device).to(util.dtype()).reshape(R, dim)
+        inv_mass = torch.as_tensor(initial_state.inv_mass, device=device).to(util.dtype()).reshape(R, dim)
+        eps0 = torch.as_tensor(initial_state.step_size, device=device).to(util.dtype()).reshape(R)
     else:
-        z = fm.encode(C, observed)
-        inv_mass = torch.ones((C, dim), dtype=util.dtype(), device=device)
-        eps0 = torch.full((C,), step_size, dtype=util.dtype(), device=device)
+        z = fm.encode(R, observed)
+        inv_mass = torch.ones((R, dim), dtype=util.dtype(), device=device)
+        eps0 = torch.full((R,), step_size, dtype=util.dtype(), device=device)
     # the potential and gradient recompute here, so a changed observation
     # is rescored automatically
-    u, g = fm.value_and_grad(z, observed)
+    u, g = fm.value_and_grad(z, observed) if start is None else start(fm, observed, z)
     da = _da_init(eps0)
-    wf = _welford_init(C, dim, z)
+    wf = _welford_init(R, dim, z)
     acc_sum = torch.zeros((C,), dtype=util.dtype(), device=device)
+
+    def cold(x):
+        # the last replica of each ensemble (every row without replicas)
+        return x if replicas is None else x.reshape((C, K) + tuple(x.shape[1:]))[:, K - 1]
+
     stat_sums = {}
     kept = []
     t_steps = time.time()
@@ -885,22 +1026,24 @@ def _gradient_mcmc_posterior(model, engine_name, engine_label, transition, targe
         z, u, g, alpha, stats = transition(fm, observed, z, u, g, eps, inv_mass, generator)
         da, wf, inv_mass = _warmup_adapt(da, wf, inv_mass, z, alpha, t, burn_in, target_accept)
         if t >= burn_in:
-            acc_sum = acc_sum + alpha
+            acc_sum = acc_sum + cold(alpha)
             for k, v in stats.items():
                 stat_sums[k] = stat_sums.get(k, 0) + v
             if (t - burn_in) % thinning_steps == 0:
-                kept.append(z)
+                kept.append(cold(z))
     final_eps = torch.exp(da[2])
     step_seconds = time.time() - t_steps
     post_steps = max(total_steps - burn_in, 1)
     stats = {
         "acceptance_rate": float(acc_sum.mean()) / post_steps,
-        "final_step_size": float(final_eps.mean()),
+        "final_step_size": float(cold(final_eps).mean()),
     }
     if summarize is not None:
         stats.update(summarize(stat_sums, post_steps))
+    ladder = () if replicas is None else (K,)
     final_state = GradientChainState(
-        z=_host(z), inv_mass=_host(inv_mass), step_size=_host(final_eps), engine_name=engine_name,
+        z=_host(z).reshape((C,) + ladder + (dim,)), inv_mass=_host(inv_mass).reshape((C,) + ladder + (dim,)),
+        step_size=_host(final_eps).reshape((C,) + ladder), engine_name=engine_name,
     )
     # [kept, C, D] flattened step-major (index = step * C + chain)
     z_kept = torch.stack(kept).reshape(-1, dim)
@@ -981,6 +1124,37 @@ def hmc_transition(value_and_grad, z, u, g, eps, inv_mass, p0, uniform, leapfrog
     g = torch.where(accept[:, None], gl, g)
     alpha = torch.clamp(torch.exp(log_alpha), max=1.0)
     return z, u, g, alpha, accept
+
+
+def tempered_hmc_transition(value_and_grad_beta, z, lp, ll, g, beta, eps, inv_mass, p0, uniform, leapfrog_steps):
+    """One HMC transition of every row against its tempered target prior ·
+    likelihood^β (PT's replica moves, tempered SMC's rejuvenation), given
+    its draws: the momentum p0 [C, D] and the acceptance uniform [C].
+    ``value_and_grad_beta(z, beta)`` gives (potential [C], gradient [C, D],
+    lp [C, G], ll [C, G]) at the rows' β [C]; each leapfrog is one call.
+    The rows' parts lp, ll travel with their positions.  Returns (z, lp,
+    ll, g, alpha [C]); a NaN energy error rejects."""
+    eps = eps[:, None]
+
+    def kinetic(p):
+        return 0.5 * torch.sum(inv_mass * p * p, -1)
+
+    u = tempered_potential(lp, ll, beta)
+    p = p0 - 0.5 * eps * g
+    zl, ul, gl, lpl, lll = z, u, g, lp, ll
+    for i in range(leapfrog_steps):
+        zl = zl + eps * inv_mass * p
+        ul, gl, lpl, lll = value_and_grad_beta(zl, beta)
+        scale = 0.5 * eps if i == leapfrog_steps - 1 else eps
+        p = p - scale * gl
+    log_alpha = (u - ul) + (kinetic(p0) - kinetic(p))
+    log_alpha = torch.where(torch.isnan(log_alpha), torch.full_like(log_alpha, -math.inf), log_alpha)
+    accept = torch.log(uniform) < log_alpha
+    z = torch.where(accept[:, None], zl, z)
+    g = torch.where(accept[:, None], gl, g)
+    lp = torch.where(accept[:, None], lpl, lp)
+    ll = torch.where(accept[:, None], lll, ll)
+    return z, lp, ll, g, torch.clamp(torch.exp(log_alpha), max=1.0)
 
 
 def vectorized_hmc_posterior(model, num_traces, observe=None, map_func=None, file_name=None, num_chains=None,

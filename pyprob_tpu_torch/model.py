@@ -22,14 +22,14 @@ on the batched tier (``inference.mcmc``, resumable from a ``ChainState``)
 and as the reference's sequential chain on the interpreter tier.  SMC
 (``inference.smc``) is a staged-replay particle filter on both tiers,
 guided by the network on the batched tier.  The gradient engines (HMC,
-NUTS, LAPLACE, and ``map_estimate``; ``inference.hmc``, ``nuts``,
-``laplace``) differentiate one batched replay of ``forward`` and run on
-the batched tier only.  ``posterior_predictive``
+NUTS, LAPLACE, and ``map_estimate``; parallel tempering and tempered SMC;
+VI and SVGD; ``inference.hmc``, ``nuts``, ``laplace``, ``pt``,
+``tempered_smc``, ``vi``, ``svgd``) differentiate one batched replay of
+``forward`` and run on the batched tier only.  ``posterior_predictive``
 replays a trace-valued posterior's latents with fresh observes; ``condition`` (``filter``) wraps a model in a
 ``ConditionalModel`` that keeps the traces meeting a criterion;
 ``parallel`` gives a ``ParallelModel`` that spreads interpreter-tier
-traces over spawned processes.  The other engines come with later slices
-and raise ``NotImplementedError``.
+traces over spawned processes.
 """
 
 from __future__ import annotations
@@ -277,6 +277,14 @@ class Model:
         map_steps=None,
         num_starts=None,
         learning_rate=None,
+        num_temperatures=None,
+        rejuvenation_steps=None,
+        max_stages=None,
+        vi_steps=None,
+        vi_particles=None,
+        guide=None,
+        svgd_steps=None,
+        svgd_particles=None,
         *args,
         **kwargs,
     ):
@@ -304,9 +312,18 @@ class Model:
         ``thinning_steps``, ``return_chains``; ``initial_trace`` a
         ``GradientChainState``, ``posterior.final_gradient_state``) and
         LAPLACE (``inference.laplace``: ``map_steps``, ``num_starts``,
-        ``learning_rate``); a model that does not run there raises
-        RuntimeError.  ``mesh`` (chains or particles over several cards)
-        comes with the distributed slice."""
+        ``learning_rate``), PARALLEL_TEMPERING (``inference.pt``: HMC's
+        knobs and ``num_temperatures``; ``initial_trace`` a
+        ``GradientChainState`` of a PT run), TEMPERED_SMC
+        (``inference.tempered_smc``: ``resample_threshold``, ``resampling``,
+        ``rejuvenation_steps``, ``leapfrog_steps``, ``target_accept``,
+        ``step_size``, ``max_stages``), VARIATIONAL_INFERENCE
+        (``inference.vi``: ``vi_steps``, ``vi_particles``, ``guide``
+        'meanfield', 'fullrank' or 'flow', ``learning_rate``) and
+        STEIN_VARIATIONAL_GRADIENT_DESCENT (``inference.svgd``:
+        ``svgd_steps``, ``svgd_particles``, ``learning_rate``); a model that
+        does not run there raises RuntimeError.  ``mesh`` (chains or
+        particles over several cards) comes with the distributed slice."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chains or particles over several cards) is not ported yet; "
@@ -339,6 +356,14 @@ class Model:
                 map_steps=map_steps,
                 num_starts=num_starts,
                 learning_rate=learning_rate,
+                num_temperatures=num_temperatures,
+                rejuvenation_steps=rejuvenation_steps,
+                max_stages=max_stages,
+                vi_steps=vi_steps,
+                vi_particles=vi_particles,
+                guide=guide,
+                svgd_steps=svgd_steps,
+                svgd_particles=svgd_particles,
                 *args,
                 **kwargs,
             )
@@ -397,7 +422,7 @@ class Model:
                     "or load_inference_network first."
                 )
         else:
-            raise state._engines_later(inference_engine.name)
+            raise ValueError(f"unknown inference engine {inference_engine!r}")
         if (
             network is not None
             and lockstep is not False

@@ -65,22 +65,23 @@ _SMC = (
     InferenceEngine.SEQUENTIAL_MONTE_CARLO,
     InferenceEngine.SEQUENTIAL_MONTE_CARLO_WITH_INFERENCE_NETWORK,
 )
-# the chain engines of the gradient engines' base (inference/hmc.py)
+# the chain engines of the gradient engines' base (inference/hmc.py), which
+# resume from a GradientChainState
 _GRADIENT_CHAINS = (
     InferenceEngine.HAMILTONIAN_MONTE_CARLO,
     InferenceEngine.NO_U_TURN_SAMPLER,
+    InferenceEngine.PARALLEL_TEMPERING,
 )
 # the gradient engines: batched tier only
-_GRADIENT = _GRADIENT_CHAINS + (InferenceEngine.LAPLACE,)
+_GRADIENT = _GRADIENT_CHAINS + (
+    InferenceEngine.LAPLACE,
+    InferenceEngine.TEMPERED_SMC,
+    InferenceEngine.VARIATIONAL_INFERENCE,
+    InferenceEngine.STEIN_VARIATIONAL_GRADIENT_DESCENT,
+)
 # mixture weight on the learned proposal for rejection-retry attempts
 # (defensive importance sampling, Hesterberg 1995)
 _DEFENSIVE_PI = 0.5
-
-
-def _engines_later(what):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the tempered and variational engines slice"
-    )
 
 
 class _Context:
@@ -647,7 +648,7 @@ def _init_traces(
     chain's current trace, one of its controlled sites is chosen to be
     resampled, uniformly."""
     if trace_mode == TraceMode.POSTERIOR and inference_engine not in _WEIGHTED + _MCMC:
-        raise _engines_later(inference_engine.name)
+        raise RuntimeError(f"{inference_engine.name} has no interpreter tier (one trace at a time)")
     util.device()  # raises without a card unless the CPU was asked for
     ctx = _ctx_local.value
     ctx.trace_mode = trace_mode

@@ -17,10 +17,11 @@ MCMC engines route to ``inference.mcmc``, whose ``ReplayHandler`` (a
 ``VectorizedHandler``) replays ``forward`` over the chains through
 ``run_forward``; the SMC engines to ``inference.smc``, whose stages run
 ``forward`` under a ``VectorizedHandler`` that replays the resampled
-prefix (``replay_values``); the gradient engines (HMC, NUTS, LAPLACE) to
-``inference.hmc`` / ``nuts`` / ``laplace``, whose potential is one replay
-of ``forward`` over the chains under ``_TransformedReplayHandler``, run
-with autograd on.
+prefix (``replay_values``); the gradient engines (HMC, NUTS, LAPLACE, PT,
+tempered SMC, VI, SVGD) to ``inference.hmc`` / ``nuts`` / ``laplace`` /
+``pt`` / ``tempered_smc`` / ``vi`` / ``svgd``, whose potential is one
+replay of ``forward`` over the chains under ``_TransformedReplayHandler``,
+run with autograd on.
 """
 
 from __future__ import annotations
@@ -1008,6 +1009,14 @@ def vectorized_posterior(
     map_steps=None,
     num_starts=None,
     learning_rate=None,
+    num_temperatures=None,
+    rejuvenation_steps=None,
+    max_stages=None,
+    vi_steps=None,
+    vi_particles=None,
+    guide=None,
+    svgd_steps=None,
+    svgd_particles=None,
     *args,
     **kwargs,
 ):
@@ -1022,9 +1031,16 @@ def vectorized_posterior(
     ``leapfrog_steps`` / ``max_tree_depth``, ``target_accept``,
     ``step_size`` and a ``GradientChainState`` as ``initial_trace``) and
     LAPLACE (``inference.laplace``: ``map_steps``, ``num_starts``,
-    ``learning_rate``); None when ``fallback`` and the model cannot run on
-    this tier (``vectorized_traces``), and for SMC and the gradient engines
-    whenever it cannot (the caller runs the interpreter filter or raises)."""
+    ``learning_rate``), parallel tempering (``inference.pt``: HMC's knobs
+    and ``num_temperatures``), tempered SMC (``inference.tempered_smc``:
+    ``resample_threshold``, ``resampling``, ``rejuvenation_steps``,
+    ``leapfrog_steps``, ``target_accept``, ``step_size``, ``max_stages``),
+    VI (``inference.vi``: ``vi_steps``, ``vi_particles``, ``guide``,
+    ``learning_rate``) and SVGD (``inference.svgd``: ``svgd_steps``,
+    ``svgd_particles``, ``learning_rate``); None when ``fallback`` and the
+    model cannot run on this tier (``vectorized_traces``), and for SMC and
+    the gradient engines whenever it cannot (the caller runs the
+    interpreter filter or raises)."""
     if inference_engine == InferenceEngine.LAPLACE:
         from .inference.laplace import vectorized_laplace_posterior
 
@@ -1040,6 +1056,31 @@ def vectorized_posterior(
             likelihood_importance=likelihood_importance,
             args=args,
             kwargs=kwargs,
+        )
+    if inference_engine == InferenceEngine.VARIATIONAL_INFERENCE:
+        from .inference.vi import vectorized_vi_posterior
+
+        return vectorized_vi_posterior(
+            model, num_traces=num_traces, observe=observe, map_func=map_func, file_name=file_name,
+            vi_steps=vi_steps, vi_particles=vi_particles, guide=guide, learning_rate=learning_rate,
+            likelihood_importance=likelihood_importance, args=args, kwargs=kwargs,
+        )
+    if inference_engine == InferenceEngine.STEIN_VARIATIONAL_GRADIENT_DESCENT:
+        from .inference.svgd import vectorized_svgd_posterior
+
+        return vectorized_svgd_posterior(
+            model, num_traces=num_traces, observe=observe, map_func=map_func, file_name=file_name,
+            svgd_steps=svgd_steps, svgd_particles=svgd_particles, learning_rate=learning_rate,
+            likelihood_importance=likelihood_importance, args=args, kwargs=kwargs,
+        )
+    if inference_engine == InferenceEngine.TEMPERED_SMC:
+        from .inference.tempered_smc import vectorized_tempered_smc_posterior
+
+        return vectorized_tempered_smc_posterior(
+            model, num_traces=num_traces, observe=observe, map_func=map_func, file_name=file_name,
+            resample_threshold=resample_threshold, resampling=resampling, rejuvenation_steps=rejuvenation_steps,
+            leapfrog_steps=leapfrog_steps, target_accept=target_accept, step_size=step_size,
+            max_stages=max_stages, likelihood_importance=likelihood_importance, args=args, kwargs=kwargs,
         )
     if inference_engine in state._GRADIENT_CHAINS:
         # initial_trace doubles as the warm-start slot for the gradient
@@ -1072,6 +1113,12 @@ def vectorized_posterior(
             from .inference.nuts import vectorized_nuts_posterior
 
             return vectorized_nuts_posterior(model, max_tree_depth=max_tree_depth, **common)
+        if inference_engine == InferenceEngine.PARALLEL_TEMPERING:
+            from .inference.pt import vectorized_pt_posterior
+
+            return vectorized_pt_posterior(
+                model, num_temperatures=num_temperatures, leapfrog_steps=leapfrog_steps, **common
+            )
         from .inference.hmc import vectorized_hmc_posterior
 
         return vectorized_hmc_posterior(model, leapfrog_steps=leapfrog_steps, **common)
@@ -1119,7 +1166,7 @@ def vectorized_posterior(
     elif inference_engine == InferenceEngine.IMPORTANCE_SAMPLING_WITH_INFERENCE_NETWORK:
         proposal_step, label = _network_proposal_step(model, observe), "IC"
     else:
-        raise state._engines_later(inference_engine.name)
+        raise ValueError(f"unknown inference engine {inference_engine!r}")
     try:
         emp = vectorized_traces(
             model,

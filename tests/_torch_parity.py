@@ -451,3 +451,115 @@ def carry_ff(jnet, model):
     net = TorchFF.from_numpy(model, params, meta, device="cpu")
     model._inference_network = net
     return net
+
+
+# ---------------------------------------------------------------------------
+# the tempered and variational engines' models (tests/test_pt.py,
+# test_tempered_smc.py, test_vi.py, test_svgd.py), each body with its
+# closed-form posterior where it has one
+# ---------------------------------------------------------------------------
+
+
+def hierarchy_body(pp, both=False):
+    """x1 ~ N(0, 1), x2 ~ N(x1, 1), y ~ N(x2, 1): at y = 2 the posterior
+    mean is [2/3, 4/3], covariance [[2/3, 1/3], [1/3, 2/3]], log Z -2.135."""
+    x1 = pp.sample(pp.distributions.Normal(0.0, 1.0))
+    x2 = pp.sample(pp.distributions.Normal(x1, 1.0))
+    pp.observe(pp.distributions.Normal(x2, 1.0), name="y")
+    return (x1, x2) if both else x1
+
+
+def bimodal_body(pp, stddev=1.0):
+    """y ~ N(mu², stddev), mu ~ N(0, 3): modes at ±sqrt(y)."""
+    mu = pp.sample(pp.distributions.Normal(0.0, 3.0))
+    pp.observe(pp.distributions.Normal(mu * mu, stddev), name="y")
+    return mu
+
+
+def uniform_gum_body(pp):
+    """GUM under a Uniform(0, 20) prior: at OBSERVE about N(8.5, 1)."""
+    mu = pp.sample(pp.distributions.Uniform(0.0, 20.0))
+    likelihood = pp.distributions.Normal(mu, math.sqrt(2.0))
+    pp.observe(likelihood, name="obs0")
+    pp.observe(likelihood, name="obs1")
+    return mu
+
+
+def positive_body(pp):
+    """lam ~ Exponential(1), y ~ N(lam, 0.5): at y = 2 the mean is 1.76."""
+    lam = pp.sample(pp.distributions.Exponential(1.0))
+    pp.observe(pp.distributions.Normal(lam, 0.5), name="y")
+    return lam
+
+
+def mix_body(pp, where):
+    """mu ~ N(0, 5), k ~ Categorical([0.5, 0.5]), y ~ N(mu ∓ 2, 1)."""
+    mu = pp.sample(pp.distributions.Normal(0.0, 5.0))
+    k = pp.sample(pp.distributions.Categorical(probs=[0.5, 0.5]))
+    pp.observe(pp.distributions.Normal(mu + where(k == 0, -2.0, 2.0), 1.0), name="y")
+    return mu
+
+
+def depmix_body(pp, asarray):
+    """d ~ Categorical([0.3, 0.7]), x ~ N([-3, 3][d], 1), y ~ N(x, 0.5): a
+    continuous site whose prior depends on the enumerated latent."""
+    d = pp.sample(pp.distributions.Categorical(probs=[0.3, 0.7]))
+    centers = asarray([-3.0, 3.0])
+    x = pp.sample(pp.distributions.Normal(centers[d], 1.0))
+    pp.observe(pp.distributions.Normal(x, 0.5), name="y")
+    return x
+
+
+def banana_body(pp, stack):
+    """x ~ N(0, 1), y ~ N(0, 2), w ~ N(y − x², 0.3): a curved posterior."""
+    x = pp.sample(pp.distributions.Normal(0.0, 1.0))
+    y = pp.sample(pp.distributions.Normal(0.0, 2.0))
+    pp.observe(pp.distributions.Normal(y - x * x, 0.3), name="w")
+    return stack([x, y])
+
+
+def body_pair(body, *jax_args, torch_args=None, **kwargs):
+    """The JAX package's and the port's model of one body (equal
+    addresses); ``torch_args`` replace ``jax_args`` for the port."""
+    torch_args = jax_args if torch_args is None else torch_args
+
+    class J(pyprob_tpu.Model):
+        def forward(self):
+            return body(pyprob_tpu, *jax_args, **kwargs)
+
+    class T(pyprob_tpu_torch.Model):
+        def forward(self):
+            return body(pyprob_tpu_torch, *torch_args, **kwargs)
+
+    return J(), T()
+
+
+def mix_pair():
+    return body_pair(mix_body, jnp.where, torch_args=(torch.where,))
+
+
+def depmix_pair():
+    return body_pair(depmix_body, jnp.asarray, torch_args=(torch.tensor,))
+
+
+def _norm_log_pdf(x, m, s):
+    return -0.5 * ((x - m) / s) ** 2 - math.log(s) - 0.5 * math.log(2 * math.pi)
+
+
+def mixture_posterior(name, y=1.0):
+    """(mean, stddev, log Z) of mix_body's or depmix_body's posterior at y:
+    a two-component Gaussian mixture in closed form."""
+    if name == "mix":
+        # mu | k, y ~ N(25 (y ± 2) / 26, 25/26), p(k) N(y; ∓2, sqrt 26)
+        comps = [(25 * (y - s) / 26, 25 / 26, math.log(0.5) + _norm_log_pdf(y, s, math.sqrt(26.0)))
+                 for s in (-2.0, 2.0)]
+    else:
+        # x | d, y ~ N((c_d + 4 y) / 5, 1/5), p_d N(y; c_d, sqrt 1.25)
+        comps = [((c + 4.0 * y) / 5, 0.2, math.log(p) + _norm_log_pdf(y, c, math.sqrt(1.25)))
+                 for p, c in ((0.3, -3.0), (0.7, 3.0))]
+    logs = np.array([c[2] for c in comps])
+    log_z = float(np.max(logs) + np.log(np.sum(np.exp(logs - np.max(logs)))))
+    w = np.exp(logs - log_z)
+    mean = float(sum(wi * m for wi, (m, _, _) in zip(w, comps)))
+    var = float(sum(wi * (v + m * m) for wi, (m, v, _) in zip(w, comps))) - mean * mean
+    return mean, math.sqrt(var), log_z

@@ -256,7 +256,7 @@ def test_tag_records_and_what_is_not_ported_raises():
     assert site.value is None and site.log_prob == -1.5 and trace.log_importance_weight == -1.5
     with pytest.raises(NotImplementedError, match="Markov/SMC slice"):
         pp.factor(log_prob=0.0, mask=True)
-    with pytest.raises(NotImplementedError, match="variational engines slice"):
+    with pytest.raises(RuntimeError, match="no interpreter tier"):
         TorchGUM().posterior_results(
             5, observe=OBSERVE, vectorized=False,
             inference_engine=TEngine.PARALLEL_TEMPERING,

@@ -148,12 +148,16 @@ def test_sites_get_equal_addresses(models):
 
 def test_unsupported_paths_raise():
     model = GaussianUnknownMean()
-    for vectorized in (None, False):
-        with pytest.raises(NotImplementedError, match="variational engines slice"):
-            model.posterior_results(
-                10, observe=OBSERVE, inference_engine=TEngine.VARIATIONAL_INFERENCE,
-                vectorized=vectorized,
-            )
+    # VI runs on the batched tier only: a short run there, and the gradient
+    # engines' error on the interpreter tier
+    post = model.posterior_results(
+        10, observe=OBSERVE, inference_engine=TEngine.VARIATIONAL_INFERENCE, vectorized=None, vi_steps=5,
+    )
+    assert post.length == 10 and post.metadata[-1]["guide"] == "meanfield"
+    with pytest.raises(RuntimeError, match="no interpreter tier"):
+        model.posterior_results(
+            10, observe=OBSERVE, inference_engine=TEngine.VARIATIONAL_INFERENCE, vectorized=False,
+        )
     with pytest.raises(RuntimeError, match="No inference network"):
         model.posterior_results(
             10, observe=OBSERVE,

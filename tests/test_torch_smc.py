@@ -517,10 +517,14 @@ def test_errors():
         pp.inference.vectorized_smc_posterior(TorchGUM(), 10, observe=OBSERVE, mesh=object())
     with pytest.raises(NotImplementedError, match="distributed slice"):
         TorchGUM().posterior(num_traces=10, observe=OBSERVE, inference_engine=SMC, mesh=object())
-    for engine in (pp.InferenceEngine.PARALLEL_TEMPERING, pp.InferenceEngine.TEMPERED_SMC):
-        for vectorized in (None, False):
-            with pytest.raises(NotImplementedError, match="variational engines slice"):
-                TorchGUM().posterior_results(10, observe=OBSERVE, inference_engine=engine, vectorized=vectorized)
+    # PT and tempered SMC run on the batched tier only: a short run there,
+    # and the gradient engines' error on the interpreter tier
+    for engine, knobs in ((pp.InferenceEngine.PARALLEL_TEMPERING, {"num_chains": 2, "burn_in": 4}),
+                          (pp.InferenceEngine.TEMPERED_SMC, {"max_stages": 3})):
+        post = TorchGUM().posterior_results(10, observe=OBSERVE, inference_engine=engine, vectorized=None, **knobs)
+        assert post.length == 10 and post.metadata[-1]["inference_engine"] == f"InferenceEngine.{engine.name}"
+        with pytest.raises(RuntimeError, match="no interpreter tier"):
+            TorchGUM().posterior_results(10, observe=OBSERVE, inference_engine=engine, vectorized=False)
 
 
 @pytest.mark.parametrize("vectorized", [None, False], ids=["batched", "interpreter"])
